@@ -1,0 +1,165 @@
+"""Map search building blocks: unique passes, strided maps, host oracle.
+
+Counterpart of ``repro.core.mapsearch`` for the serving slice. The
+reference orders its bounded keys with sort-free counting passes; a stable
+``torch.sort`` of the same keys gives the same permutation, so that is what
+runs here. Every output is int32 and bit-identical to the reference.
+
+Map representation (gather form, output stationary):
+    kmap : (N_out, K) int32 — input row feeding output i through tap k
+           (-1 = no contribution)
+plus, for Gconv2/Tconv2, the scatter-form triples of :class:`StridedMaps`;
+:func:`strided_to_kmap` converts between the two.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import morton
+
+INVALID = torch.iinfo(torch.int32).max
+
+_I32 = torch.int32
+
+
+def _scatter_drop(size: int, idx: torch.Tensor, src, fill, dtype):
+    """``full(size, fill).at[idx].set(src, mode='drop')`` for indices in
+    [0, size]: index ``size`` is an extra drop row that is sliced off."""
+    out = torch.full((size + 1,), fill, dtype=dtype, device=idx.device)
+    out[idx.long()] = src
+    return out[:size]
+
+
+def sorted_unique(codes: torch.Tensor, size: int):
+    """Sorted unique of int32 keys with a static output ``size``.
+
+    Invalid inputs must be INVALID. Returns (uniq padded with INVALID,
+    count, rank of each input by lower bound in uniq).
+    """
+    order = torch.sort(codes, stable=True).indices
+    s = codes[order]
+    is_new = torch.ones_like(s, dtype=torch.bool)
+    is_new[1:] = s[1:] != s[:-1]
+    is_new &= s != INVALID
+    pos = torch.cumsum(is_new, 0, dtype=_I32) - 1
+    tgt = torch.where(is_new & (pos < size), pos, size)
+    uniq = _scatter_drop(size, tgt, s, INVALID, _I32)
+    count = is_new.sum(dtype=_I32)
+    rank = torch.searchsorted(uniq, codes, out_int32=True)
+    return uniq, count, rank
+
+
+def unique_pairs(hi: torch.Tensor, lo: torch.Tensor, valid: torch.Tensor,
+                 size: int):
+    """Unique over lexicographic (hi, lo) int32 pair keys.
+
+    Returns (rep, count, rank): ``rep[r]`` is the original index of the
+    representative of unique key r (-1 padding); ``rank[i]`` the unique id
+    of input i (``size`` for invalid inputs). The order is the stable
+    lexicographic one, invalid entries last in their original order.
+    """
+    n = hi.shape[0]
+    hi = torch.where(valid, hi, INVALID)
+    lo = torch.where(valid, lo, INVALID)
+    # one stable sort on a composite int64 key: hi major, lo minor
+    order = torch.sort((hi.long() << 32) | lo.long(), stable=True).indices
+    shi, slo, sval = hi[order], lo[order], valid[order]
+    is_new = torch.ones_like(sval)
+    is_new[1:] = (shi[1:] != shi[:-1]) | (slo[1:] != slo[:-1])
+    is_new &= sval
+    pos = torch.cumsum(is_new, 0, dtype=_I32) - 1
+    count = is_new.sum(dtype=_I32)
+    rank_sorted = torch.where(sval, pos, size).to(_I32)
+    rank = torch.zeros(n, dtype=_I32, device=hi.device)
+    rank[order] = rank_sorted
+    tgt = torch.where(is_new & (pos < size), pos, size)
+    rep = _scatter_drop(size, tgt, order.to(_I32), -1, _I32)
+    return rep, count, rank
+
+
+def build_kmap_hash(coords: np.ndarray, batch: np.ndarray,
+                    valid: np.ndarray, offsets: np.ndarray) -> np.ndarray:
+    """Serial hash probing on the host — the GPU-engine baseline and the
+    oracle every search engine is checked against."""
+    table = {}
+    for j in range(coords.shape[0]):
+        if valid[j]:
+            table[(int(batch[j]),) + tuple(int(c) for c in coords[j])] = j
+    n, k = coords.shape[0], offsets.shape[0]
+    kmap = np.full((n, k), -1, dtype=np.int32)
+    for i in range(n):
+        if not valid[i]:
+            continue
+        for t in range(k):
+            key = (int(batch[i]),) + tuple(int(c)
+                                           for c in coords[i] + offsets[t])
+            kmap[i, t] = table.get(key, -1)
+    return kmap
+
+
+class StridedMaps(NamedTuple):
+    """Scatter-form rulebook for strided/transposed layers.
+
+    For Gconv2, features flow in_idx -> out_idx through weight tap ``tap``;
+    Tconv2 reuses the same structure with the roles swapped.
+    """
+
+    out_coords: torch.Tensor   # (N_out_max, 3) int32
+    out_batch: torch.Tensor    # (N_out_max,) int32
+    out_valid: torch.Tensor    # (N_out_max,) bool
+    n_out: torch.Tensor        # () int32
+    in_idx: torch.Tensor       # (M,) int32
+    out_idx: torch.Tensor      # (M,) int32
+    tap: torch.Tensor          # (M,) int32 weight tap
+    mvalid: torch.Tensor       # (M,) bool
+
+
+def _gather_rep(rep: torch.Tensor, src: torch.Tensor, fill=0):
+    ok = rep >= 0
+    out = src[rep.clamp(min=0).long()]
+    mask = ok if out.ndim == 1 else ok[:, None]
+    return torch.where(mask, out, fill), ok
+
+
+def build_maps_gconv2(coords: torch.Tensor, batch: torch.Tensor,
+                      valid: torch.Tensor, *, grid_bits: int = 7,
+                      batch_bits: int = 4) -> StridedMaps:
+    """Gconv2 (k=2, s=2): each voxel maps to its octree parent; the weight
+    tap is the child octant phi_1."""
+    n = coords.shape[0]
+    parent = coords >> 1
+    hi = morton.block_key(parent, batch, grid_bits, batch_bits)
+    lo = morton.local_code(parent)
+    rep, n_out, rank = unique_pairs(hi, lo, valid, n)
+    out_coords, ok = _gather_rep(rep, parent)
+    out_batch, _ = _gather_rep(rep, batch)
+    return StridedMaps(
+        out_coords=out_coords.to(_I32), out_batch=out_batch.to(_I32),
+        out_valid=ok, n_out=n_out,
+        in_idx=torch.arange(n, dtype=_I32, device=coords.device),
+        out_idx=torch.where(valid, rank, 0).to(_I32),
+        tap=morton.child_octant(coords).to(_I32), mvalid=valid)
+
+
+def transpose_maps(maps: StridedMaps, target_coords: torch.Tensor,
+                   target_batch: torch.Tensor,
+                   target_valid: torch.Tensor) -> StridedMaps:
+    """Tconv2: reuse the Gconv2 maps with in/out swapped (no re-search)."""
+    return StridedMaps(
+        out_coords=target_coords, out_batch=target_batch,
+        out_valid=target_valid, n_out=target_valid.sum(dtype=_I32),
+        in_idx=maps.out_idx, out_idx=maps.in_idx, tap=maps.tap,
+        mvalid=maps.mvalid)
+
+
+def strided_to_kmap(maps: StridedMaps, *, n_out: int,
+                    n_taps: int) -> torch.Tensor:
+    """Scatter triples to the gather-form kmap (n_out, n_taps); each
+    (out, tap) cell has at most one contributor in every SpConv layer."""
+    flat = maps.out_idx * n_taps + maps.tap
+    flat = torch.where(maps.mvalid, flat, n_out * n_taps)
+    kmap = _scatter_drop(n_out * n_taps, flat, maps.in_idx, -1, _I32)
+    return kmap.reshape(n_out, n_taps)

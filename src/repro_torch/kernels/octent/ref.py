@@ -1,0 +1,56 @@
+"""Plain PyTorch version of the OCTENT query: the kernel's oracle.
+
+Same clipping, same Morton ladder and the same two lower-bound searches as
+the CUDA kernel (csrc/octent_query.cu), vectorized over the whole cloud so
+every intermediate, the (N, K, 3) query tensor included, materializes.
+Integer in, integer out: the kernel must match it bit for bit.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import morton
+
+
+def encode_queries(coords: torch.Tensor, batch: torch.Tensor,
+                   valid: torch.Tensor, offsets: torch.Tensor, *,
+                   grid_bits: int):
+    """All K offset queries per voxel and their search keys.
+
+    Returns (inb, bkey, bank, row), each (N, K): the in-grid mask (queries
+    out of the grid or from invalid voxels rejected), the batch-tagged block
+    Morton key, and the banked-table address of the local code.
+    """
+    q = coords[:, None, :] + offsets[None, :, :]          # (N, K, 3)
+    limit = (1 << grid_bits) * morton.BLOCK_SIZE
+    inb = ((q >= 0) & (q < limit)).all(dim=-1) & valid[:, None]
+    qc = q.clamp(0, limit - 1)
+    bt = batch[:, None].expand(q.shape[:2]).to(torch.int32)
+    bkey = (morton.interleave3(qc >> morton.BLOCK_BITS, grid_bits)
+            | (bt << (3 * grid_bits)))
+    phi = morton.interleave3(qc & (morton.BLOCK_SIZE - 1), morton.BLOCK_BITS)
+    bank, row = morton.bank_and_row(phi)
+    return inb, bkey, bank, row
+
+
+def octent_query_ref(coords: torch.Tensor, batch: torch.Tensor,
+                     valid: torch.Tensor, offsets: torch.Tensor,
+                     ublocks: torch.Tensor, tkey: torch.Tensor,
+                     tval: torch.Tensor, n_blocks: torch.Tensor, *,
+                     grid_bits: int = 7, batch_bits: int = 4) -> torch.Tensor:
+    """Resolve all K offset queries per voxel. Returns kmap (N, K) int32."""
+    del batch_bits   # part of the key contract; the query needs no bound
+    max_blocks = ublocks.shape[0]
+    inb, bkey, bank, row = encode_queries(coords, batch, valid, offsets,
+                                          grid_bits=grid_bits)
+    nb = n_blocks.reshape(()).to(torch.int32).clamp(max=max_blocks)
+    rank = torch.minimum(
+        torch.searchsorted(ublocks, bkey.contiguous(), out_int32=True), nb)
+    hit_b = ((rank < nb)
+             & (ublocks[rank.clamp(max=max_blocks - 1).long()] == bkey))
+    key2 = rank * morton.TABLE_SIZE + bank * morton.BANK_ROWS + row
+    n_t = tkey.shape[0]
+    pos = torch.searchsorted(tkey, key2.contiguous(),
+                             out_int32=True).clamp(max=n_t - 1).long()
+    hit = hit_b & inb & (tkey[pos] == key2)
+    return torch.where(hit, tval[pos], -1).to(torch.int32)

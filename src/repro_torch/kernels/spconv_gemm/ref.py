@@ -1,0 +1,65 @@
+"""Plain PyTorch version of the output-stationary gather-GEMM: its oracle.
+
+The same math as the CUDA kernel (csrc/spconv_gemm_fused.cu): for every
+slot of a live tile whose target lies in the tile's output block, add
+``feats[gather] @ W[tap]`` into ``out[scatter]``. It loops over taps —
+select the tap's live slots, one matmul, one ``index_add_`` — rather than
+materializing a per-tile weight copy, so it fits on the card at serving
+sizes.
+"""
+from __future__ import annotations
+
+import torch
+
+#: width of the liveness column groups the epilogue emits
+BN = 128
+
+
+def epilogue_math(out: torch.Tensor, scale: torch.Tensor,
+                  shift: torch.Tensor, valid: torch.Tensor):
+    """``relu(out * scale + shift)`` masked by ``valid``, and the
+    per-(row, BN-column group) liveness of the stored values (int32)."""
+    y = out * scale[None, :] + shift[None, :]
+    y = torch.where(valid[:, None] != 0, y.clamp(min=0.0),
+                    torch.zeros((), dtype=y.dtype, device=y.device))
+    n, c = y.shape
+    nz = (y.reshape(n, c // BN, BN) != 0).any(dim=-1).to(torch.int32)
+    return y, nz
+
+
+def spconv_gemm_fused_ref(feats: torch.Tensor, weights: torch.Tensor,
+                          gather_idx: torch.Tensor, scatter_idx: torch.Tensor,
+                          tile_tap: torch.Tensor, tile_nz: torch.Tensor,
+                          tile_ob: torch.Tensor,
+                          tile_bk_nz: torch.Tensor | None = None, *, bm: int,
+                          bo: int, bk: int | None = None, n_out_pad: int,
+                          epi_scale: torch.Tensor | None = None,
+                          epi_shift: torch.Tensor | None = None,
+                          epi_valid: torch.Tensor | None = None,
+                          epilogue: bool = False):
+    """(n_out_pad, Cout_pad) float32 output [, (n_out_pad, Cout_pad/128) nz].
+
+    Takes the kernel wrapper's arguments. Slots outside their tile's
+    ``bo``-row output block are padding and dropped; tiles with
+    ``tile_nz == 0`` contribute nothing. ``tile_bk_nz`` / ``bk`` only mark
+    Cin blocks that are exactly zero, which contribute nothing either, so
+    the plain version reads neither.
+    """
+    del tile_bk_nz, bk
+    c_out = weights.shape[-1]
+    slot_ob = tile_ob.repeat_interleave(bm)
+    local = scatter_idx - slot_ob * bo
+    live = ((local >= 0) & (local < bo)
+            & (tile_nz != 0).repeat_interleave(bm))
+    slot_tap = tile_tap.repeat_interleave(bm)
+    out = torch.zeros((n_out_pad, c_out), dtype=torch.float32,
+                      device=feats.device)
+    for t in range(weights.shape[0]):
+        sel = torch.nonzero(live & (slot_tap == t)).squeeze(1)
+        if sel.numel() == 0:
+            continue
+        rows = feats[gather_idx[sel].long()].float()
+        out.index_add_(0, scatter_idx[sel].long(), rows @ weights[t].float())
+    if not epilogue:
+        return out
+    return epilogue_math(out, epi_scale, epi_shift, epi_valid)

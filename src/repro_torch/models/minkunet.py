@@ -1,0 +1,286 @@
+"""MinkowskiUNet — the paper's segmentation benchmark, inference form.
+
+Sparse UNet over the SpOctA core: Subm3 feature blocks, Gconv2
+downsampling, Tconv2 upsampling with exact coordinate recovery + skip
+concat. ``SMALL`` ~ Seg(i) (ScanNet-sized), ``LARGE`` ~ Seg(o)
+(SemanticKITTI-sized), both as published in the reference.
+
+:class:`MinkUNet` holds the parameters as an ``nn.Module`` whose
+``state_dict`` keys are the reference's parameter-tree paths
+(``stem.conv.w``, ``enc0.block1.bn.var``, ``head.w``, ...), so
+:func:`params_from_jax` carries trained or seeded reference weights across.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Mapping, NamedTuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch.core import plan as planlib
+from repro_torch.core import spconv
+from repro_torch.core.spconv import SparseTensor
+from repro_torch.device import resolve_device
+
+
+@dataclass(frozen=True)
+class MinkUNetConfig:
+    name: str = "minkunet-small"
+    in_ch: int = 4
+    classes: int = 20
+    stem: int = 32
+    enc: tuple = (32, 64, 128, 256)
+    dec: tuple = (128, 96, 96, 96)
+    blocks: int = 1                 # Subm3 convs per stage
+    grid_bits: int = 7
+    batch_bits: int = 4
+    map_method: str = "octree"      # the port implements the octree engine
+    spac: bool = True               # §V-B sparsity-aware elision
+    bm: int = 128                   # rulebook tile rows
+    bo: int | None = None           # output-block rows (None: 512)
+    fused_epilogue: bool = False    # fuse BN+ReLU into the Subm3 kernel and
+                                    # thread activation sparsity between
+                                    # stacked blocks
+
+
+SMALL = MinkUNetConfig()
+LARGE = MinkUNetConfig(name="minkunet-large", stem=32,
+                       enc=(64, 128, 256, 512), dec=(256, 192, 128, 128),
+                       blocks=2)
+
+
+class Conv(nn.Module):
+    """SpConv weights in the reference layout: w (K, Cin, Cout), b (Cout,)."""
+
+    def __init__(self, k_taps: int, c_in: int, c_out: int):
+        super().__init__()
+        self.w = nn.Parameter(torch.empty(k_taps, c_in, c_out))
+        self.b = nn.Parameter(torch.zeros(c_out))
+
+
+class BatchNorm(nn.Module):
+    """Inference BatchNorm: affine parameters plus running statistics."""
+
+    def __init__(self, c: int):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(c))
+        self.bias = nn.Parameter(torch.zeros(c))
+        self.register_buffer("mean", torch.zeros(c))
+        self.register_buffer("var", torch.ones(c))
+
+    def stats(self) -> dict:
+        return {"scale": self.scale, "bias": self.bias, "mean": self.mean,
+                "var": self.var}
+
+
+class ConvBN(nn.Module):
+    def __init__(self, k_taps: int, c_in: int, c_out: int):
+        super().__init__()
+        self.conv = Conv(k_taps, c_in, c_out)
+        self.bn = BatchNorm(c_out)
+
+
+class MinkPlans(NamedTuple):
+    """Every geometry-determined plan of one MinkUNet pass."""
+
+    subm: tuple   # per resolution r = 0..len(enc): the Subm3 stage plan
+    down: tuple   # per encoder stage: the Gconv2 plan (carries .maps)
+    up: tuple     # per decoder stage: the Tconv2 plan
+
+
+class MinkUNet(nn.Module):
+    """MinkUNet parameters plus the inference forward.
+
+    Weights are drawn from ``generator`` (a CPU ``torch.Generator``; None
+    uses a fresh one seeded 0) with He-normal scaling as in the reference's
+    init, then moved to ``device`` (None: the card; raises without one).
+    """
+
+    def __init__(self, cfg: MinkUNetConfig = SMALL, *,
+                 device: str | torch.device | None = None,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        if len(cfg.dec) > len(cfg.enc):
+            raise ValueError("decoder deeper than encoder")
+        self.cfg = cfg
+        dev = resolve_device(device)
+        self.stem = ConvBN(27, cfg.in_ch, cfg.stem)
+        c_prev, skips = cfg.stem, [cfg.stem]
+        for i, c in enumerate(cfg.enc):
+            stage = nn.ModuleDict({"down": ConvBN(8, c_prev, c)})
+            for b in range(cfg.blocks):
+                stage[f"block{b}"] = ConvBN(27, c, c)
+            setattr(self, f"enc{i}", stage)
+            c_prev = c
+            skips.append(c)
+        for i, c in enumerate(cfg.dec):
+            skip_c = skips[-(i + 2)]
+            stage = nn.ModuleDict({"up": ConvBN(8, c_prev, c)})
+            for b in range(cfg.blocks):
+                stage[f"block{b}"] = ConvBN(27, c + skip_c if b == 0 else c, c)
+            setattr(self, f"dec{i}", stage)
+            c_prev = c
+        self.head = Conv(1, c_prev, cfg.classes)
+        gen = generator if generator is not None \
+            else torch.Generator().manual_seed(0)
+        with torch.no_grad():
+            for mod in self.modules():
+                if isinstance(mod, Conv):
+                    k, cin, _ = mod.w.shape
+                    mod.w.copy_(torch.randn(mod.w.shape, generator=gen)
+                                * (2.0 / (k * cin)) ** 0.5)
+        self.to(dev)
+
+    @torch.no_grad()
+    def forward(self, st: SparseTensor, *, plans: MinkPlans | None = None,
+                cache: planlib.PlanCache | None = None,
+                impl: str | None = None) -> torch.Tensor:
+        """Per-voxel class logits (N, classes); see :func:`forward`."""
+        return forward(self, st, plans=plans, cache=cache, impl=impl)
+
+
+def params_from_jax(tree: Mapping) -> dict[str, torch.Tensor]:
+    """Flatten a reference parameter tree (nested dicts of arrays, e.g.
+    ``repro.models.minkunet.init_model`` mapped through ``np.asarray``) into
+    a :class:`MinkUNet` ``state_dict``."""
+    out: dict[str, torch.Tensor] = {}
+
+    def walk(prefix, node):
+        if isinstance(node, Mapping):
+            for k, v in node.items():
+                walk(f"{prefix}{k}.", v)
+        else:
+            out[prefix[:-1]] = torch.from_numpy(
+                np.array(node, dtype=np.float32))
+
+    walk("", tree)
+    return out
+
+
+def _as_tensor(a, dtype, device):
+    if isinstance(a, torch.Tensor):
+        return a.to(device=device, dtype=dtype)
+    return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
+
+def build_plans(coords, batch, valid, cfg: MinkUNetConfig, *,
+                cache: planlib.PlanCache | None = None,
+                n_max: int | None = None, search_impl: str | None = None,
+                device: str | torch.device | None = None) -> MinkPlans:
+    """Build (or fetch from ``cache``) the full plan set of one cloud.
+
+    Pure geometry. A fresh cloud pays ``len(enc)`` Gconv2 searches and
+    ``len(enc) + 1`` Subm3 searches; Tconv2 reuses the Gconv2 maps. The
+    coordinate arrays (numpy or tensors) are placed on ``device`` (None:
+    the card; raises without one). ``n_max`` is the octree directory
+    capacity (default: the row budget, which no scene can overflow).
+    """
+    if cfg.map_method != "octree":
+        raise ValueError(f"map method {cfg.map_method!r} is not ported")
+    dev = resolve_device(device)
+    coords = _as_tensor(coords, torch.int32, dev).contiguous()
+    batch = _as_tensor(batch, torch.int32, dev).contiguous()
+    valid = _as_tensor(valid, torch.bool, dev).contiguous()
+    if cache is None:
+        cache = planlib.PlanCache()
+    n_max = coords.shape[0] if n_max is None else n_max
+    gb, bb = cfg.grid_bits, cfg.batch_bits
+
+    def subm(c, b, v):
+        return planlib.subm3_plan(c, b, v, max_blocks=n_max, grid_bits=gb,
+                                  batch_bits=bb, bm=cfg.bm, bo=cfg.bo,
+                                  search_impl=search_impl, cache=cache)
+
+    cur = (coords, batch, valid)
+    subms, downs, stack = [subm(*cur)], [], [cur]
+    for _ in range(len(cfg.enc)):
+        d = planlib.gconv2_plan(*cur, grid_bits=gb, batch_bits=bb, bm=cfg.bm,
+                                bo=cfg.bo, cache=cache)
+        cur = (d.out_coords, d.out_batch, d.out_valid)
+        downs.append(d)
+        subms.append(subm(*cur))
+        stack.append(cur)
+    ups = []
+    for i in range(len(cfg.dec)):
+        target = stack[-(i + 2)]
+        ups.append(planlib.tconv2_plan(downs[-(i + 1)].maps, *target,
+                                       bm=cfg.bm, bo=cfg.bo, cache=cache))
+    return MinkPlans(tuple(subms), tuple(downs), tuple(ups))
+
+
+def _apply_subm(model_cfg, st, cb: ConvBN, plan, impl, act=None):
+    """One Subm3 + BN + ReLU block; returns ``(st, act)`` where act is the
+    fused epilogue's liveness (None on the unfused path)."""
+    if model_cfg.fused_epilogue:
+        return spconv.subm_conv3_bn_relu(
+            st, cb.conv.w, cb.conv.b, cb.bn.stats(), max_blocks=st.n_max,
+            spac=model_cfg.spac, act=act, plan=plan, impl=impl)
+    st = spconv.subm_conv3(st, cb.conv.w, cb.conv.b, max_blocks=st.n_max,
+                           spac=model_cfg.spac, act=act, plan=plan, impl=impl)
+    return spconv.relu(spconv.batch_norm(st, cb.bn.stats())), None
+
+
+@torch.no_grad()
+def forward(model: MinkUNet, st: SparseTensor, *,
+            plans: MinkPlans | None = None,
+            cache: planlib.PlanCache | None = None,
+            impl: str | None = None) -> torch.Tensor:
+    """Per-voxel class logits (N, classes), zero on invalid rows.
+
+    ``plans`` (from :func:`build_plans`) skips every plan lookup; without
+    it the plans are built here through ``cache``. impl: None / ``"kernel"``
+    runs both kernels (on the card), ``"ref"`` their plain versions. The
+    tensors of ``st`` must be on the model's device.
+    """
+    cfg = model.cfg
+    if plans is None:
+        plans = build_plans(st.coords, st.batch, st.valid, cfg, cache=cache,
+                            search_impl=impl, device=st.coords.device)
+    n_enc = len(cfg.enc)
+    st = spconv.mask_feats(st._replace(feats=st.feats.float()))
+    st, _ = _apply_subm(cfg, st, model.stem, plans.subm[0], impl)
+
+    skips, maps_stack = [st], []
+    for i in range(n_enc):
+        stage = getattr(model, f"enc{i}")
+        down, maps = spconv.gconv2(st, stage["down"].conv.w,
+                                   stage["down"].conv.b, plan=plans.down[i],
+                                   impl=impl)
+        st = spconv.relu(spconv.batch_norm(down, stage["down"].bn.stats()))
+        act = None    # new resolution/channels: previous masks don't apply
+        for b in range(cfg.blocks):
+            st, act = _apply_subm(cfg, st, stage[f"block{b}"],
+                                  plans.subm[i + 1], impl, act=act)
+        maps_stack.append(maps)
+        skips.append(st)
+
+    for i in range(len(cfg.dec)):
+        stage = getattr(model, f"dec{i}")
+        target = skips[-(i + 2)]
+        up = spconv.tconv2(st, stage["up"].conv.w, stage["up"].conv.b,
+                           maps_stack[-(i + 1)], target, plan=plans.up[i],
+                           impl=impl)
+        up = spconv.relu(spconv.batch_norm(up, stage["up"].bn.stats()))
+        st = up.replace_feats(torch.cat([up.feats, target.feats], dim=-1))
+        act = None    # concat changed the channel layout: masks are stale
+        for b in range(cfg.blocks):
+            st, act = _apply_subm(cfg, st, stage[f"block{b}"],
+                                  plans.subm[n_enc - 1 - i], impl, act=act)
+
+    logits = torch.matmul(st.feats, model.head.w[0]) + model.head.b
+    return torch.where(st.valid[:, None], logits, 0.0)
+
+
+def forward_multicloud(model: MinkUNet, clouds, *, plans=None,
+                       cache: planlib.PlanCache | None = None,
+                       impl: str | None = None) -> list:
+    """Per-voxel logits for each cloud; each keeps its own plans
+    (``plans[i]`` prebuilt, or built through one shared ``cache``)."""
+    if cache is None and plans is None:
+        per_cloud = 2 * (len(model.cfg.enc) + len(model.cfg.dec)) + 2
+        cache = planlib.PlanCache(capacity=max(64, per_cloud * len(clouds)))
+    return [forward(model, st, cache=cache, impl=impl,
+                    plans=plans[i] if plans is not None else None)
+            for i, st in enumerate(clouds)]

@@ -1,0 +1,180 @@
+"""Kernel-vs-plain checks of the port's CUDA kernels on the card.
+
+Every test here is marked ``gpu`` and skips with a reason on a host with no
+CUDA device (decided inside the ``cuda`` fixture, never at import). This
+file imports no JAX: run it on the card's machine with
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
+
+The OCTENT kernel must equal its plain version bit for bit; the gather-GEMM
+kernel must stay within 1e-4 of the plain version's scale (float32, other
+summation order), at the edge cases: Cin = 4, all-dead tiles, empty output
+blocks, out-of-grid queries, tile heights that are not a multiple of the
+kernel's 64-slot register tile, and the fused epilogue.
+"""
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import mapsearch, morton, sparsity
+from repro_torch.kernels.octent import kernel as oct_kernel, ops as oct_ops
+from repro_torch.kernels.octent.ref import octent_query_ref
+from repro_torch.kernels.spconv_gemm import kernel as sg_kernel
+from repro_torch.kernels.spconv_gemm import ops as sg_ops
+from repro_torch.kernels.spconv_gemm.ref import spconv_gemm_fused_ref
+
+pytestmark = pytest.mark.gpu
+TOL = 1e-4
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the hand-written kernels run only on "
+                    "the card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _cloud(rng, n, extent, n_valid, origin=0, batch=1):
+    seen, rows = set(), []
+    while len(rows) < n_valid:
+        c = tuple(int(x) for x in rng.integers(origin, origin + extent, 3))
+        b = int(rng.integers(0, batch))
+        if (b, c) not in seen:
+            seen.add((b, c))
+            rows.append((b, c))
+    coords = np.zeros((n, 3), np.int32)
+    bidx = np.zeros(n, np.int32)
+    valid = np.zeros(n, bool)
+    for i, (b, c) in enumerate(rows):
+        coords[i], bidx[i], valid[i] = c, b, True
+    return coords, bidx, valid
+
+
+def _dev(dev, *arrays):
+    return [torch.as_tensor(a, device=dev) for a in arrays]
+
+
+@pytest.mark.parametrize("case", ["dense", "edge", "sparse", "multibatch"])
+def test_octent_kernel_bit_identical(cuda, case):
+    rng = np.random.default_rng(0)
+    gb = 7
+    if case == "dense":
+        c, b, v = _cloud(rng, 4096, 24, 3000)
+    elif case == "edge":         # queries step out of the grid
+        gb = 5
+        c, b, v = _cloud(rng, 1000, 10, 900, origin=(1 << gb) * 16 - 10)
+    elif case == "sparse":       # mostly empty blocks
+        c, b, v = _cloud(rng, 2048, 1500, 1200)
+    else:
+        c, b, v = _cloud(rng, 3000, 16, 2500, batch=4)
+    c, b, v = _dev(cuda, c, b, v)
+    qt = oct_ops.build_query_table(c, b, v, max_blocks=c.shape[0],
+                                   grid_bits=gb)
+    offs = torch.as_tensor(morton.subm3_offsets(), device=cuda)
+    before = oct_kernel.launches
+    got = oct_kernel.octent_query(c, b, v, offs, qt.ublocks, qt.tkey,
+                                  qt.tval, qt.n_blocks, grid_bits=gb)
+    torch.cuda.synchronize()
+    assert oct_kernel.launches == before + 1
+    want = octent_query_ref(c, b, v, offs, qt.ublocks, qt.tkey, qt.tval,
+                            qt.n_blocks, grid_bits=gb)
+    assert torch.equal(got, want)
+    host = mapsearch.build_kmap_hash(*(t.cpu().numpy() for t in (c, b, v)),
+                                     morton.subm3_offsets())
+    assert np.array_equal(got.cpu().numpy(), host)
+
+
+def _check_gemm(dev, kmap, c_in, c_out, *, bm, bo, dead_rows=0.25,
+                epilogue=False, seed=0):
+    rng = np.random.default_rng(seed)
+    n = kmap.shape[0]
+    f = np.maximum(rng.standard_normal((n, c_in)), 0).astype(np.float32)
+    f[rng.random(n) < dead_rows] = 0.0
+    w = rng.standard_normal((kmap.shape[1], c_in, c_out)).astype(np.float32)
+    f, w = _dev(dev, f, w)
+    tiles = sg_ops.build_tap_tiles(torch.as_tensor(kmap, device=dev), bm=bm,
+                                   bo=bo)
+    epi = None
+    if epilogue:
+        valid = torch.as_tensor(rng.random(n) < 0.9, device=dev)
+        epi = sg_ops.FusedEpilogue(
+            scale=torch.as_tensor(rng.uniform(0.5, 1.5, c_out), device=dev),
+            shift=torch.as_tensor(rng.uniform(-0.5, 0.5, c_out), device=dev),
+            valid=valid)
+    row_nz = sparsity.row_nonzero(f)
+    before = sg_kernel.launches
+    got = sg_ops.apply_tiles(f, w, tiles, n_out=n, row_nz=row_nz,
+                             epilogue=epi)
+    torch.cuda.synchronize()
+    assert sg_kernel.launches == before + 1
+    want = sg_ops.apply_tiles(f, w, tiles, n_out=n, row_nz=row_nz,
+                              epilogue=epi, impl="ref")
+    if epilogue:
+        (got, act), (want, _) = got, want
+        nzb = torch.nn.functional.pad(got, (0, -c_out % 128))
+        sweep = (nzb.reshape(n, -1, 128) != 0).any(-1)
+        assert torch.equal(act.blk_nz, sweep)
+    err = (got - want).abs().max().item() if got.numel() else 0.0
+    assert err <= TOL * max(1.0, want.abs().max().item())
+    return got
+
+
+def _subm_kmap(n, extent, n_valid, seed=1):
+    c, b, v = _cloud(np.random.default_rng(seed), n, extent, n_valid)
+    return mapsearch.build_kmap_hash(c, b, v, morton.subm3_offsets())
+
+
+def test_gemm_stem_cin4(cuda):
+    _check_gemm(cuda, _subm_kmap(3000, 20, 2500), 4, 32, bm=128, bo=512)
+
+
+@pytest.mark.parametrize("c_in,c_out", [(64, 64), (160, 128), (320, 192)])
+def test_gemm_wide_layers(cuda, c_in, c_out):
+    _check_gemm(cuda, _subm_kmap(2500, 18, 2000), c_in, c_out, bm=128,
+                bo=512)
+
+
+def test_gemm_all_dead_tiles(cuda):
+    got = _check_gemm(cuda, _subm_kmap(1500, 16, 1200), 64, 128, bm=128,
+                      bo=512, dead_rows=1.0)
+    assert not got.any()
+
+
+def test_gemm_empty_output_blocks(cuda):
+    # a Gconv2 kmap over a mostly empty budget: most output blocks have no
+    # map at all and get a single all-pad tile
+    c, b, v = _cloud(np.random.default_rng(2), 8192, 40, 1500)
+    c, b, v = _dev(cuda, c, b, v)
+    maps = mapsearch.build_maps_gconv2(c, b, v)
+    kmap = mapsearch.strided_to_kmap(maps, n_out=8192, n_taps=8)
+    _check_gemm(cuda, kmap.cpu().numpy(), 128, 256, bm=128, bo=512)
+
+
+@pytest.mark.parametrize("bm,bo", [(32, 64), (96, 192), (128, 128)])
+def test_gemm_tile_heights(cuda, bm, bo):
+    _check_gemm(cuda, _subm_kmap(1200, 14, 1000), 32, 128, bm=bm, bo=bo)
+
+
+@pytest.mark.parametrize("c_in,c_out", [(4, 32), (128, 256), (192, 200)])
+def test_gemm_epilogue(cuda, c_in, c_out):
+    _check_gemm(cuda, _subm_kmap(2000, 16, 1700), c_in, c_out, bm=128,
+                bo=512, epilogue=True)
+
+
+def test_gemm_kernel_vs_plain_full_output(cuda):
+    """The raw wrapper output, every padded row included."""
+    kmap = torch.as_tensor(_subm_kmap(700, 12, 600), device=cuda)
+    tiles = sg_ops.build_tap_tiles(kmap, bm=64, bo=128)
+    rng = np.random.default_rng(3)
+    f, w = _dev(cuda, rng.standard_normal((700, 64)).astype(np.float32),
+                rng.standard_normal((27, 64, 128)).astype(np.float32))
+    args = (f, w, tiles.gather_idx, tiles.scatter_idx, tiles.tile_tap,
+            tiles.tile_nz, tiles.tile_ob)
+    got = sg_kernel.spconv_gemm_fused(*args, bm=64, bo=128, n_out_pad=768)
+    want = spconv_gemm_fused_ref(*args, bm=64, bo=128, n_out_pad=768)
+    assert (got - want).abs().max().item() <= TOL * want.abs().max().item()

@@ -1,0 +1,152 @@
+"""Guard rails of the PyTorch port.
+
+* Neither ``chip_smoke.py`` nor any module of ``src/repro_torch`` imports
+  ``jax`` or the JAX package ``repro`` (the card's machine has neither).
+* ``import repro_torch`` and every module in it work with no ``nvcc`` and
+  no card: kernels are built at first launch, never at import.
+* Entry points called without ``device="cpu"`` on a host with no card
+  raise; there is no silent CPU run.
+* The kernel wrappers raise on a wrong dtype, shape or a non-contiguous
+  input.
+"""
+from __future__ import annotations
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parents[1]
+PKG = REPO / "src" / "repro_torch"
+
+
+def _port_files():
+    return [REPO / "chip_smoke.py", *sorted(PKG.rglob("*.py"))]
+
+
+def _imported_roots(path: Path) -> set[str]:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+def test_port_never_imports_jax_or_repro():
+    files = _port_files()
+    assert len(files) > 15 and files[0].exists()
+    bad = {str(p.relative_to(REPO)): sorted(_imported_roots(p)
+                                            & {"jax", "jaxlib", "repro"})
+           for p in files}
+    assert not {k: v for k, v in bad.items() if v}
+
+
+def test_import_needs_no_nvcc_and_no_card():
+    mods = [".".join(p.relative_to(REPO / "src").with_suffix("").parts)
+            for p in sorted(PKG.rglob("*.py"))]
+    mods = [m[:-len(".__init__")] if m.endswith(".__init__") else m
+            for m in mods]
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            "assert 'jax' not in sys.modules and 'repro' not in sys.modules\n"
+            "print('ok')\n")
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("CUDA_HOME", "CUDA_PATH")}
+    env.update(PATH="", CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=str(REPO / "src"),
+               REPRO_TORCH_BUILD_DIR=str(REPO / "build" / "never-created"))
+    r = subprocess.run([sys.executable, "-c", code], env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
+    assert not (REPO / "build" / "never-created").exists()
+
+
+def test_entry_points_raise_without_a_card(monkeypatch):
+    from repro_torch.launch.spconv_serve import ServeEngine
+    from repro_torch.models import minkunet
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = minkunet.MinkUNetConfig(stem=4, enc=(4,), dec=(4,), classes=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        minkunet.MinkUNet(cfg)
+    model = minkunet.MinkUNet(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServeEngine(model)
+    z = np.zeros((8, 3), np.int32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        minkunet.build_plans(z, z[:, 0], z[:, 0] == 0, cfg)
+    # the explicit CPU request runs
+    minkunet.build_plans(z, z[:, 0], z[:, 0] == 0, cfg, device="cpu")
+
+
+def _octent_args():
+    from repro_torch.kernels.octent import ops
+    rng = np.random.default_rng(0)
+    c = torch.from_numpy(rng.integers(0, 20, (16, 3)).astype(np.int32))
+    b = torch.zeros(16, dtype=torch.int32)
+    v = torch.ones(16, dtype=torch.bool)
+    qt = ops.build_query_table(c, b, v, max_blocks=16)
+    offs = torch.zeros((1, 3), dtype=torch.int32)
+    return [c, b, v, offs, qt.ublocks, qt.tkey, qt.tval, qt.n_blocks]
+
+
+def test_octent_wrapper_rejects_bad_inputs():
+    from repro_torch.kernels.octent.kernel import octent_query
+    args = _octent_args()
+    assert octent_query(*args).shape == (16, 1)
+    bad = list(args)
+    bad[0] = args[0].long()
+    with pytest.raises(TypeError, match="coords must be torch.int32"):
+        octent_query(*bad)
+    bad = list(args)
+    bad[0] = args[0].t().contiguous().t()
+    with pytest.raises(ValueError, match="contiguous"):
+        octent_query(*bad)
+    bad = list(args)
+    bad[2] = args[2].int()
+    with pytest.raises(TypeError, match="valid must be torch.bool"):
+        octent_query(*bad)
+    bad = list(args)
+    bad[5] = args[5][:-1]
+    with pytest.raises(ValueError):
+        octent_query(*bad)
+
+
+def test_gemm_wrapper_rejects_bad_inputs():
+    from repro_torch.kernels.spconv_gemm import ops
+    from repro_torch.kernels.spconv_gemm.kernel import spconv_gemm_fused
+    kmap = torch.full((8, 27), -1, dtype=torch.int32)
+    kmap[:, 13] = torch.arange(8, dtype=torch.int32)
+    t = ops.build_tap_tiles(kmap, bm=16, bo=16)
+    f = torch.ones(8, 64)
+    w = torch.ones(27, 64, 128)
+    args = [f, w, t.gather_idx, t.scatter_idx, t.tile_tap, t.tile_nz,
+            t.tile_ob]
+    kw = dict(bm=16, bo=16, n_out_pad=16)
+    assert spconv_gemm_fused(*args, **kw).shape == (16, 128)
+    bad = list(args)
+    bad[0] = f.double()
+    with pytest.raises(TypeError, match="feats must be torch.float32"):
+        spconv_gemm_fused(*bad, **kw)
+    bad = list(args)
+    bad[1] = torch.ones(27, 128, 64).transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        spconv_gemm_fused(*bad, **kw)
+    bad = list(args)
+    bad[1] = torch.ones(27, 64, 100)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        spconv_gemm_fused(*bad, **kw)
+    bad = list(args)
+    bad[2] = t.gather_idx.long()
+    with pytest.raises(TypeError, match="gather_idx must be torch.int32"):
+        spconv_gemm_fused(*bad, **kw)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        spconv_gemm_fused(*args, bk=16, **kw)
+    with pytest.raises(TypeError, match="epi_scale"):
+        spconv_gemm_fused(*args, epilogue=True, epi_scale=None, **kw)
