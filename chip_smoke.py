@@ -5,12 +5,26 @@ Run from the root of a checkout, on a host with one CUDA card:
 
     python3 chip_smoke.py
 
-It builds both hand-written kernels from the checkout's sources, holds
-each against its plain PyTorch version on the card at the shapes the
-serving path gives it, then serves MinkUNet-large (full published widths
-and depth, seeded random weights) through ``ServeEngine`` and checks the
-launch counts and the logits against the same forward through the plain
-versions. Output is one JSON object per line; the last line is
+It builds the four hand-written kernels from the checkout's sources (one
+``nvcc`` per source, in parallel) and drives each execution path of the
+port at MinkUNet-large's full published widths and depth (seeded random
+weights), on a 65,536-voxel bucket:
+
+* ``octent_query`` and ``spconv_gemm_fused`` (both modes): each kernel
+  against its plain PyTorch version at the shapes the serving path gives
+  it, then MinkUNet-large served through ``ServeEngine`` (4 requests),
+  the launch counts, and the logits against the plain-version forward;
+* ``spconv_gemm``: the materialized backend at the 20 distinct layer
+  shapes, the kernel against its plain version, then ``apply_kmap``
+  against the fused ``apply_tiles``, with peak device memory per shape;
+* ``masked_matmul``: one dense GEMM per layer shape through
+  ``sparse_dense_matmul``, the kernel against its plain version and
+  ``torch.matmul``;
+* ``scan_forward``: one forward through the tap-scan oracle
+  (``impl="scan"``) against the kernel forward, unfused and fused.
+
+Each path runs with its launch counts set to 0 just before and read just
+after. Output is one JSON object per line; the last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
 exits non-zero and prints no last line. It also exits non-zero when no
 CUDA device is visible or when ``src/repro_torch`` is not beside it.
@@ -38,6 +52,8 @@ PEAK_F32_FLOPS = 67e12         # float32 outside the tensor cores
 PEAK_BYTES_S = 3.35e12         # HBM3
 OCTENT_SRC = "src/repro_torch/csrc/octent_query.cu"
 GEMM_SRC = "src/repro_torch/csrc/spconv_gemm_fused.cu"
+MAT_SRC = "src/repro_torch/csrc/spconv_gemm.cu"
+MM_SRC = "src/repro_torch/csrc/masked_matmul.cu"
 
 
 def emit(**obj) -> None:
@@ -194,15 +210,21 @@ def _kill_tiles(f, tiles, bk, rng):
     return f
 
 
-def phase_gemm(dev, scene, cfg):
-    """Kernel 2 at every distinct layer shape of the model on the scene's
-    plans, in both modes, against its plain version, on features with
-    dead tiles and dead Cin blocks so that both skip branches run."""
+def _bound(flops, nbytes):
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_S
+    return {"flops": flops, "bytes": nbytes,
+            "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "ops_ms": t_ops * 1e3, "bytes_ms": t_bytes * 1e3}
+
+
+def layer_shapes(dev, scene, cfg):
+    """The scene's plans, the 25 layers of one forward, and the seeded
+    inputs of each distinct layer shape, in forward order: features with
+    dead tiles and dead Cin blocks, weights, and for Subm3 shapes an
+    epilogue. Deterministic: every call draws the same inputs."""
     import torch
-    from repro_torch.core import sparsity
     from repro_torch.kernels.spconv_gemm import ops as sg_ops
-    from repro_torch.kernels.spconv_gemm.kernel import spconv_gemm_fused
-    from repro_torch.kernels.spconv_gemm.ref import spconv_gemm_fused_ref
     from repro_torch.models import minkunet
     plans = minkunet.build_plans(scene.coords, scene.batch, scene.valid, cfg,
                                  device=dev)
@@ -212,11 +234,11 @@ def phase_gemm(dev, scene, cfg):
     check(len(layers) == 25, f"expected 25 layers, got {len(layers)}")
     gen = torch.Generator(device=dev).manual_seed(SEED)
     rng = np.random.default_rng(SEED)
-    per_shape = {}
+    shapes = {}
     for name, plan, vin, vout, cin, cout, subm in layers:
         key = (id(plan), cin, cout)
-        if key in per_shape:
-            per_shape[key]["layers"].append(name)
+        if key in shapes:
+            shapes[key]["layers"].append(name)
             continue
         k, bk = plan.n_taps, sg_ops.pick_bk(cin)
         f = torch.relu(torch.randn((vin.shape[0], cin), generator=gen,
@@ -225,6 +247,33 @@ def phase_gemm(dev, scene, cfg):
         f = _kill_tiles(f, plan.tiles, bk, rng)
         w = torch.randn((k, cin, cout), generator=gen, device=dev) \
             * (2.0 / (k * cin)) ** 0.5
+        epi = None
+        if subm:
+            epi = sg_ops.FusedEpilogue(
+                scale=torch.rand(cout, generator=gen, device=dev) + 0.5,
+                shift=torch.rand(cout, generator=gen, device=dev) - 0.5,
+                valid=vout)
+        shapes[key] = {"layers": [name], "plan": plan, "vout": vout,
+                       "cin": cin, "cout": cout, "k": k, "bk": bk, "f": f,
+                       "w": w, "epi": epi}
+    return layers, list(shapes.values())
+
+
+def phase_gemm(dev, scene, cfg):
+    """Kernel 2 at every distinct layer shape of the model on the scene's
+    plans, in both modes, against its plain version, on features with
+    dead tiles and dead Cin blocks so that both skip branches run."""
+    import torch
+    from repro_torch.core import sparsity
+    from repro_torch.kernels.spconv_gemm import ops as sg_ops
+    from repro_torch.kernels.spconv_gemm.kernel import spconv_gemm_fused
+    from repro_torch.kernels.spconv_gemm.ref import spconv_gemm_fused_ref
+    layers, shapes = layer_shapes(dev, scene, cfg)
+    per_shape = {}
+    for shp in shapes:
+        name, plan, vout = shp["layers"][0], shp["plan"], shp["vout"]
+        cin, cout, k, bk = shp["cin"], shp["cout"], shp["k"], shp["bk"]
+        f, w = shp["f"], shp["w"]
         row_nz = sparsity.row_nonzero(f)
         blk_nz = sparsity.row_block_nonzero(f, bk) & row_nz[:, None]
         gidx = plan.tiles.gather_idx.long()
@@ -236,19 +285,11 @@ def phase_gemm(dev, scene, cfg):
         flops = 2.0 * live_blocks * bk * cout
         nbytes = 4.0 * (int(blk_nz.sum()) * bk + k * cin * cout
                         + int(vout.sum()) * cout) + 8.0 * live
-        t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_S
-        rec = {"layers": [name], "cin": cin, "cout": cout, "taps": k,
-               "bk": bk, "live_maps": live, "flops": flops, "bytes": nbytes,
-               "bound_ms": max(t_ops, t_bytes) * 1e3,
-               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-               "ops_ms": t_ops * 1e3, "bytes_ms": t_bytes * 1e3}
+        rec = {"layers": shp["layers"], "cin": cin, "cout": cout, "taps": k,
+               "bk": bk, "live_maps": live, **_bound(flops, nbytes)}
         modes = [("plain", None)]
-        if subm:
-            epi = sg_ops.FusedEpilogue(
-                scale=torch.rand(cout, generator=gen, device=dev) + 0.5,
-                shift=torch.rand(cout, generator=gen, device=dev) - 0.5,
-                valid=vout)
-            modes.append(("epilogue", epi))
+        if shp["epi"] is not None:
+            modes.append(("epilogue", shp["epi"]))
         for mode, epi in modes:
             args, kw = sg_ops.kernel_inputs(f, w, plan.tiles,
                                             n_out=plan.n_out, row_nz=row_nz,
@@ -282,7 +323,7 @@ def phase_gemm(dev, scene, cfg):
                 "ms": time_ms(lambda: spconv_gemm_fused(*args, **kw), 10),
                 "plain_ms": time_ms(
                     lambda: spconv_gemm_fused_ref(*args, **kw), 3)}
-        per_shape[key] = rec
+        per_shape[name] = rec
         emit(phase="spconv_gemm_fused", **rec)
     # per request: every layer of one forward at its shape's time
     total = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "ops_ms": 0.0,
@@ -305,6 +346,266 @@ def phase_gemm(dev, scene, cfg):
                          else "bytes"),
             "library_ms": None,
             "timing": "sum over the 25 layers of one forward, unfused mode"}
+
+
+def _kernel_entry(name, src, replaces, per_shape, launches, *,
+                  library: bool, **extra):
+    """One kernel's line of the ``kernels`` JSON: per-shape numbers summed
+    over the 25 layers of one forward, each shape weighted by its layers."""
+    keys = ("ms", "plain_ms", "bound_ms", "ops_ms", "bytes_ms") + (
+        ("library_ms",) if library else ())
+    tot = {key: sum(len(r["layers"]) * r[key] for r in per_shape)
+           for key in keys}
+    return {"name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in per_shape),
+            "ms": tot["ms"], "plain_ms": tot["plain_ms"],
+            "bound_ms": tot["bound_ms"],
+            "bound_by": ("operations" if tot["ops_ms"] >= tot["bytes_ms"]
+                         else "bytes"),
+            "library_ms": tot.get("library_ms"),
+            "timing": "sum over the 25 layers of one forward", **extra}
+
+
+def phase_materialized(dev, scene, cfg):
+    """Kernel 3 at every distinct layer shape, on the same seeded inputs as
+    phase_gemm, against its plain version; then the main path of this
+    backend, ``apply_kmap`` at every shape with the launch counts set to 0
+    just before and read just after, held against the fused ``apply_tiles``
+    output. Buffers are freed between shapes; the peak device memory of
+    each shape's ``apply_kmap`` is printed."""
+    import torch
+    from repro_torch.core import sparsity
+    from repro_torch.kernels.spconv_gemm import kernel as sg_kernel
+    from repro_torch.kernels.spconv_gemm import ops as sg_ops
+    from repro_torch.kernels.spconv_gemm.ref import BN, spconv_gemm_ref
+    _, shapes = layer_shapes(dev, scene, cfg)
+    per_shape = []
+    for shp in shapes:
+        plan, f, w = shp["plan"], shp["f"], shp["w"]
+        cin, cout, k = shp["cin"], shp["cout"], shp["k"]
+        bm, bo = plan.tiles.bm, plan.tiles.bo
+        tiles = sg_ops.build_tap_tiles(plan.kmap, sparsity.row_nonzero(f),
+                                       bm=bm, bo=bo)
+        lhs = f[tiles.gather_idx.long()]
+        lhs.masked_fill_(~tiles.slot_valid[:, None], 0.0)
+        wp = sg_ops._pad_cout(w, BN)
+        args = (lhs, wp, tiles.tile_tap, tiles.tile_nz)
+        got = sg_kernel.spconv_gemm(*args, bm=bm)
+        want = spconv_gemm_ref(*args, bm=bm)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        ref_max = want.abs().max().item()
+        del want
+        name = shp["layers"][0]
+        check(err <= TOL_KERNEL * max(ref_max, 1e-30),
+              f"{name}: spconv_gemm max|k-p| {err} > {TOL_KERNEL} * "
+              f"{ref_max}")
+        n_tiles = tiles.n_tiles
+        live_tiles = int(tiles.tile_nz.sum())
+        check(live_tiles < n_tiles, f"{name}: no dead tile")
+        # every dead tile of the layout has all-zero lhs rows, so mark every
+        # third live tile dead as well: the kernel must give zeros there,
+        # not the product, and leave the other tiles as they were
+        killed = torch.nonzero(tiles.tile_nz).squeeze(1)[::3]
+        check(bool((lhs.view(n_tiles, bm, cin)[killed].abs().amax(dim=(1, 2))
+                    > 0).all()), f"{name}: a killed tile has zero lhs")
+        nz = tiles.tile_nz.clone()
+        nz[killed] = 0
+        got_killed = sg_kernel.spconv_gemm(lhs, wp, tiles.tile_tap, nz, bm=bm)
+        got.view(n_tiles, bm, -1)[killed] = 0
+        check(torch.equal(got_killed, got),
+              f"{name}: spconv_gemm with {killed.numel()} live tiles marked "
+              f"dead is not the kernel's output with those tiles zeroed")
+        del got, got_killed, nz
+        m_pad, c_out_pad = lhs.shape[0], wp.shape[-1]
+        # live lhs tiles read, the whole output written (zeros included),
+        # the weights and the two per-tile streams
+        nbytes = 4.0 * (live_tiles * bm * cin + m_pad * c_out_pad
+                        + k * cin * c_out_pad) + 8.0 * n_tiles
+        rec = {"layers": shp["layers"], "cin": cin, "cout": cout,
+               "m_pad": m_pad, "tiles": n_tiles, "live_tiles": live_tiles,
+               "dead_tiles": n_tiles - live_tiles,
+               "killed_live_tiles": int(killed.numel()), "max_abs_err": err,
+               "ref_max": ref_max,
+               **_bound(2.0 * live_tiles * bm * cin * c_out_pad, nbytes),
+               "ms": time_ms(lambda: sg_kernel.spconv_gemm(*args, bm=bm), 5),
+               "plain_ms": time_ms(lambda: spconv_gemm_ref(*args, bm=bm), 2)}
+        del args, lhs
+        per_shape.append(rec)
+
+    # the main path of this backend: apply_kmap over every shape
+    sg_kernel.materialized_launches = 0
+    outs = []
+    for shp, rec in zip(shapes, per_shape):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        outs.append(sg_ops.apply_kmap(shp["f"], shp["w"], shp["plan"].kmap,
+                                      bm=shp["plan"].tiles.bm,
+                                      bo=shp["plan"].tiles.bo))
+        torch.cuda.synchronize()
+        rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        rec["peak_above_inputs_gb"] = (torch.cuda.max_memory_allocated()
+                                       - held) / 1e9
+    launches = sg_kernel.materialized_launches
+    check(launches == len(shapes),
+          f"apply_kmap launched spconv_gemm {launches} times over "
+          f"{len(shapes)} shapes")
+
+    for shp, rec, out in zip(shapes, per_shape, outs):
+        plan, f, w = shp["plan"], shp["f"], shp["w"]
+        bm, bo = plan.tiles.bm, plan.tiles.bo
+        row_nz = sparsity.row_nonzero(f)
+
+        def fused():
+            return sg_ops.apply_tiles(f, w, plan.tiles, n_out=plan.n_out,
+                                      row_nz=row_nz)
+
+        want = fused()
+        err = (out - want).abs().max().item()
+        ref_max = want.abs().max().item()
+        check(err <= TOL_KERNEL * max(ref_max, 1e-30),
+              f"{rec['layers'][0]}: apply_kmap vs apply_tiles {err} > "
+              f"{TOL_KERNEL} * {ref_max}")
+        rec["apply_kmap_vs_apply_tiles_err"] = err
+        rec["apply_kmap_ms"] = time_ms(lambda: sg_ops.apply_kmap(
+            f, w, plan.kmap, bm=bm, bo=bo), 3)
+        rec["apply_tiles_ms"] = time_ms(fused, 3)
+        # apply_kmap's steps apart: tile build, gather, kernel, scatter-add
+        tiles = sg_ops.build_tap_tiles(plan.kmap, row_nz, bm=bm, bo=bo)
+        gidx, dead = tiles.gather_idx.long(), ~tiles.slot_valid[:, None]
+
+        def gather():
+            return f[gidx].masked_fill_(dead, 0.0)
+
+        ps = sg_kernel.spconv_gemm(gather(), sg_ops._pad_cout(w, BN),
+                                   tiles.tile_tap, tiles.tile_nz, bm=bm)
+        rec["valid_slots"] = int(tiles.slot_valid.sum())
+        rec["apply_kmap_steps_ms"] = {
+            "tile_build": time_ms(lambda: sg_ops.build_tap_tiles(
+                plan.kmap, row_nz, bm=bm, bo=bo), 3),
+            "gather": time_ms(gather, 3), "kernel": rec["ms"],
+            "scatter_add": time_ms(lambda: sg_ops.scatter_valid(
+                ps, tiles, plan.n_out), 3)}
+        del ps, tiles, gidx, dead
+        emit(phase="spconv_gemm", **rec)
+    del outs
+    tot = {key: sum(len(r["layers"]) * r[key] for r in per_shape)
+           for key in ("apply_kmap_ms", "apply_tiles_ms")}
+    emit(phase="spconv_gemm.per_request", shapes=len(per_shape),
+         peak_mem_gb=max(r["peak_mem_gb"] for r in per_shape), **tot)
+    return _kernel_entry(
+        "spconv_gemm", MAT_SRC, "src/repro/kernels/spconv_gemm/kernel.py:68",
+        per_shape, launches, library=False,
+        apply_kmap_ms=tot["apply_kmap_ms"],
+        apply_tiles_ms=tot["apply_tiles_ms"])
+
+
+def phase_masked(dev, scene, cfg):
+    """Kernel 4 on one dense GEMM per layer shape: A = that layer's
+    valid-masked input features (the phase_gemm inputs, with their dead
+    tiles), B = its centre-tap weight. The kernel against its plain
+    version and ``torch.matmul`` on the same padded operands; then the
+    main path, ``sparse_dense_matmul`` at every shape, with the launch
+    count set to 0 just before and read just after."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core import sparsity
+    from repro_torch.kernels.masked_matmul import kernel as mm_kernel
+    from repro_torch.kernels.masked_matmul import ops as mm_ops
+    from repro_torch.kernels.masked_matmul.ref import masked_matmul_ref
+    _, shapes = layer_shapes(dev, scene, cfg)
+    t = 128                                   # bm = bn = bk, the defaults
+    per_shape = []
+    for shp in shapes:
+        a, b = shp["f"], shp["w"][shp["k"] // 2]
+        (m, kd), n = a.shape, b.shape[1]
+        mp, kp, np_ = (-(-x // t) * t for x in (m, kd, n))
+        ap = F.pad(a, (0, kp - kd, 0, mp - m)).contiguous()
+        bp = F.pad(b, (0, np_ - n, 0, kp - kd)).contiguous()
+        mask = sparsity.block_mask(ap, t, t).to(torch.int32)
+        got = mm_kernel.masked_matmul(ap, bp, mask)
+        want = masked_matmul_ref(ap, bp, mask)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        ref_max = want.abs().max().item()
+        name = shp["layers"][0]
+        check(err <= TOL_KERNEL * max(ref_max, 1e-30),
+              f"{name}: masked_matmul max|k-p| {err} > {TOL_KERNEL} * "
+              f"{ref_max}")
+        live = int(mask.sum())
+        check(live < mask.numel(), f"{name}: no dead tile in A")
+        nbytes = 4.0 * (live * t * t + kp * np_ + mp * np_ + mask.numel())
+        rec = {"layers": shp["layers"], "m": m, "k": kd, "n": n,
+               "tiles": mask.numel(), "live_tiles": live,
+               "dead_share": 1.0 - live / mask.numel(), "max_abs_err": err,
+               "ref_max": ref_max,
+               **_bound(2.0 * live * t * t * np_, nbytes),
+               "ms": time_ms(lambda: mm_kernel.masked_matmul(ap, bp, mask),
+                             10),
+               "plain_ms": time_ms(lambda: masked_matmul_ref(ap, bp, mask),
+                                   3),
+               "library_ms": time_ms(lambda: torch.matmul(ap, bp), 10)}
+        per_shape.append(rec)
+        emit(phase="masked_matmul", **rec)
+
+    # the main path of this backend: sparse_dense_matmul over every shape
+    mm_kernel.launches = 0
+    outs = [mm_ops.sparse_dense_matmul(shp["f"], shp["w"][shp["k"] // 2])
+            for shp in shapes]
+    torch.cuda.synchronize()
+    launches = mm_kernel.launches
+    check(launches == len(shapes),
+          f"sparse_dense_matmul launched masked_matmul {launches} times "
+          f"over {len(shapes)} shapes")
+    for shp, out in zip(shapes, outs):
+        want = shp["f"] @ shp["w"][shp["k"] // 2]
+        err = (out - want).abs().max().item()
+        check(err <= TOL_KERNEL * max(want.abs().max().item(), 1e-30),
+              f"{shp['layers'][0]}: sparse_dense_matmul vs A @ B {err}")
+    return _kernel_entry(
+        "masked_matmul", MM_SRC,
+        "src/repro/kernels/masked_matmul/kernel.py:45", per_shape, launches,
+        library=True)
+
+
+def phase_scan(dev, cfg, scene, model):
+    """One MinkUNet-large forward of the scene through the tap-scan oracle
+    (``impl="scan"``) against the kernel forward, unfused and with the
+    fused epilogue, on the same plans."""
+    import torch
+    from repro_torch.core.spconv import SparseTensor
+    from repro_torch.models import minkunet
+    fused = _seeded_model(dataclasses.replace(cfg, fused_epilogue=True), dev)
+    fused.load_state_dict(model.state_dict())
+    st = SparseTensor(*(torch.as_tensor(a, device=dev) for a in (
+        scene.coords, scene.batch, scene.valid, scene.feats)))
+    plans = minkunet.build_plans(st.coords, st.batch, st.valid, cfg,
+                                 n_max=BUCKET, device=dev)
+    res = {}
+    for label, m in (("unfused", model), ("fused_epilogue", fused)):
+        times = {}
+        outs = {}
+        for impl in (None, "scan"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs[impl] = minkunet.forward(m, st, plans=plans, impl=impl)
+            torch.cuda.synchronize()
+            times[impl or "kernel"] = (time.perf_counter() - t0) * 1e3
+        want, got = outs[None], outs["scan"]
+        check(bool(torch.isfinite(got).all()), f"scan {label}: non-finite")
+        scale = want.abs().max().item()
+        err = (got - want).abs().max().item()
+        check(err <= TOL_LOGITS * scale,
+              f"scan {label}: max|scan - kernel| {err} > {TOL_LOGITS} * "
+              f"{scale}")
+        res[label] = {"max_abs_err": err, "max_abs_logit": scale,
+                      "scan_forward_ms": times["scan"],
+                      "kernel_forward_ms": times["kernel"]}
+    emit(phase="scan_forward", config=cfg.name,
+         voxels=int(scene.valid.sum()),
+         tolerance=f"{TOL_LOGITS} * max|logit|", **res)
 
 
 def _seeded_model(cfg, dev):
@@ -455,10 +756,13 @@ def main() -> int:
     phase_reference(dev, cfg, model, results)
     k1["launches"], k2["launches"] = counts[0], counts[1]
     k2["epilogue_launches"] = counts[2]
-    for k in (k1, k2):
+    k3 = phase_materialized(dev, lidar[0], cfg)
+    k4 = phase_masked(dev, lidar[0], cfg)
+    phase_scan(dev, cfg, lidar[0], model)
+    for k in (k1, k2, k3, k4):
         check(k["launches"] > 0, f"{k['name']} never launched on the path")
     emit(phase="done", seconds=time.perf_counter() - t0)
-    print(json.dumps({"kernels": [k1, k2]}), flush=True)
+    print(json.dumps({"kernels": [k1, k2, k3, k4]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

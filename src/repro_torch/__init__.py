@@ -2,12 +2,19 @@
 
 The sub-packages mirror ``repro`` module for module (``core``, ``kernels``,
 ``models``, ``data``, ``runtime``, ``launch``) so every function has a
-findable counterpart. Two kernels carry the serving path, each written by
-hand in CUDA C++ for Hopper (``csrc/``) and built with ``nvcc`` at first use:
+findable counterpart. Every kernel is written by hand in CUDA C++ for
+Hopper (``csrc/``) and built with ``nvcc`` at first use:
 
-  * ``kernels/octent``      — the OCTENT map-search query;
-  * ``kernels/spconv_gemm`` — the output-stationary gather-GEMM that runs
-    every Subm3 / Gconv2 / Tconv2 layer, with its fused BN/ReLU epilogue.
+  * ``kernels/octent``        — the OCTENT map-search query;
+  * ``kernels/spconv_gemm``   — the output-stationary gather-GEMM that runs
+    every Subm3 / Gconv2 / Tconv2 layer, with its fused BN/ReLU epilogue
+    (the serving path), and the materialized tiled GEMM behind the
+    ``apply_kmap`` baseline;
+  * ``kernels/masked_matmul`` — the block-masked dense matmul (SPAC tile
+    skipping on one GEMM).
+
+``plan.execute(impl="scan")`` runs a layer by the plain tap scan instead,
+the oracle the reference calls ``impl="xla"``.
 
 Importing this package never builds a kernel and never needs ``nvcc``.
 Entry points (``ServeEngine``, ``MinkUNet``, ``build_plans``) run on the

@@ -19,7 +19,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.core import mapsearch, sparsity
+from repro_torch.core import mapsearch, rulebook, sparsity
 from repro_torch.core.mapsearch import StridedMaps
 from repro_torch.kernels.octent import ops as oct_ops
 from repro_torch.kernels.spconv_gemm import ops as sg_ops
@@ -199,8 +199,30 @@ def execute(plan: ConvPlan, feats: torch.Tensor, weights: torch.Tensor,
     ``spac`` refreshes tile liveness from the features (or from ``act``,
     the previous layer's epilogue-emitted masks). ``epilogue`` fuses
     BN-inference + ReLU and changes the return value to
-    ``(out, ActSparsity)``. impl as in ``sg_ops.apply_tiles``.
+    ``(out, ActSparsity)``.
+
+    impl: None / ``"kernel"`` / ``"ref"`` as in ``sg_ops.apply_tiles``;
+    ``"scan"`` is the plain PyTorch tap scan over ``plan.kmap``
+    (``rulebook.apply_kmap_gather``), the oracle the reference calls
+    ``impl="xla"``. On the scan, SPAC elides maps in the forward and the
+    backward differentiates the un-elided maps, and the epilogue runs
+    after the scan (``sg_ops.apply_epilogue``).
     """
+    if impl == "scan":
+        if spac:
+            row_nz = act.row_nz if act is not None \
+                else sparsity.row_nonzero(feats)
+            out = rulebook.apply_kmap_gather_spac(feats, weights, plan.kmap,
+                                                  row_nz)
+        else:
+            out = rulebook.apply_kmap_gather(feats, weights, plan.kmap)
+        if epilogue is not None:
+            if bias is not None:
+                raise ValueError(
+                    "bias and epilogue together would apply the bias twice:"
+                    " fold it into the epilogue shift")
+            return sg_ops.apply_epilogue(out, epilogue)
+        return out + bias if bias is not None else out
     row_nz = None
     if spac and act is None:
         row_nz = sparsity.row_nonzero(feats)

@@ -3,10 +3,11 @@
 Each source under ``src/repro_torch/csrc/`` exposes a plain C launch
 function; it is compiled by ``nvcc`` for ``sm_90a`` into its own shared
 library at first use, under ``build/repro_torch/`` of the checkout, and
-loaded with :mod:`ctypes`. A library is named by the hash of its source and
-flags, so an edited source always rebuilds and a stale one is never
-loaded. :func:`build_all` starts one ``nvcc`` per missing source and waits
-for all of them, so the sources compile in parallel.
+loaded with :mod:`ctypes`. A library is named by the hash of its source,
+the shared headers (``csrc/*.cuh``) and the flags, so an edited source or
+header always rebuilds and a stale library is never loaded.
+:func:`build_all` starts one ``nvcc`` per missing source and waits for all
+of them, so the sources compile in parallel.
 
 Nothing here runs at import time: importing ``repro_torch`` needs neither
 ``nvcc`` nor a card.
@@ -27,6 +28,8 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = {
     "octent_query": "octent_query.cu",
     "spconv_gemm_fused": "spconv_gemm_fused.cu",
+    "spconv_gemm": "spconv_gemm.cu",
+    "masked_matmul": "masked_matmul.cu",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -57,8 +60,10 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / SOURCES[name]
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256((CSRC / SOURCES[name]).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
     return build_dir() / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
@@ -104,6 +109,17 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(library_path(name)))
         _LOADED[name] = lib
     return lib
+
+
+def launch_fn(name: str, argtypes: list):
+    """The C function ``<name>_launch`` of kernel ``name`` (built and
+    loaded at first use), with its argument types declared and an ``int``
+    result: the CUDA error code of the launch."""
+    fn = getattr(load(name), f"{name}_launch")
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fn
 
 
 def check_tensor(name: str, t, dtype: torch.dtype, shape: tuple) -> None:

@@ -26,13 +26,8 @@ _I = ctypes.c_int
 
 
 def _lib():
-    lib = build.load("octent_query")
-    fn = lib.octent_query_launch
-    if fn.argtypes is None:
-        fn.argtypes = [_P, _P, _P, _I, _P, _I, _P, _I, _P, _P, _P, _I, _I,
-                       _P, _P]
-        fn.restype = ctypes.c_int
-    return fn
+    return build.launch_fn("octent_query", [_P, _P, _P, _I, _P, _I, _P, _I,
+                                            _P, _P, _P, _I, _I, _P, _P])
 
 
 def octent_query(coords: torch.Tensor, batch: torch.Tensor,

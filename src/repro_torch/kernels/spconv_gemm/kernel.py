@@ -1,10 +1,16 @@
-"""Wrapper of the CUDA output-stationary gather-GEMM (csrc/spconv_gemm_fused.cu).
+"""Wrappers of the two CUDA gather-GEMM kernels.
 
-:func:`spconv_gemm_fused` checks its inputs, then launches the hand-written
-kernel on CUDA tensors, or runs the plain version (ref.py) on CPU tensors.
-There is no fallback: a CUDA input launches the kernel or raises.
-``launches`` counts kernel launches in both modes, ``epilogue_launches``
-those with the fused BN/ReLU epilogue.
+* :func:`spconv_gemm_fused` — the output-stationary gather-GEMM
+  (csrc/spconv_gemm_fused.cu), the execution backend of every layer.
+* :func:`spconv_gemm` — the materialized tiled GEMM over a pre-gathered
+  lhs (csrc/spconv_gemm.cu), the baseline behind ``ops.apply_kmap``.
+
+Each checks its inputs, then launches its hand-written kernel on CUDA
+tensors, or runs its plain version (ref.py) on CPU tensors. There is no
+fallback: a CUDA input launches the kernel or raises. ``launches`` counts
+launches of the fused kernel in both modes, ``epilogue_launches`` those
+with the fused BN/ReLU epilogue, ``materialized_launches`` those of the
+materialized kernel.
 """
 from __future__ import annotations
 
@@ -14,7 +20,8 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.build import check_tensor as _check
-from repro_torch.kernels.spconv_gemm.ref import BN, spconv_gemm_fused_ref
+from repro_torch.kernels.spconv_gemm.ref import (BN, spconv_gemm_fused_ref,
+                                                 spconv_gemm_ref)
 
 #: Cin step of the kernel; a plan's Cin block ``bk`` must be a multiple of
 #: it unless Cin is a single block
@@ -24,19 +31,60 @@ KC = 32
 launches = 0
 #: of those, launches with the fused epilogue
 epilogue_launches = 0
+#: number of times the materialized kernel was launched
+materialized_launches = 0
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
 def _lib():
-    lib = build.load("spconv_gemm_fused")
-    fn = lib.spconv_gemm_fused_launch
-    if fn.argtypes is None:
-        fn.argtypes = [_P, _I, _P, _I, _P, _P, _I, _P, _P, _P, _I, _I, _P,
-                       _I, _I, _P, _P, _P, _P, _P, _I, _P]
-        fn.restype = ctypes.c_int
-    return fn
+    return build.launch_fn("spconv_gemm_fused",
+                           [_P, _I, _P, _I, _P, _P, _I, _P, _P, _P, _I, _I,
+                            _P, _I, _I, _P, _P, _P, _P, _P, _I, _P])
+
+
+def spconv_gemm(lhs: torch.Tensor, weights: torch.Tensor,
+                tile_tap: torch.Tensor, tile_nz: torch.Tensor, *,
+                bm: int = 128) -> torch.Tensor:
+    """Materialized tiled GEMM of one layer.
+
+    lhs (M_pad, Cin) float32 pre-gathered rows, tile-sorted and bm-padded;
+    weights (K, Cin, Cout_pad) float32 with Cout_pad a multiple of 128;
+    tile_tap / tile_nz (M_pad / bm,) int32. Returns the (M_pad, Cout_pad)
+    partial products ``out[t] = nz_t * lhs_t @ W[tap_t]``, zeros for dead
+    tiles, ready for the scatter-add.
+    """
+    global materialized_launches
+    _check("lhs", lhs, torch.float32, (None, None))
+    m_pad, c_in = lhs.shape
+    _check("weights", weights, torch.float32, (None, c_in, None))
+    c_out_pad = weights.shape[2]
+    if c_out_pad % BN != 0:
+        raise ValueError(f"Cout_pad={c_out_pad} must be a multiple of {BN}")
+    if bm <= 0 or m_pad % bm != 0:
+        raise ValueError(f"M_pad={m_pad} is not a multiple of bm={bm}")
+    n_tiles = m_pad // bm
+    _check("tile_tap", tile_tap, torch.int32, (n_tiles,))
+    _check("tile_nz", tile_nz, torch.int32, (n_tiles,))
+    dev = lhs.device
+    if any(t.device != dev for t in (weights, tile_tap, tile_nz)):
+        raise ValueError("all inputs of spconv_gemm must share a device")
+    if dev.type == "cpu":
+        return spconv_gemm_ref(lhs, weights, tile_tap, tile_nz, bm=bm)
+    if dev.type != "cuda":
+        raise ValueError(f"spconv_gemm runs on cuda or cpu, not {dev}")
+    out = torch.empty((m_pad, c_out_pad), dtype=torch.float32, device=dev)
+    fn = build.launch_fn("spconv_gemm",
+                         [_P, _I, _P, _I, _I, _I, _P, _P, _P, _P])
+    rc = fn(lhs.data_ptr(), c_in, weights.data_ptr(), c_out_pad, bm,
+            n_tiles, tile_tap.data_ptr(), tile_nz.data_ptr(), out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"spconv_gemm launch failed: CUDA error {rc}")
+    if n_tiles > 0:
+        materialized_launches += 1
+    return out
 
 
 def spconv_gemm_fused(feats: torch.Tensor, weights: torch.Tensor,

@@ -1,4 +1,4 @@
-"""kmap -> output-blocked tap tiles -> the gather-GEMM kernel.
+"""kmap -> output-blocked tap tiles -> the gather-GEMM kernels.
 
 :func:`build_tap_tiles` turns the (N_out, K) kernel map into bm-padded
 gather/scatter slot streams plus per-tile metadata, laid out output-block
@@ -8,12 +8,21 @@ consecutive run, so the kernel can walk a block's run in one CTA. The
 streams are bit-identical to the reference's ``binning="counting"`` layout,
 the GRP-group gather-run metadata (``tile_run``, ``grp_skip``,
 ``grp_contig``) included, although the CUDA kernel does not read the
-latter.
+latter. With ``row_nz`` the build elides maps that source all-zero rows.
 
-:func:`apply_tiles` executes a layer from prebuilt tiles: it refreshes the
-SPAC liveness from the current features (or from the previous layer's
-epilogue), pads Cout to the kernel's 128-column groups and launches the
-kernel (or its plain version).
+Execution comes in two forms:
+
+* :func:`apply_tiles` (and the one-shot :func:`apply_kmap_fused`) — the
+  output-stationary fused kernel: it refreshes the SPAC liveness from the
+  current features (or from the previous layer's epilogue), pads Cout to
+  the kernel's 128-column groups and launches the kernel (or its plain
+  version). The default backend.
+* :func:`apply_kmap` — the materialized baseline: an (M_pad, Cin) gathered
+  copy of the features, the tiled GEMM kernel into (M_pad, Cout_pad)
+  partial products, then a scatter-add of the valid slots.
+
+:func:`apply_epilogue` applies the BN/ReLU epilogue outside a kernel, for
+the tap-scan path.
 """
 from __future__ import annotations
 
@@ -24,8 +33,10 @@ import torch.nn.functional as F
 
 from repro_torch.core import rulebook as _rulebook
 from repro_torch.core import sparsity as _sparsity
-from repro_torch.kernels.spconv_gemm.kernel import BN, KC, spconv_gemm_fused
-from repro_torch.kernels.spconv_gemm.ref import spconv_gemm_fused_ref
+from repro_torch.kernels.spconv_gemm.kernel import (BN, KC, spconv_gemm,
+                                                    spconv_gemm_fused)
+from repro_torch.kernels.spconv_gemm.ref import (epilogue_math,
+                                                 spconv_gemm_fused_ref)
 
 #: gather-run metadata granularity (slots per group), as in the reference
 GRP = 8
@@ -68,14 +79,19 @@ def _padded_budget(n_out: int, k: int, bm: int, bo: int) -> int:
     return ((n_out * k + n_blocks * k * (bm - 1)) // bm + 1 + n_blocks) * bm
 
 
-def build_tap_tiles(kmap: torch.Tensor, *, bm: int = 128,
-                    bo: int | None = None) -> TapTiles:
+def build_tap_tiles(kmap: torch.Tensor, row_nz: torch.Tensor | None = None,
+                    *, bm: int = 128, bo: int | None = None) -> TapTiles:
     """Lay the maps out by (output block, scheduled tap), each group padded
-    to a bm multiple; geometry only (liveness is refreshed per layer by
-    :func:`tile_liveness`). ``bo`` None picks ``max(bm, 512)``. The
-    within-group order is the stable counting order: one map per (output
-    row, tap), so a map's rank in its group is the count of valid same-tap
-    maps on earlier rows of the block.
+    to a bm multiple. ``bo`` None picks ``max(bm, 512)``. The within-group
+    order is the stable counting order: one map per (output row, tap), so a
+    map's rank in its group is the count of valid same-tap maps on earlier
+    rows of the block.
+
+    ``row_nz`` (N_in,) bool elides, at build time, the maps whose source
+    row is all zero (SPAC row grain): the tiles then hold live maps only,
+    which re-packs the tap segments and changes the tap schedule, as the
+    reference's build does. Leave it None for geometry-only tiles that a
+    plan caches, and refresh liveness per layer with :func:`tile_liveness`.
     """
     if bo is None:
         bo = max(bm, 512)
@@ -93,6 +109,8 @@ def build_tap_tiles(kmap: torch.Tensor, *, bm: int = 128,
     taps = torch.arange(k, dtype=_I32, device=dev).repeat(n_out)
     outs = torch.arange(n_out, dtype=_I32, device=dev).repeat_interleave(k)
     valid = flat_in >= 0
+    if row_nz is not None:
+        valid &= row_nz[flat_in.clamp(min=0).long()]
 
     counts = torch.bincount(torch.where(valid, taps, k).long(),
                             minlength=k + 1)[:k].to(_I32)
@@ -310,3 +328,93 @@ def apply_tiles(feats: torch.Tensor, weights: torch.Tensor, tiles: TapTiles,
     if bias is not None:
         out = out + bias
     return out
+
+
+def apply_kmap_fused(feats: torch.Tensor, weights: torch.Tensor,
+                     kmap: torch.Tensor, bias: torch.Tensor | None = None, *,
+                     spac: bool = True, bm: int = 128, bo: int | None = None,
+                     bk: int | None = None):
+    """One-shot fused path: build geometry tiles, then :func:`apply_tiles`.
+    SPAC liveness is a per-layer refresh (``row_nz``), never folded into
+    the build, so the result does not depend on ``spac`` beyond float
+    summation order."""
+    row_nz = _sparsity.row_nonzero(feats) if spac else None
+    tiles = build_tap_tiles(kmap, bm=bm, bo=bo)
+    return apply_tiles(feats, weights, tiles, bias, n_out=kmap.shape[0],
+                       row_nz=row_nz, bk=bk)
+
+
+def scatter_valid(ps: torch.Tensor, tiles: TapTiles,
+                  n_out: int) -> torch.Tensor:
+    """Scatter-add the rows of the valid slots of ``ps`` (M_pad, C) into an
+    (n_out, C) output. The rows of pad slots and dead tiles are zero and are
+    not read, as the reference's ``mode="drop"`` scatter throws the pad
+    slots away: folding them onto one drop row would send every row of the
+    array, mostly zeros, through atomics on that row."""
+    keep = torch.nonzero(tiles.slot_valid).squeeze(1)
+    out = torch.zeros((n_out, ps.shape[1]), dtype=ps.dtype, device=ps.device)
+    return out.index_add_(0, tiles.scatter_idx[keep].long(), ps[keep])
+
+
+def apply_kmap(feats: torch.Tensor, weights: torch.Tensor, kmap: torch.Tensor,
+               bias: torch.Tensor | None = None, *, bm: int = 128,
+               bo: int | None = None) -> torch.Tensor:
+    """Materialized-gather baseline, the same function as
+    ``rulebook.apply_kmap_gather``.
+
+    1. tiles built with SPAC row elision;
+    2. ``lhs = feats[gather_idx]``, an (M_pad, Cin) copy, invalid slots
+       zeroed;
+    3. the tiled GEMM kernel (:func:`spconv_gemm`: the CUDA kernel on a
+       card, its plain version on the CPU) into (M_pad, Cout_pad) partial
+       products;
+    4. a scatter-add of the valid slots' rows (:func:`scatter_valid`) into
+       the (n_out, Cout) output.
+
+    Cin is not padded: the kernel masks its ragged edge.
+    """
+    feats = feats.float()
+    tiles = build_tap_tiles(kmap, _sparsity.row_nonzero(feats), bm=bm, bo=bo)
+    lhs = feats[tiles.gather_idx.long()]
+    # in place: a torch.where copy would add a third (M_pad, Cin) buffer at
+    # full width (4.6 GB at Cin 512) beside lhs and the partial products
+    lhs.masked_fill_(~tiles.slot_valid[:, None], 0.0)
+    ps = spconv_gemm(lhs, _pad_cout(weights.float(), BN), tiles.tile_tap,
+                     tiles.tile_nz, bm=bm)
+    del lhs
+    out = scatter_valid(ps, tiles, kmap.shape[0])[:, :weights.shape[-1]]
+    if bias is not None:
+        out = out + bias
+    return out
+
+
+class _Epilogue(torch.autograd.Function):
+    """The BN/ReLU epilogue outside a kernel; inference only."""
+
+    @staticmethod
+    def forward(ctx, out, scale, shift, valid):
+        c = out.shape[1]
+        pad = -c % BN
+        y, nz = epilogue_math(F.pad(out.float(), (0, pad)),
+                              F.pad(scale.float(), (0, pad)),
+                              F.pad(shift.float(), (0, pad)), valid)
+        ctx.mark_non_differentiable(nz)
+        return y[:, :c].to(out.dtype), nz
+
+    @staticmethod
+    def backward(ctx, g, g_nz):
+        raise NotImplementedError(
+            "the fused BN/ReLU epilogue is inference-only: its backward "
+            "would differentiate through elided activation state. For "
+            "training, compose subm_conv3 + batch_norm + relu unfused.")
+
+
+def apply_epilogue(out: torch.Tensor, epilogue: FusedEpilogue):
+    """Apply a :class:`FusedEpilogue` to a finished (n_out, Cout) output
+    (the tap-scan path). Returns ``(y, ActSparsity)`` exactly as the
+    in-kernel epilogue emits them. Inference-only: its backward raises."""
+    y, nz = _Epilogue.apply(out, epilogue.scale, epilogue.shift,
+                            epilogue.valid)
+    nzb = nz.bool()
+    return y, _sparsity.ActSparsity(row_nz=nzb.any(dim=-1), blk_nz=nzb,
+                                    blk=BN)

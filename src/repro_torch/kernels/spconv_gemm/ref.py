@@ -1,10 +1,13 @@
-"""Plain PyTorch version of the output-stationary gather-GEMM: its oracle.
+"""Plain PyTorch versions of the two gather-GEMM kernels: their oracles.
 
-The same math as the CUDA kernel (csrc/spconv_gemm_fused.cu): for every
-slot of a live tile whose target lies in the tile's output block, add
-``feats[gather] @ W[tap]`` into ``out[scatter]``. It loops over taps —
-select the tap's live slots, one matmul, one ``index_add_`` — rather than
-materializing a per-tile weight copy, so it fits on the card at serving
+:func:`spconv_gemm_fused_ref` is the same math as the output-stationary
+CUDA kernel (csrc/spconv_gemm_fused.cu): for every slot of a live tile
+whose target lies in the tile's output block, add ``feats[gather] @
+W[tap]`` into ``out[scatter]``. :func:`spconv_gemm_ref` is the materialized
+kernel's (csrc/spconv_gemm.cu): each bm-row tile of a pre-gathered lhs
+times its tap's weights, zeros for dead tiles. Both loop over taps —
+select the tap's live slots or tiles, one matmul — rather than
+materializing a per-tile weight copy, so they fit on the card at serving
 sizes.
 """
 from __future__ import annotations
@@ -25,6 +28,28 @@ def epilogue_math(out: torch.Tensor, scale: torch.Tensor,
     n, c = y.shape
     nz = (y.reshape(n, c // BN, BN) != 0).any(dim=-1).to(torch.int32)
     return y, nz
+
+
+def spconv_gemm_ref(lhs: torch.Tensor, weights: torch.Tensor,
+                    tile_tap: torch.Tensor, tile_nz: torch.Tensor, *,
+                    bm: int = 128) -> torch.Tensor:
+    """``out[t*bm:(t+1)*bm] = nz_t * (lhs_tile_t @ weights[tile_tap[t]])``.
+
+    lhs (M, Cin) pre-gathered rows with M a multiple of bm; weights (K,
+    Cin, Cout); tile_tap / tile_nz (M/bm,). Returns the (M, Cout) float32
+    partial products, one row per map slot, for an external scatter-add.
+    """
+    m, c_in = lhs.shape
+    out = torch.zeros((m // bm, bm, weights.shape[-1]), dtype=torch.float32,
+                      device=lhs.device)
+    tiles = lhs.reshape(m // bm, bm, c_in)
+    live = tile_nz != 0
+    for t in range(weights.shape[0]):
+        sel = torch.nonzero(live & (tile_tap == t)).squeeze(1)
+        if sel.numel() == 0:
+            continue
+        out[sel] = tiles[sel].float() @ weights[t].float()
+    return out.reshape(m, weights.shape[-1])
 
 
 def spconv_gemm_fused_ref(feats: torch.Tensor, weights: torch.Tensor,

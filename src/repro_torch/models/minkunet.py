@@ -231,13 +231,16 @@ def forward(model: MinkUNet, st: SparseTensor, *,
 
     ``plans`` (from :func:`build_plans`) skips every plan lookup; without
     it the plans are built here through ``cache``. impl: None / ``"kernel"``
-    runs both kernels (on the card), ``"ref"`` their plain versions. The
-    tensors of ``st`` must be on the model's device.
+    runs both kernels (on the card), ``"ref"`` their plain versions;
+    ``"scan"`` executes every layer by the plain tap scan
+    (``plan.execute``), the reference's ``impl="xla"``, and searches with
+    the kernel. The tensors of ``st`` must be on the model's device.
     """
     cfg = model.cfg
     if plans is None:
         plans = build_plans(st.coords, st.batch, st.valid, cfg, cache=cache,
-                            search_impl=impl, device=st.coords.device)
+                            search_impl=None if impl == "scan" else impl,
+                            device=st.coords.device)
     n_enc = len(cfg.enc)
     st = spconv.mask_feats(st._replace(feats=st.feats.float()))
     st, _ = _apply_subm(cfg, st, model.stem, plans.subm[0], impl)

@@ -10,7 +10,11 @@ The OCTENT kernel must equal its plain version bit for bit; the gather-GEMM
 kernel must stay within 1e-4 of the plain version's scale (float32, other
 summation order), at the edge cases: Cin = 4, all-dead tiles, empty output
 blocks, out-of-grid queries, tile heights that are not a multiple of the
-kernel's 64-slot register tile, and the fused epilogue.
+kernel's 64-slot register tile, and the fused epilogue. The materialized
+GEMM and the block-masked matmul are held to the same 1e-4 at all-dead
+tiles, the Cin = 4 stem, Cin = Cout = 512, tile heights other than 128, a
+caller's mask that kills a nonzero tile, and shapes that are not tile
+multiples through ``sparse_dense_matmul``.
 """
 from __future__ import annotations
 
@@ -19,11 +23,15 @@ import pytest
 import torch
 
 from repro_torch.core import mapsearch, morton, sparsity
+from repro_torch.kernels.masked_matmul import kernel as mm_kernel
+from repro_torch.kernels.masked_matmul import ops as mm_ops
+from repro_torch.kernels.masked_matmul.ref import masked_matmul_ref
 from repro_torch.kernels.octent import kernel as oct_kernel, ops as oct_ops
 from repro_torch.kernels.octent.ref import octent_query_ref
 from repro_torch.kernels.spconv_gemm import kernel as sg_kernel
 from repro_torch.kernels.spconv_gemm import ops as sg_ops
-from repro_torch.kernels.spconv_gemm.ref import spconv_gemm_fused_ref
+from repro_torch.kernels.spconv_gemm.ref import (spconv_gemm_fused_ref,
+                                                 spconv_gemm_ref)
 
 pytestmark = pytest.mark.gpu
 TOL = 1e-4
@@ -178,3 +186,135 @@ def test_gemm_kernel_vs_plain_full_output(cuda):
     got = sg_kernel.spconv_gemm_fused(*args, bm=64, bo=128, n_out_pad=768)
     want = spconv_gemm_fused_ref(*args, bm=64, bo=128, n_out_pad=768)
     assert (got - want).abs().max().item() <= TOL * want.abs().max().item()
+
+
+def _close(got, want):
+    err = (got - want).abs().max().item() if got.numel() else 0.0
+    assert err <= TOL * max(1.0, want.abs().max().item())
+
+
+def _check_materialized(dev, kmap, c_in, c_out, *, bm, dead_rows=0.25,
+                        seed=0):
+    """The materialized kernel against its plain version on the raw
+    (M_pad, Cout_pad) partial products, with every third live tile marked
+    dead although its lhs rows are nonzero (the kernel must give zeros
+    there, not the product), then apply_kmap against the fused path."""
+    rng = np.random.default_rng(seed)
+    n = kmap.shape[0]
+    f = rng.standard_normal((n, c_in)).astype(np.float32)
+    f[rng.random(n) < dead_rows] = 0.0
+    w = rng.standard_normal((kmap.shape[1], c_in, c_out)).astype(np.float32)
+    f, w, km = _dev(dev, f, w, kmap)
+    row_nz = sparsity.row_nonzero(f)
+    tiles = sg_ops.build_tap_tiles(km, row_nz, bm=bm)
+    lhs = f[tiles.gather_idx.long()]
+    lhs.masked_fill_(~tiles.slot_valid[:, None], 0.0)
+    wp = torch.nn.functional.pad(w, (0, -c_out % 128)).contiguous()
+    nz = tiles.tile_nz.clone()
+    killed = torch.nonzero(nz).squeeze(1)[::3]
+    nz[killed] = 0
+    lhs_t = lhs.reshape(-1, bm, c_in)
+    assert all(bool(lhs_t[t].any()) for t in killed.tolist())
+    before = sg_kernel.materialized_launches
+    got = sg_kernel.spconv_gemm(lhs, wp, tiles.tile_tap, nz, bm=bm)
+    torch.cuda.synchronize()
+    assert sg_kernel.materialized_launches == before + 1
+    want = spconv_gemm_ref(lhs, wp, tiles.tile_tap, nz, bm=bm)
+    _close(got, want)
+    dead = (nz == 0).repeat_interleave(bm)
+    assert int(dead.sum()) > 0 and not got[dead].any()
+    assert dead_rows == 1.0 or killed.numel() > 0
+    out = sg_ops.apply_kmap(f, w, km, bm=bm)
+    fused = sg_ops.apply_tiles(f, w, sg_ops.build_tap_tiles(km, bm=bm),
+                               n_out=n, row_nz=row_nz)
+    _close(out, fused)
+    return got
+
+
+def test_materialized_stem_cin4(cuda):
+    _check_materialized(cuda, _subm_kmap(3000, 20, 2500), 4, 32, bm=128)
+
+
+@pytest.mark.parametrize("c_in,c_out", [(64, 64), (512, 512), (320, 192)])
+def test_materialized_wide_layers(cuda, c_in, c_out):
+    _check_materialized(cuda, _subm_kmap(2500, 18, 2000), c_in, c_out,
+                        bm=128)
+
+
+def test_materialized_all_dead_tiles(cuda):
+    got = _check_materialized(cuda, _subm_kmap(1500, 16, 1200), 64, 128,
+                              bm=128, dead_rows=1.0)
+    assert not got.any()
+
+
+@pytest.mark.parametrize("bm", [32, 96, 256])
+def test_materialized_tile_heights(cuda, bm):
+    _check_materialized(cuda, _subm_kmap(1200, 14, 1000), 32, 128, bm=bm)
+
+
+def _check_masked(dev, a, b, mask, *, bm, bn, bk):
+    a, b = _dev(dev, a, b)
+    mask = mask.to(dev)
+    before = mm_kernel.launches
+    got = mm_kernel.masked_matmul(a, b, mask, bm=bm, bn=bn, bk=bk)
+    torch.cuda.synchronize()
+    assert mm_kernel.launches == before + 1
+    want = masked_matmul_ref(a, b, mask, bm=bm, bk=bk)
+    _close(got, want)
+    return got, want
+
+
+def _tiled(rng, m, k, bm, bk, dead):
+    a = rng.standard_normal((m, k)).astype(np.float32)
+    kill = np.repeat(np.repeat(rng.random((m // bm, k // bk)) < dead, bm, 0),
+                     bk, 1)
+    a[kill] = 0.0
+    return a
+
+
+@pytest.mark.parametrize("m,k,n,bm,bn,bk", [
+    (4096, 512, 512, 128, 128, 128),     # Cin = Cout = 512
+    (1024, 128, 128, 128, 128, 128),     # the stem's Cin = 4 padded to 128
+    (96, 96, 48, 16, 16, 48),            # steps straddle live and dead
+    (256, 64, 40, 8, 8, 8)])
+def test_masked_matmul_kills_nonzero_tile(cuda, m, k, n, bm, bn, bk):
+    rng = np.random.default_rng(m + k)
+    a = _tiled(rng, m, k, bm, bk, dead=0.4)
+    if m == 1024:
+        a[:, 4:] = 0.0
+    b = rng.standard_normal((k, n)).astype(np.float32)
+    mask = sparsity.block_mask(torch.as_tensor(a), bm, bk).int()
+    live = torch.nonzero(mask)
+    i, j = live[len(live) // 2].tolist()
+    assert np.abs(a[i * bm:(i + 1) * bm, j * bk:(j + 1) * bk]).max() > 0
+    mask[i, j] = 0                        # a caller's mask kills it
+    got, _ = _check_masked(cuda, a, b, mask, bm=bm, bn=bn, bk=bk)
+    full = torch.as_tensor(a, device=cuda) @ torch.as_tensor(b, device=cuda)
+    assert (got - full).abs().max().item() > 1e-3
+
+
+def test_masked_matmul_all_dead(cuda):
+    rng = np.random.default_rng(5)
+    a = rng.standard_normal((512, 256)).astype(np.float32)
+    b = rng.standard_normal((256, 128)).astype(np.float32)
+    got, _ = _check_masked(cuda, a, b, torch.zeros(4, 2, dtype=torch.int32),
+                           bm=128, bn=128, bk=128)
+    assert not got.any()
+
+
+@pytest.mark.parametrize("m,k,n", [(130, 70, 50), (65536, 4, 32),
+                                   (1000, 513, 200)])
+def test_sparse_dense_matmul_non_multiple(cuda, m, k, n):
+    rng = np.random.default_rng(m)
+    a = rng.standard_normal((m, k)).astype(np.float32)
+    a[rng.random(m) < 0.5] = 0.0
+    a[m // 2:] = 0.0
+    b = rng.standard_normal((k, n)).astype(np.float32)
+    a, b = _dev(cuda, a, b)
+    before = mm_kernel.launches
+    got = mm_ops.sparse_dense_matmul(a, b)
+    torch.cuda.synchronize()
+    assert mm_kernel.launches == before + 1 and got.shape == (m, n)
+    # the CPU route of the wrapper is the plain version
+    _close(got, mm_ops.sparse_dense_matmul(a.cpu(), b.cpu()).to(cuda))
+    _close(got, a @ b)

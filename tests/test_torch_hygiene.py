@@ -8,6 +8,8 @@
   raise; there is no silent CPU run.
 * The kernel wrappers raise on a wrong dtype, shape or a non-contiguous
   input.
+* Every CUDA source under ``csrc/`` is built by ``kernels/build.py`` and
+  opens with a note naming the TPU kernel it replaces, which exists.
 """
 from __future__ import annotations
 
@@ -83,6 +85,24 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         minkunet.build_plans(z, z[:, 0], z[:, 0] == 0, cfg)
     # the explicit CPU request runs
     minkunet.build_plans(z, z[:, 0], z[:, 0] == 0, cfg, device="cpu")
+
+
+def test_every_cuda_source_is_built_and_names_its_tpu_kernel():
+    import re
+    from repro_torch.kernels import build
+    sources = sorted(p.name for p in (PKG / "csrc").glob("*.cu"))
+    assert sources == sorted(build.SOURCES.values())
+    assert len(sources) >= 4
+    for name, src in build.SOURCES.items():
+        text = (PKG / "csrc" / src).read_text()
+        head = text[:text.index("#include")]
+        m = re.search(r"Replaces: the Pallas TPU kernel `(\w+)` in\s*//\s*"
+                      r"(src/repro/\S+\.py)", head)
+        assert m, f"{src} does not say which TPU kernel it replaces"
+        tpu = (REPO / m.group(2)).read_text()
+        assert f"def {m.group(1)}(" in tpu and "pallas_call" in tpu
+        assert "What bounds it on the H100" in head, src
+        assert f'extern "C" int {name}_launch(' in text, src
 
 
 def _octent_args():
