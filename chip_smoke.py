@@ -5,10 +5,11 @@ Run from the root of a checkout, on a host with one CUDA card:
 
     python3 chip_smoke.py
 
-It builds the four hand-written kernels from the checkout's sources (one
+It builds the five hand-written kernels from the checkout's sources (one
 ``nvcc`` per source, in parallel) and drives each execution path of the
 port at MinkUNet-large's full published widths and depth (seeded random
-weights), on a 65,536-voxel bucket:
+weights), on a 65,536-voxel bucket, then the dense-decoder serving path at
+TinyLlama-1.1B's:
 
 * ``octent_query`` and ``spconv_gemm_fused`` (both modes): each kernel
   against its plain PyTorch version at the shapes the serving path gives
@@ -22,6 +23,18 @@ weights), on a 65,536-voxel bucket:
   ``torch.matmul``;
 * ``scan_forward``: one forward through the tap-scan oracle
   (``impl="scan"``) against the kernel forward, unfused and fused.
+* ``flash_attention``: the kernel against its plain version at six
+  attention shapes of the repo's configs (TinyLlama's served prefill, in
+  bf16 and float32, a 4,096-token prompt, Mixtral's windowed attention,
+  HuBERT's, RecurrentGemma's, and a ragged Sq < Skv case), each bf16
+  shape also checked in float32, with ``scaled_dot_product_attention``
+  timed beside it;
+* ``lm_serve``: TinyLlama-1.1B at full width and depth (bf16, seeded
+  random weights) serving 4 x 512-token prompts for 32 generated tokens
+  through ``generate``, 22 flash launches per prefill;
+* ``lm_reference``: the kernel prefill's logits against the plain-version
+  prefill in bf16 and float32, and the first decode step against a
+  teacher-forced prefill.
 
 Each path runs with its launch counts set to 0 just before and read just
 after. Output is one JSON object per line; the last line is
@@ -54,6 +67,26 @@ OCTENT_SRC = "src/repro_torch/csrc/octent_query.cu"
 GEMM_SRC = "src/repro_torch/csrc/spconv_gemm_fused.cu"
 MAT_SRC = "src/repro_torch/csrc/spconv_gemm.cu"
 MM_SRC = "src/repro_torch/csrc/masked_matmul.cu"
+FLASH_SRC = "src/repro_torch/csrc/flash_attention.cu"
+PEAK_BF16_FLOPS = 989e12       # bf16 on the tensor cores, float32 sum
+# (rel, abs) of |kernel - plain| <= rel * |plain| + abs. Both sides sum in
+# float32 from the same inputs: bf16 allows one ulp of the bf16 output
+# (2^-7 relative) plus the float32 summation order; float32 is the
+# reference's own 2e-5.
+TOL_FLASH = {"bfloat16": (2.0 ** -7, 2e-3), "float32": (2e-5, 2e-5)}
+TOL_LM_BF16 = 2e-2             # x max|logit|: the reference's prefill/decode
+TOL_LM_F32 = 1e-3              # x max|logit|: f32 order through 22 layers
+LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN = "tinyllama-1.1b", 4, 512, 32
+#: (name, b, hq, hkv, sq, skv, d, causal, window, dtype)
+FLASH_SHAPES = [
+    ("tinyllama_prefill", 4, 32, 4, 512, 512, 64, True, 0, "bfloat16"),
+    ("tinyllama_prefill_f32", 4, 32, 4, 512, 512, 64, True, 0, "float32"),
+    ("long_prompt", 1, 32, 4, 4096, 4096, 64, True, 0, "bfloat16"),
+    ("mixtral", 1, 32, 8, 8192, 8192, 128, True, 4096, "bfloat16"),
+    ("hubert", 1, 16, 16, 1024, 1024, 80, False, 0, "bfloat16"),
+    ("recurrentgemma", 1, 10, 1, 2048, 2048, 256, True, 2048, "bfloat16"),
+    ("ragged", 2, 8, 2, 500, 700, 128, True, 0, "bfloat16"),
+]
 
 
 def emit(**obj) -> None:
@@ -608,6 +641,237 @@ def phase_scan(dev, cfg, scene, model):
          tolerance=f"{TOL_LOGITS} * max|logit|", **res)
 
 
+def _flash_bound(b, hq, hkv, sq, skv, d, causal, window, elt):
+    """The least time for one attention call: the live (q, k) pairs' 4 * D
+    FLOPs each at the peak rate of the input type (bf16 on the tensor
+    cores; float32 outside them), against q, k, v read once and o written
+    once."""
+    q_pos = np.arange(sq) + skv - sq
+    hi = q_pos if causal else np.full(sq, skv - 1)
+    lo = np.maximum(0, q_pos - window + 1) if window > 0 else 0 * q_pos
+    pairs = b * hq * int((hi - lo + 1).sum())
+    flops = 4.0 * d * pairs
+    nbytes = float(elt * (2 * b * hq * sq * d + 2 * b * hkv * skv * d))
+    t_ops = flops / (PEAK_BF16_FLOPS if elt == 2 else PEAK_F32_FLOPS)
+    t_bytes = nbytes / PEAK_BYTES_S
+    return {"live_pairs": pairs, "flops": flops, "bytes": nbytes,
+            "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def phase_flash(dev):
+    """Kernel 5 against its plain version at each of FLASH_SHAPES, with
+    one ``scaled_dot_product_attention`` call of the same function timed
+    beside it (never called by the port). Its ``is_causal`` is top-left
+    aligned, so a window or Sq < Skv goes in as an explicit boolean band
+    mask. A bf16 shape is also checked (not timed) in float32 on the same
+    values, which holds every D, window and ragged edge to 2e-5."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    def held(name, q, k, v, kw, dt):
+        """Max |kernel - plain|, after checking it against TOL_FLASH[dt]."""
+        got = fa_kernel.flash_attention(q, k, v, **kw)
+        want = attention_ref(q, k, v, **kw).float()
+        check(bool(torch.isfinite(got).all()), f"flash {name}: non-finite")
+        diff = (got.float() - want).abs()
+        rel, tol = TOL_FLASH[dt]
+        worst = (diff - rel * want.abs()).max().item()
+        check(worst <= tol, f"flash {name} ({dt}): |k-p| > {rel} |p| + {tol} "
+                            f"(excess {worst})")
+        return diff.max().item(), want
+
+    per_shape = {}
+    for name, b, hq, hkv, sq, skv, d, causal, window, dt in FLASH_SHAPES:
+        dtype = getattr(torch, dt)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        q = torch.randn((b, hq, sq, d), generator=gen, device=dev).to(dtype)
+        k = torch.randn((b, hkv, skv, d), generator=gen, device=dev).to(dtype)
+        v = torch.randn((b, hkv, skv, d), generator=gen, device=dev).to(dtype)
+        kw = dict(causal=causal, window=window)
+        f32_err = None
+        if dt != "float32":
+            f32_err, _ = held(name, q.float(), k.float(), v.float(), kw,
+                              "float32")
+        err, want = held(name, q, k, v, kw, dt)
+        rel, tol = TOL_FLASH[dt]
+        if window == 0 and (sq == skv or not causal):
+            lib_call = f"sdpa(is_causal={causal}, enable_gqa=True)"
+            mask = None
+        else:
+            lib_call = "sdpa(attn_mask=<bool band>, enable_gqa=True)"
+            q_pos = torch.arange(sq, device=dev)[:, None] + skv - sq
+            k_pos = torch.arange(skv, device=dev)[None, :]
+            mask = torch.ones((sq, skv), dtype=torch.bool, device=dev)
+            if causal:
+                mask &= k_pos <= q_pos
+            if window > 0:
+                mask &= k_pos > q_pos - window
+
+        def library():
+            return F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask,
+                is_causal=causal and mask is None, enable_gqa=True)
+
+        lib_err = (library().float() - want).abs().max().item()
+        del want
+        rec = {"shape": [b, hq, hkv, sq, skv, d], "causal": causal,
+               "window": window, "dtype": dt, "max_abs_err": err,
+               "tolerance": f"{rel} * |plain| + {tol}",
+               "f32_max_abs_err": f32_err,
+               **_flash_bound(b, hq, hkv, sq, skv, d, causal, window,
+                              q.element_size()),
+               "ms": time_ms(lambda: fa_kernel.flash_attention(q, k, v, **kw),
+                             10),
+               "plain_ms": time_ms(lambda: attention_ref(q, k, v, **kw), 3),
+               "library_ms": time_ms(library, 10), "library_call": lib_call,
+               "library_vs_plain_max_abs_err": lib_err}
+        rec["tflops"] = rec["flops"] / rec["ms"] / 1e9
+        per_shape[name] = rec
+        emit(phase="flash_attention", name=name, **rec)
+        del q, k, v, mask
+        torch.cuda.empty_cache()
+    return per_shape
+
+
+def phase_lm_serve(dev):
+    """The main path of the dense decoder: TinyLlama-1.1B at full width and
+    depth (bf16, seeded random weights) serving LM_BATCH prompts of
+    LM_PROMPT tokens for LM_GEN tokens through ``generate``, after one
+    warm-up call, with the flash launch count set to 0 just before and read
+    just after."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.launch import serve
+    from repro_torch.models import api
+    cfg = get_config(LM_ARCH)
+    model = api.build_model(cfg, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED))
+    prompts = np.random.default_rng(SEED).integers(
+        0, cfg.vocab, (LM_BATCH, LM_PROMPT))
+    batch = {"tokens": prompts}
+    max_ctx = LM_PROMPT + LM_GEN
+    serve.generate(model, params, batch, max_context=max_ctx, n_steps=2,
+                   device=dev)                     # cuBLAS init, not measured
+    fa_kernel.launches = 0
+    toks, stats = serve.generate(model, params, batch, max_context=max_ctx,
+                                 n_steps=LM_GEN, device=dev)
+    launches = fa_kernel.launches
+    check(launches == cfg.n_layers,
+          f"one prefill launched flash_attention {launches} times, want "
+          f"{cfg.n_layers}")
+    check(stats["nonfinite_stops"] == 0,
+          f"{stats['nonfinite_stops']} sequences went non-finite")
+    check(tuple(toks.shape) == (LM_BATCH, LM_GEN)
+          and bool(((toks >= 0) & (toks < cfg.vocab)).all()),
+          f"generated tokens {tuple(toks.shape)} out of range")
+    wall = stats["prefill_s"] + stats["decode_s_per_tok"] * (LM_GEN - 1)
+    prof = _profile_lm(model, params, batch, max_ctx, stats)
+    emit(phase="lm_serve", config=cfg.name, dtype=cfg.dtype,
+         layers=cfg.n_layers, batch=LM_BATCH, prompt_len=LM_PROMPT,
+         generated=LM_GEN, prefill_ms=stats["prefill_s"] * 1e3,
+         decode_ms_per_token=stats["decode_s_per_tok"] * 1e3,
+         generated_tokens_per_s=LM_BATCH * LM_GEN / wall,
+         decode_tokens_per_s=LM_BATCH / stats["decode_s_per_tok"],
+         prefill_tokens_per_s=LM_BATCH * LM_PROMPT / stats["prefill_s"],
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+         flash_launches_per_prefill=launches,
+         nonfinite_stops=stats["nonfinite_stops"],
+         first_tokens=toks[0, :8].tolist(), profile=prof)
+    return cfg, params, launches
+
+
+def _profile_lm(model, params, batch, max_ctx, stats):
+    """Device time of one prefill and one decode step under
+    ``torch.profiler`` (device-side events only), the number of device
+    operations each runs, the top kernels, and the idle share against the
+    unprofiled times of the served run."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    tokens = torch.as_tensor(batch["tokens"], device=model.device)
+    logits, cache = model.prefill(params, {"tokens": tokens}, max_ctx)
+    tok = logits.argmax(-1)[:, None].int()
+    torch.cuda.synchronize()
+    out = {}
+    for label, fn, wall_ms in (
+            ("prefill", lambda: model.prefill(params, {"tokens": tokens},
+                                              max_ctx),
+             stats["prefill_s"] * 1e3),
+            ("decode_step", lambda: model.decode_step(params, cache, tok),
+             stats["decode_s_per_tok"] * 1e3)):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                       for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CUDA),
+                      key=lambda r: -r[1])
+        busy = sum(r[1] for r in rows)
+        out[label] = {"device_busy_ms": busy,
+                      "device_ops": sum(r[2] for r in rows),
+                      "served_ms": wall_ms, "idle_share": 1 - busy / wall_ms,
+                      "top": [{"name": n[:60], "device_ms": ms, "calls": c}
+                              for n, ms, c in rows[:6]]}
+    return out
+
+
+def phase_lm_reference(dev, cfg, params):
+    """The kernel prefill's last-token logits against the plain-version
+    prefill (``impl="ref"``), in bf16 and, on a float32 copy of the model,
+    in float32; the first decode step against a teacher-forced prefill of
+    prompt + token (513 tokens: a ragged block for the kernel)."""
+    import torch
+    from repro_torch.models import transformer
+    tokens = torch.as_tensor(np.random.default_rng(SEED).integers(
+        0, cfg.vocab, (LM_BATCH, LM_PROMPT)), device=dev)
+    mc = LM_PROMPT + LM_GEN
+
+    def compare(label, got, want, tol):
+        got, want = got.float(), want.float()
+        scale = want.abs().max().item()
+        err = (got - want).abs().max().item()
+        check(bool(torch.isfinite(got).all()), f"{label}: non-finite")
+        check(err <= tol * scale,
+              f"{label}: max|diff| {err} > {tol} * {scale}")
+        return {"max_abs_err": err, "max_abs_logit": scale,
+                "tolerance": f"{tol} * max|logit|"}
+
+    res = {}
+    lk, cache = transformer.prefill(params, tokens, cfg, max_context=mc)
+    lr, _ = transformer.prefill(params, tokens, cfg, max_context=mc,
+                                impl="ref")
+    res["bf16_prefill"] = compare("bf16 prefill", lk, lr, TOL_LM_BF16)
+    res["bf16_prefill"]["greedy_agreement"] = int(
+        (lk.float().argmax(-1) == lr.float().argmax(-1)).sum())
+    nxt = lk.float().argmax(-1)[:, None].int()
+    ld, _ = transformer.decode_step(params, cache, nxt, cfg)
+    full, _ = transformer.prefill(params, torch.cat([tokens, nxt], 1), cfg,
+                                  max_context=mc + 1)
+    res["bf16_decode_vs_prefill"] = compare("bf16 decode", ld[:, 0], full,
+                                            TOL_LM_BF16)
+    del cache, lk, lr, ld, full
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = transformer.DecoderLM(
+        cfg32, device=dev,
+        generator=torch.Generator(device=dev).manual_seed(SEED)).params()
+    lk, _ = transformer.prefill(p32, tokens, cfg32, max_context=mc)
+    lr, _ = transformer.prefill(p32, tokens, cfg32, max_context=mc,
+                                impl="ref")
+    res["f32_prefill"] = compare("f32 prefill", lk, lr, TOL_LM_F32)
+    res["f32_prefill"]["greedy_agreement"] = int(
+        (lk.argmax(-1) == lr.argmax(-1)).sum())
+    emit(phase="lm_reference", config=cfg.name, batch=LM_BATCH,
+         prompt_len=LM_PROMPT, **res)
+    del p32
+    torch.cuda.empty_cache()
+
+
 def _seeded_model(cfg, dev):
     """MinkUNet with seeded random weights and batch-norm statistics."""
     import torch
@@ -759,10 +1023,26 @@ def main() -> int:
     k3 = phase_materialized(dev, lidar[0], cfg)
     k4 = phase_masked(dev, lidar[0], cfg)
     phase_scan(dev, cfg, lidar[0], model)
-    for k in (k1, k2, k3, k4):
+    del model, results
+    flash = phase_flash(dev)
+    lm_cfg, lm_params, fa_launches = phase_lm_serve(dev)
+    phase_lm_reference(dev, lm_cfg, lm_params)
+    served = flash["tinyllama_prefill"]
+    n = lm_cfg.n_layers
+    k5 = {"name": "flash_attention", "route": "cuda", "source": FLASH_SRC,
+          "replaces": "src/repro/kernels/flash_attention/kernel.py:80",
+          "launches": fa_launches,
+          "max_abs_err": max(r["max_abs_err"] for r in flash.values()),
+          "ms": n * served["ms"], "plain_ms": n * served["plain_ms"],
+          "bound_ms": n * served["bound_ms"], "bound_by": served["bound_by"],
+          "library_ms": n * served["library_ms"],
+          "timing": f"{n} launches of one {lm_cfg.name} prefill "
+                    f"({LM_BATCH} x {LM_PROMPT} tokens, bf16), one per "
+                    f"layer; max_abs_err over all shapes, bf16 and f32"}
+    for k in (k1, k2, k3, k4, k5):
         check(k["launches"] > 0, f"{k['name']} never launched on the path")
     emit(phase="done", seconds=time.perf_counter() - t0)
-    print(json.dumps({"kernels": [k1, k2, k3, k4]}), flush=True)
+    print(json.dumps({"kernels": [k1, k2, k3, k4, k5]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

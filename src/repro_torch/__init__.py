@@ -1,8 +1,8 @@
 """SpOctA on PyTorch and CUDA: the port of the ``repro`` package.
 
-The sub-packages mirror ``repro`` module for module (``core``, ``kernels``,
-``models``, ``data``, ``runtime``, ``launch``) so every function has a
-findable counterpart. Every kernel is written by hand in CUDA C++ for
+The sub-packages mirror ``repro`` module for module (``configs``,
+``core``, ``kernels``, ``models``, ``data``, ``runtime``, ``launch``) so
+every function has a findable counterpart. Every kernel is written by hand in CUDA C++ for
 Hopper (``csrc/``) and built with ``nvcc`` at first use:
 
   * ``kernels/octent``        — the OCTENT map-search query;
@@ -11,14 +11,18 @@ Hopper (``csrc/``) and built with ``nvcc`` at first use:
     (the serving path), and the materialized tiled GEMM behind the
     ``apply_kmap`` baseline;
   * ``kernels/masked_matmul`` — the block-masked dense matmul (SPAC tile
-    skipping on one GEMM).
+    skipping on one GEMM);
+  * ``kernels/flash_attention`` — causal / sliding-window / GQA attention,
+    every prefill layer of the dense decoder LMs (``models/transformer``,
+    served by ``launch/serve``).
 
 ``plan.execute(impl="scan")`` runs a layer by the plain tap scan instead,
 the oracle the reference calls ``impl="xla"``.
 
 Importing this package never builds a kernel and never needs ``nvcc``.
-Entry points (``ServeEngine``, ``MinkUNet``, ``build_plans``) run on the
-card unless the caller passes ``device="cpu"``; with no card they raise.
+Entry points (``ServeEngine``, ``MinkUNet``, ``build_plans``, ``DecoderLM``,
+``build_model``, ``generate``) run on the card unless the caller passes
+``device="cpu"``; with no card they raise.
 """
 from repro_torch.device import resolve_device
 

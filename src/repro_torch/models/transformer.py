@@ -1,0 +1,221 @@
+"""Dense decoder LM: prefill and decode, for the llama-family configs
+(tinyllama, yi, deepseek, qwen3 with qk-norm and tied embeddings) and the
+sliding-window ones.
+
+Parameters are nested dicts keyed as in the reference, except that
+``layers`` is a list with one dict per layer where the reference stacks
+them on a leading axis for ``lax.scan``: depth is a Python loop here.
+:class:`DecoderLM` holds them as an ``nn.Module`` under the reference's
+names, and :func:`lm_params_from_jax` turns a reference parameter tree into
+its ``state_dict``. The MoE feed-forward (mixtral) comes later (ROADMAP §1
+item 17), and so does ``lm_loss``, with training.
+"""
+from __future__ import annotations
+
+from collections.abc import Mapping
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch.device import resolve_device
+from repro_torch.models import attention, common
+
+
+def _dense_only(cfg) -> None:
+    if cfg.n_experts:
+        raise NotImplementedError(
+            f"{cfg.name}: the MoE feed-forward is not ported yet (ROADMAP "
+            f"§1 item 17)")
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def init_layer(gen: torch.Generator, cfg, dtype) -> dict:
+    return {"ln1": common.init_norm(cfg.norm, cfg.d_model, dtype, gen.device),
+            "ln2": common.init_norm(cfg.norm, cfg.d_model, dtype, gen.device),
+            "attn": attention.init_attention(gen, cfg, dtype),
+            "mlp": common.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype,
+                                   gated=cfg.act == "silu")}
+
+
+def init_lm(cfg, gen: torch.Generator) -> dict:
+    """Random parameters drawn from ``gen``, on its device, in cfg.dtype."""
+    _dense_only(cfg)
+    dtype = common.dtype_of(cfg)
+    params = {
+        "embed": common.normal(gen, (cfg.vocab, cfg.d_model), 0.02, dtype),
+        "layers": [init_layer(gen, cfg, dtype) for _ in range(cfg.n_layers)],
+        "final_norm": common.init_norm(cfg.norm, cfg.d_model, dtype,
+                                       gen.device),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = common.normal(
+            gen, (cfg.d_model, cfg.vocab), cfg.d_model ** -0.5, dtype)
+    return params
+
+
+def _param_dict(tree: Mapping) -> nn.ParameterDict:
+    return nn.ParameterDict({k: nn.Parameter(v, requires_grad=False)
+                             for k, v in tree.items()})
+
+
+class DecoderLM(nn.Module):
+    """The parameters of a dense decoder LM under the reference's names:
+    ``embed``, ``layers.<i>.{ln1,ln2}.w``, ``layers.<i>.attn.{wq,wk,wv,wo}``
+    (and ``q_norm``, ``k_norm``), ``layers.<i>.mlp.{w_up,w_gate,w_down}``,
+    ``final_norm.w`` and, untied, ``lm_head``.
+
+    Weights come from :func:`init_lm` with ``generator`` (None: a fresh one
+    on the device, seeded 0), on ``device`` (None: the card; raises without
+    one). :meth:`params` is the nested dict the functions of this module
+    take.
+    """
+
+    def __init__(self, cfg, *, device: str | torch.device | None = None,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        dev = resolve_device(device)
+        self.cfg = cfg
+        gen = generator if generator is not None \
+            else torch.Generator(dev).manual_seed(0)
+        if gen.device.type != dev.type:
+            raise ValueError(f"generator on {gen.device}, model on {dev}")
+        tree = init_lm(cfg, gen)
+        self.embed = nn.Parameter(tree["embed"], requires_grad=False)
+        self.layers = nn.ModuleList(
+            nn.ModuleDict({k: _param_dict(v) for k, v in lp.items()})
+            for lp in tree["layers"])
+        self.final_norm = _param_dict(tree["final_norm"])
+        if "lm_head" in tree:
+            self.lm_head = nn.Parameter(tree["lm_head"], requires_grad=False)
+
+    def params(self) -> dict:
+        p = {"embed": self.embed, "layers": list(self.layers),
+             "final_norm": self.final_norm}
+        if not self.cfg.tie_embeddings:
+            p["lm_head"] = self.lm_head
+        return p
+
+
+def lm_params_from_jax(tree: Mapping) -> dict[str, torch.Tensor]:
+    """A :class:`DecoderLM` ``state_dict`` from a reference parameter tree
+    (``repro.models.transformer.init_lm`` mapped through ``np.asarray``):
+    the leading layer axis of ``layers`` is split into ``layers.<i>``.
+    Values are float32; ``load_state_dict`` casts them to the model's
+    dtype."""
+    out: dict[str, torch.Tensor] = {}
+
+    def walk(prefix, node, layer=None):
+        if isinstance(node, Mapping):
+            for k, v in node.items():
+                walk(f"{prefix}{k}.", v, layer)
+            return
+        a = np.array(node, dtype=np.float32)
+        if layer is None:
+            out[prefix[:-1]] = torch.from_numpy(a)
+        else:
+            for i in range(a.shape[0]):
+                out[f"layers.{i}.{prefix[:-1]}"] = torch.from_numpy(a[i])
+
+    for key, node in tree.items():
+        if key == "layers":
+            walk("", node, layer=True)
+        else:
+            walk(f"{key}.", node)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# forward (full sequence)
+# ---------------------------------------------------------------------------
+
+def _layer_full(lp, h, cfg, impl: str = "kernel"):
+    a_in = common.norm(h, lp["ln1"], cfg.norm)
+    a_out, kv = attention.attend_full(lp["attn"], a_in, cfg, impl=impl)
+    h = h + a_out
+    m_in = common.norm(h, lp["ln2"], cfg.norm)
+    return h + common.mlp(lp["mlp"], m_in, cfg.act), kv
+
+
+def forward_embeds(params, h, cfg, *, collect_kv: bool = False,
+                   impl: str = "kernel"):
+    """h (B, S, D) embeddings -> (hidden, per-layer (k, v) list | None)."""
+    _dense_only(cfg)
+    kvs = []
+    for lp in params["layers"]:
+        h, kv = _layer_full(lp, h, cfg, impl)
+        if collect_kv:
+            kvs.append(kv)
+    h = common.norm(h, params["final_norm"], cfg.norm)
+    return h, (kvs if collect_kv else None)
+
+
+def logits_fn(params, h, cfg):
+    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return h @ w
+
+
+# ---------------------------------------------------------------------------
+# serving: prefill + decode
+# ---------------------------------------------------------------------------
+
+def cache_capacity(cfg, max_context: int) -> int:
+    return min(max_context, cfg.swa_window) if cfg.swa_window else max_context
+
+
+def init_cache(cfg, batch: int, max_context: int, device=None) -> dict:
+    dtype = common.dtype_of(cfg)
+    cap = cache_capacity(cfg, max_context)
+    kv, hd = cfg.n_kv_heads, cfg.head_dim_
+    shape = (cfg.n_layers, batch, cap, kv, hd)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "pos": torch.full((cap,), -1, dtype=torch.int32, device=device),
+            "step": 0}
+
+
+@torch.no_grad()
+def prefill(params, tokens: torch.Tensor, cfg, *, max_context: int,
+            impl: str = "kernel"):
+    """tokens (B, S) -> (last-token logits (B, V), cache).
+
+    The cache holds k and v (L, B, C, KV, hd), pos (C,) and ``step``, the
+    next absolute position, as a host integer.
+    """
+    s = tokens.shape[1]
+    cap = cache_capacity(cfg, max_context)
+    h = params["embed"][tokens]
+    h, kvs = forward_embeds(params, h, cfg, collect_kv=True, impl=impl)
+    logits = logits_fn(params, h[:, -1:], cfg)[:, 0]
+    caches = [attention.cache_from_prefill(k, v, cap) for k, v in kvs]
+    return logits, {"k": torch.stack([c.k for c in caches]),
+                    "v": torch.stack([c.v for c in caches]),
+                    "pos": caches[0].pos, "step": s}
+
+
+@torch.no_grad()
+def decode_step(params, cache: dict, tokens: torch.Tensor, cfg):
+    """tokens (B, 1) -> (logits (B, 1, V), cache). One step, all layers.
+
+    The cache's tensors are updated in place (see
+    :func:`attention.attend_decode`); the returned dict shares them, with
+    ``step`` advanced by one.
+    """
+    _dense_only(cfg)
+    step = cache["step"]
+    cap = cache["k"].shape[2]
+    h = params["embed"][tokens]
+    cache["pos"][step % cap] = step          # shared by all layers: once
+    for i, lp in enumerate(params["layers"]):
+        a_in = common.norm(h, lp["ln1"], cfg.norm)
+        kvc = attention.KVCache(k=cache["k"][i], v=cache["v"][i],
+                                pos=cache["pos"])
+        a_out, _ = attention.attend_decode(lp["attn"], a_in, cfg, kvc, step)
+        h = h + a_out
+        m_in = common.norm(h, lp["ln2"], cfg.norm)
+        h = h + common.mlp(lp["mlp"], m_in, cfg.act)
+    h = common.norm(h, params["final_norm"], cfg.norm)
+    return logits_fn(params, h, cfg), {**cache, "step": step + 1}

@@ -14,7 +14,14 @@ kernel's 64-slot register tile, and the fused epilogue. The materialized
 GEMM and the block-masked matmul are held to the same 1e-4 at all-dead
 tiles, the Cin = 4 stem, Cin = Cout = 512, tile heights other than 128, a
 caller's mask that kills a nonzero tile, and shapes that are not tile
-multiples through ``sparse_dense_matmul``.
+multiples through ``sparse_dense_matmul``. The flash-attention kernel is
+held to its plain version in float32 (2e-5: summation order, the
+reference's own) and bf16 (2^-7 relative plus 2e-3: one ulp of the bf16
+output plus the float32 summation order), for each
+head dim of the repo's configs, a window shorter than one KV block, a
+fully masked leading block, Sq < Skv with ragged edges, MQA and
+non-causal attention; a small TinyLlama prefill through the kernel is held
+to the same prefill through the plain version.
 """
 from __future__ import annotations
 
@@ -22,7 +29,10 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_config
 from repro_torch.core import mapsearch, morton, sparsity
+from repro_torch.kernels.flash_attention import kernel as fa_kernel
+from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.masked_matmul import kernel as mm_kernel
 from repro_torch.kernels.masked_matmul import ops as mm_ops
 from repro_torch.kernels.masked_matmul.ref import masked_matmul_ref
@@ -32,6 +42,7 @@ from repro_torch.kernels.spconv_gemm import kernel as sg_kernel
 from repro_torch.kernels.spconv_gemm import ops as sg_ops
 from repro_torch.kernels.spconv_gemm.ref import (spconv_gemm_fused_ref,
                                                  spconv_gemm_ref)
+from repro_torch.models import transformer
 
 pytestmark = pytest.mark.gpu
 TOL = 1e-4
@@ -318,3 +329,54 @@ def test_sparse_dense_matmul_non_multiple(cuda, m, k, n):
     # the CPU route of the wrapper is the plain version
     _close(got, mm_ops.sparse_dense_matmul(a.cpu(), b.cpu()).to(cuda))
     _close(got, a @ b)
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d,causal,window", [
+    (2, 8, 2, 256, 256, 64, True, 0),
+    (1, 4, 4, 200, 200, 80, False, 0),       # hubert: no mask, ragged
+    (1, 4, 2, 256, 256, 128, True, 0),
+    (1, 4, 1, 256, 256, 256, True, 100),     # recurrentgemma: MQA + window
+    (1, 4, 2, 256, 256, 64, True, 20),       # window < one KV block
+    (2, 8, 2, 100, 333, 128, True, 0),       # Sq < Skv, ragged edges
+    (1, 8, 1, 128, 128, 64, True, 0),        # MQA
+    (1, 4, 2, 64, 300, 64, True, 40),        # leading blocks fully masked
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_vs_plain(cuda, b, hq, hkv, sq, skv, d,
+                                         causal, window, dtype):
+    g = torch.Generator(device=cuda).manual_seed(sq + skv + d)
+    q = torch.randn((b, hq, sq, d), generator=g, device=cuda).to(dtype)
+    k = torch.randn((b, hkv, skv, d), generator=g, device=cuda).to(dtype)
+    v = torch.randn((b, hkv, skv, d), generator=g, device=cuda).to(dtype)
+    before = fa_kernel.launches
+    got = fa_kernel.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa_kernel.launches == before + 1
+    want = attention_ref(q, k, v, causal=causal, window=window)
+    assert got.dtype == dtype and torch.isfinite(got).all()
+    rtol, atol = (2.0 ** -7, 2e-3) if dtype == torch.bfloat16 else (2e-5,
+                                                                      2e-5)
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+
+
+def test_lm_prefill_kernel_vs_plain(cuda):
+    """Four TinyLlama layers at full width: every prefill layer launches
+    the kernel, and the logits agree with the plain-version prefill."""
+    import dataclasses
+    cfg = dataclasses.replace(get_config("tinyllama-1.1b"), n_layers=4,
+                              dtype="float32")
+    model = transformer.DecoderLM(
+        cfg, device=cuda, generator=torch.Generator(cuda).manual_seed(0))
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 100)), device=cuda)
+    before = fa_kernel.launches
+    got, cache = transformer.prefill(model.params(), toks, cfg,
+                                     max_context=128)
+    torch.cuda.synchronize()
+    assert fa_kernel.launches == before + cfg.n_layers
+    want, _ = transformer.prefill(model.params(), toks, cfg,
+                                  max_context=128, impl="ref")
+    assert cache["k"].shape == (4, 2, 128, 4, 64)
+    scale = want.abs().max().item()
+    assert (got - want).abs().max().item() <= 1e-3 * scale

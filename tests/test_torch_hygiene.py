@@ -7,7 +7,8 @@
 * Entry points called without ``device="cpu"`` on a host with no card
   raise; there is no silent CPU run.
 * The kernel wrappers raise on a wrong dtype, shape or a non-contiguous
-  input.
+  input (the flash-attention wrapper also on an unsupported head dim,
+  Sq > Skv and Hq % Hkv != 0).
 * Every CUDA source under ``csrc/`` is built by ``kernels/build.py`` and
   opens with a note naming the TPU kernel it replaces, which exists.
 """
@@ -92,7 +93,7 @@ def test_every_cuda_source_is_built_and_names_its_tpu_kernel():
     from repro_torch.kernels import build
     sources = sorted(p.name for p in (PKG / "csrc").glob("*.cu"))
     assert sources == sorted(build.SOURCES.values())
-    assert len(sources) >= 4
+    assert len(sources) >= 5
     for name, src in build.SOURCES.items():
         text = (PKG / "csrc" / src).read_text()
         head = text[:text.index("#include")]
@@ -170,3 +171,46 @@ def test_gemm_wrapper_rejects_bad_inputs():
         spconv_gemm_fused(*args, bk=16, **kw)
     with pytest.raises(TypeError, match="epi_scale"):
         spconv_gemm_fused(*args, epilogue=True, epi_scale=None, **kw)
+
+
+def test_lm_entry_points_raise_without_a_card(monkeypatch):
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import api, transformer
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config("tinyllama-1.1b").reduced()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        transformer.DecoderLM(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        api.build_model(cfg)
+    model = api.build_model(cfg, device="cpu")
+    params = transformer.DecoderLM(cfg, device="cpu").params()
+    batch = {"tokens": np.zeros((2, 5), np.int64)}
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.generate(model, params, batch, max_context=8, n_steps=2)
+    # the explicit CPU request runs
+    toks, stats = serve.generate(model, params, batch, max_context=8,
+                                 n_steps=2, device="cpu")
+    assert toks.shape == (2, 2) and stats["nonfinite_stops"] == 0
+
+
+def test_flash_wrapper_rejects_bad_inputs():
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    q, k, v = (torch.ones(1, 4, 8, 64), torch.ones(1, 2, 8, 64),
+               torch.ones(1, 2, 8, 64))
+    assert flash_attention(q, k, v).shape == (1, 4, 8, 64)
+    with pytest.raises(TypeError, match="bfloat16 or torch.float32"):
+        flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(TypeError, match="k must be torch.float32"):
+        flash_attention(q, k.bfloat16(), v)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention(q, k.transpose(2, 3).contiguous().transpose(2, 3),
+                        v)
+    with pytest.raises(ValueError, match="head dim 32"):
+        flash_attention(*(t[..., :32].contiguous() for t in (q, k, v)))
+    with pytest.raises(ValueError, match="Sq=8 > Skv=4"):
+        flash_attention(q, k[:, :, :4].contiguous(), v[:, :, :4].contiguous())
+    with pytest.raises(ValueError, match="not a multiple of Hkv=3"):
+        flash_attention(q, torch.ones(1, 3, 8, 64), torch.ones(1, 3, 8, 64))
+    with pytest.raises(ValueError, match="shape"):
+        flash_attention(q, k, v[:, :1].contiguous())
