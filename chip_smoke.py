@@ -6,10 +6,11 @@ Run from the root of a checkout, on a host with one CUDA card:
     python3 chip_smoke.py
 
 It builds the five hand-written kernels from the checkout's sources (one
-``nvcc`` per source, in parallel) and drives each execution path of the
-port at MinkUNet-large's full published widths and depth (seeded random
-weights), on a 65,536-voxel bucket, then the dense-decoder serving path at
-TinyLlama-1.1B's:
+``nvcc`` per source, in parallel; phase ``device`` reports each
+instantiation's registers, shared memory and spills) and drives each
+execution path of the port at MinkUNet-large's full published widths and
+depth (seeded random weights), on a 65,536-voxel bucket, then the
+dense-decoder serving path at TinyLlama-1.1B's:
 
 * ``octent_query`` and ``spconv_gemm_fused`` (both modes): each kernel
   against its plain PyTorch version at the shapes the serving path gives
@@ -23,12 +24,13 @@ TinyLlama-1.1B's:
   ``torch.matmul``;
 * ``scan_forward``: one forward through the tap-scan oracle
   (``impl="scan"``) against the kernel forward, unfused and fused.
-* ``flash_attention``: the kernel against its plain version at six
-  attention shapes of the repo's configs (TinyLlama's served prefill, in
-  bf16 and float32, a 4,096-token prompt, Mixtral's windowed attention,
-  HuBERT's, RecurrentGemma's, and a ragged Sq < Skv case), each bf16
-  shape also checked in float32, with ``scaled_dot_product_attention``
-  timed beside it;
+* ``flash_attention``: the kernel (bf16 on the tensor cores, float32 on
+  the CUDA cores) against its plain version at six attention shapes of
+  the repo's configs (TinyLlama's served prefill, in bf16 and float32, a
+  4,096-token prompt, Mixtral's windowed attention, HuBERT's,
+  RecurrentGemma's, and a ragged Sq < Skv case), each bf16 shape also
+  checked in float32, with ``scaled_dot_product_attention`` timed beside
+  it, the kernel's share of its bound and its time over SDPA's;
 * ``lm_serve``: TinyLlama-1.1B at full width and depth (bf16, seeded
   random weights) serving 4 x 512-token prompts for 32 generated tokens
   through ``generate``, 22 flash launches per prefill;
@@ -46,6 +48,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -100,12 +103,16 @@ def check(cond: bool, msg: str) -> None:
 
 def time_ms(fn, iters: int) -> float:
     """Mean device time of ``fn`` over ``iters`` back-to-back calls (CUDA
-    events, after one warm-up call)."""
+    events, after one warm-up call). The card first spins for about 10 ms,
+    so that the host queues every call before the first event: a call
+    whose host side takes longer than its kernel is timed by its kernel,
+    not by the host's launch rate."""
     import torch
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)          # clock cycles
     start.record()
     for _ in range(iters):
         fn()
@@ -114,20 +121,71 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _kernel_name(mangled: str) -> str:
+    """``name<args>`` of an Itanium-mangled kernel name (the innermost
+    name and its integer template arguments), e.g.
+    ``flash_attention_wgmma<80>``."""
+    i, name = 3 if mangled.startswith("_ZN") else 2, mangled
+    while i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        name, i = mangled[j:j + int(mangled[i:j])], j + int(mangled[i:j])
+    args = re.match(r"I((?:L[a-z]-?\d+E)+)E", mangled[i:])
+    if args:
+        name += "<" + ",".join(re.findall(r"L[a-z](-?\d+)E",
+                                          args.group(1))) + ">"
+    return name
+
+
+def _ptxas(log: str) -> list:
+    """Registers, static shared memory and spill bytes of each kernel in a
+    ``ptxas -v`` log."""
+    out = []
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            out.append({"kernel": _kernel_name(m.group(1))})
+        elif out and (m := re.search(r"(\d+) bytes spill stores, (\d+) "
+                                     r"bytes spill loads", ln)):
+            out[-1]["spill_stores"], out[-1]["spill_loads"] = map(
+                int, m.groups())
+        elif out and (m := re.search(r"Used (\d+) registers", ln)):
+            smem = re.search(r"(\d+) bytes smem", ln)
+            out[-1]["registers"] = int(m.group(1))
+            out[-1]["static_smem"] = int(smem.group(1)) if smem else 0
+    return out
+
+
 def phase_device():
+    """The card, the parallel build of every kernel with each
+    instantiation's registers, shared memory and spills, and no spill in
+    the bf16 flash-attention route."""
+    import ctypes
     import torch
     from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention.kernel import HEAD_DIMS
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
     print(smi, flush=True)
     t0 = time.perf_counter()
-    reports = build.build_all()
+    build.build_all()
     build_s = time.perf_counter() - t0
-    ptxas = {n: [ln.strip() for ln in log.splitlines()
-                 if "registers" in ln or "spill" in ln]
-             for n, log in reports.items()}
+    ptxas = {n: _ptxas(build.ptxas_log(n)) for n in build.SOURCES}
+    smem_fn = build.load("flash_attention").flash_attention_smem
+    smem_fn.argtypes, smem_fn.restype = [ctypes.c_int, ctypes.c_int], \
+        ctypes.c_int
+    for rep in ptxas["flash_attention"]:
+        route, d = re.match(r"flash_attention_(\w+)<(\d+)>",
+                            rep["kernel"]).groups()
+        rep["dynamic_smem"] = smem_fn(int(d), int(route == "wgmma"))
+        if route == "wgmma":
+            check(rep["spill_stores"] == rep["spill_loads"] == 0,
+                  f"{rep['kernel']} spills: {rep}")
+    check(len(ptxas["flash_attention"]) == 2 * len(HEAD_DIMS),
+          f"flash_attention.cu built {ptxas['flash_attention']}")
     emit(phase="device", nvidia_smi=smi, torch=torch.__version__,
          cuda=torch.version.cuda, name=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), build_s=build_s, ptxas=ptxas)
@@ -729,6 +787,8 @@ def phase_flash(dev):
                "library_ms": time_ms(library, 10), "library_call": lib_call,
                "library_vs_plain_max_abs_err": lib_err}
         rec["tflops"] = rec["flops"] / rec["ms"] / 1e9
+        rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
+        rec["vs_library"] = rec["ms"] / rec["library_ms"]
         per_shape[name] = rec
         emit(phase="flash_attention", name=name, **rec)
         del q, k, v, mask

@@ -68,14 +68,14 @@ def library_path(name: str) -> Path:
     return build_dir() / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def build_all(names=None) -> dict[str, str]:
+def build_all(names=None) -> None:
     """Compile every missing library in ``names`` (default: all), one
-    ``nvcc`` process per source, all started together. Returns the ptxas
-    report (registers, shared memory, spills) of each source built now."""
+    ``nvcc`` process per source, all started together, each with its
+    ptxas report beside it (:func:`ptxas_log`)."""
     names = list(SOURCES) if names is None else list(names)
     todo = [n for n in names if not library_path(n).exists()]
     if not todo:
-        return {}
+        return
     out_dir = build_dir()
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
@@ -87,19 +87,24 @@ def build_all(names=None) -> dict[str, str]:
         procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                      stderr=subprocess.STDOUT, text=True),
                     tmp, lib)
-    reports, errors = {}, []
+    errors = []
     for n, (p, tmp, lib) in procs.items():
         log, _ = p.communicate()
         if p.returncode != 0:
             errors.append(f"nvcc failed for {SOURCES[n]} "
                           f"(exit {p.returncode}):\n{log}")
             continue
-        os.replace(tmp, lib)
+        # the log first, so that a built library always has its log
         lib.with_suffix(".log").write_text(log)
-        reports[n] = log
+        os.replace(tmp, lib)
     if errors:
         raise RuntimeError("\n".join(errors))
-    return reports
+
+
+def ptxas_log(name: str) -> str:
+    """The ``nvcc -Xptxas -v`` output of kernel ``name``'s built library:
+    each kernel's registers, static shared memory and spills."""
+    return library_path(name).with_suffix(".log").read_text()
 
 
 def load(name: str) -> ctypes.CDLL:

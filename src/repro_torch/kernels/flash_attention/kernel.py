@@ -1,8 +1,10 @@
 """Wrapper of the CUDA flash-attention kernel (csrc/flash_attention.cu).
 
 :func:`flash_attention` checks its inputs, then launches the hand-written
-kernel on CUDA tensors, or runs the plain version (ref.py) on CPU tensors.
-There is no fallback: a CUDA input launches the kernel or raises.
+kernel on CUDA tensors (bf16 on the tensor cores, float32 on the CUDA
+cores: two routes of one source), or runs the plain version (ref.py) on
+CPU tensors. There is no fallback: a CUDA input launches the kernel or
+raises.
 ``launches`` counts kernel launches.
 """
 from __future__ import annotations
@@ -30,8 +32,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Online-softmax attention; see ref.py for the semantics.
 
     q (B, Hq, Sq, D); k, v (B, Hkv, Skv, D), contiguous, all bf16 or all
-    float32, with Hq % Hkv == 0, Sq <= Skv and D in :data:`HEAD_DIMS`.
-    Returns (B, Hq, Sq, D) in q's dtype.
+    float32, each starting on a 16-byte boundary (the bf16 route loads them
+    by TMA; both devices take the same inputs), with Hq % Hkv == 0,
+    Sq <= Skv and D in :data:`HEAD_DIMS`. Returns (B, Hq, Sq, D) in q's
+    dtype.
     """
     global launches
     if not isinstance(q, torch.Tensor) or q.dtype not in (torch.bfloat16,
@@ -51,6 +55,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"the keys")
     if window < 0:
         raise ValueError(f"window {window} < 0")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} does not start on a 16-byte boundary "
+                             f"(storage offset {t.storage_offset()})")
     dev = q.device
     if k.device != dev or v.device != dev:
         raise ValueError("q, k and v of flash_attention must share a device")

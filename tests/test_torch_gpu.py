@@ -19,9 +19,12 @@ held to its plain version in float32 (2e-5: summation order, the
 reference's own) and bf16 (2^-7 relative plus 2e-3: one ulp of the bf16
 output plus the float32 summation order), for each
 head dim of the repo's configs, a window shorter than one KV block, a
-fully masked leading block, Sq < Skv with ragged edges, MQA and
-non-causal attention; a small TinyLlama prefill through the kernel is held
-to the same prefill through the plain version.
+window of 1, a fully masked leading block, Sq < Skv with ragged edges,
+Sq = Skv at and around the bf16 route's block edges (1, 64, 65, 127, 128,
+129) and Sq = Skv - 7 at every head dim, MQA, Hq / Hkv = 32 and non-causal
+attention; a bf16 view whose base is not 16-byte aligned raises. A small
+TinyLlama prefill through the kernel is held to the same prefill through
+the plain version.
 """
 from __future__ import annotations
 
@@ -331,6 +334,15 @@ def test_sparse_dense_matmul_non_multiple(cuda, m, k, n):
     _close(got, a @ b)
 
 
+# the bf16 route's blocks: 128 q rows and 128 keys (64 and 64 at D = 256)
+_FLASH_EDGES = (
+    [(1, 4, 2, s, s, d, True, 0) for s in (1, 64, 65, 127, 128, 129)
+     for d in fa_kernel.HEAD_DIMS]
+    + [(1, 4, 2, 249, 256, d, True, 0) for d in fa_kernel.HEAD_DIMS]
+    + [(1, 4, 2, 200, 200, d, True, 1) for d in (64, 256)]    # window 1
+    + [(1, 32, 1, 130, 130, d, True, 0) for d in (64, 128)])  # Hq/Hkv 32
+
+
 @pytest.mark.parametrize("b,hq,hkv,sq,skv,d,causal,window", [
     (2, 8, 2, 256, 256, 64, True, 0),
     (1, 4, 4, 200, 200, 80, False, 0),       # hubert: no mask, ragged
@@ -340,6 +352,7 @@ def test_sparse_dense_matmul_non_multiple(cuda, m, k, n):
     (2, 8, 2, 100, 333, 128, True, 0),       # Sq < Skv, ragged edges
     (1, 8, 1, 128, 128, 64, True, 0),        # MQA
     (1, 4, 2, 64, 300, 64, True, 40),        # leading blocks fully masked
+    *_FLASH_EDGES,
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel_vs_plain(cuda, b, hq, hkv, sq, skv, d,
@@ -358,6 +371,22 @@ def test_flash_attention_kernel_vs_plain(cuda, b, hq, hkv, sq, skv, d,
                                                                       2e-5)
     torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
                                atol=atol)
+
+
+def test_flash_attention_rejects_misaligned_bf16(cuda):
+    """TMA needs a 16-byte-aligned base: a contiguous bf16 view 8 bytes
+    into its storage raises before any launch."""
+    n = 1 * 2 * 64 * 64
+    buf = torch.zeros(n + 4, dtype=torch.bfloat16, device=cuda)
+    q = buf[4:].view(1, 2, 64, 64)
+    k = v = torch.zeros((1, 2, 64, 64), dtype=torch.bfloat16, device=cuda)
+    assert q.is_contiguous() and q.data_ptr() % 16 == 8
+    before = fa_kernel.launches
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        fa_kernel.flash_attention(q, k, v)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        fa_kernel.flash_attention(k, k, q)
+    assert fa_kernel.launches == before
 
 
 def test_lm_prefill_kernel_vs_plain(cuda):

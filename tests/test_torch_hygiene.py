@@ -214,3 +214,24 @@ def test_flash_wrapper_rejects_bad_inputs():
         flash_attention(q, torch.ones(1, 3, 8, 64), torch.ones(1, 3, 8, 64))
     with pytest.raises(ValueError, match="shape"):
         flash_attention(q, k, v[:, :1].contiguous())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_wrapper_rejects_misaligned_base(dtype):
+    """The 16-byte alignment that the bf16 route's TMA loads need is checked
+    before the CPU branch, so both devices reject the same inputs; a view
+    16 bytes into its storage is aligned and goes through."""
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    n = 1 * 2 * 8 * 64
+    buf = torch.randn(n + 16, dtype=torch.float32).to(dtype)
+    k = torch.ones(1, 2, 8, 64, dtype=dtype)
+
+    def view(offset_bytes):
+        off = offset_bytes // buf.element_size()
+        return buf[off:off + n].view(1, 2, 8, 64)
+
+    assert buf.data_ptr() % 16 == 0 and view(8).data_ptr() % 16 == 8
+    for args in ((view(8), k, k), (k, view(8), k), (k, k, view(8))):
+        with pytest.raises(ValueError, match="16-byte boundary"):
+            flash_attention(*args)
+    assert flash_attention(view(16), k, k).shape == (1, 2, 8, 64)
