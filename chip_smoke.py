@@ -14,14 +14,17 @@ dense-decoder serving path at TinyLlama-1.1B's:
 
 * ``octent_query`` and ``spconv_gemm_fused`` (both modes): each kernel
   against its plain PyTorch version at the shapes the serving path gives
-  it, then MinkUNet-large served through ``ServeEngine`` (4 requests),
-  the launch counts, and the logits against the plain-version forward;
+  it (for kernel 2 also its planning kernel, bit for bit, and each
+  shape's CTAs and split blocks), then MinkUNet-large served through
+  ``ServeEngine`` (4 requests), the launch counts, and the logits against
+  the plain-version forward;
 * ``spconv_gemm``: the materialized backend at the 20 distinct layer
   shapes, the kernel against its plain version, then ``apply_kmap``
   against the fused ``apply_tiles``, with peak device memory per shape;
 * ``masked_matmul``: one dense GEMM per layer shape through
   ``sparse_dense_matmul``, the kernel against its plain version and
-  ``torch.matmul``;
+  ``torch.matmul`` (a shape where the kernel is slower is reported, not
+  fatal);
 * ``scan_forward``: one forward through the tap-scan oracle
   (``impl="scan"``) against the kernel forward, unfused and fused.
 * ``flash_attention``: the kernel (bf16 on the tensor cores, float32 on
@@ -39,7 +42,10 @@ dense-decoder serving path at TinyLlama-1.1B's:
   teacher-forced prefill.
 
 Each path runs with its launch counts set to 0 just before and read just
-after. Output is one JSON object per line; the last line is
+after. The bound of kernels 2-4 is float32-accurate work at the 3xTF32
+tensor-core rate (495 / 3 TFLOP/s) or bytes at HBM's rate, whichever is
+longer; ``bound_ms_f32_cores`` beside it is the bound at the CUDA cores'
+67 TFLOP/s. Output is one JSON object per line; the last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
 exits non-zero and prints no last line. It also exits non-zero when no
 CUDA device is visible or when ``src/repro_torch`` is not beside it.
@@ -65,6 +71,8 @@ TOL_LOGITS = 1e-3              # 25 layers of it, relative to max |logit|
 DEAD_SHARE = 0.125             # of rows (and per Cin block) zeroed by tile
 # published peaks of one H100 SXM (NVIDIA data sheet, 700 W)
 PEAK_F32_FLOPS = 67e12         # float32 outside the tensor cores
+# float32-exact products on the tensor cores: 3 TF32 products each (3xTF32)
+PEAK_TF32X3_FLOPS = 495e12 / 3
 PEAK_BYTES_S = 3.35e12         # HBM3
 OCTENT_SRC = "src/repro_torch/csrc/octent_query.cu"
 GEMM_SRC = "src/repro_torch/csrc/spconv_gemm_fused.cu"
@@ -186,6 +194,23 @@ def phase_device():
                   f"{rep['kernel']} spills: {rep}")
     check(len(ptxas["flash_attention"]) == 2 * len(HEAD_DIMS),
           f"flash_attention.cu built {ptxas['flash_attention']}")
+    gemm_smem = build.load("spconv_gemm_fused").spconv_gemm_fused_smem
+    gemm_smem.argtypes, gemm_smem.restype = [ctypes.c_int], ctypes.c_int
+    mm_smem = build.load("masked_matmul").masked_matmul_smem
+    mm_smem.argtypes, mm_smem.restype = [], ctypes.c_int
+    for name in ("spconv_gemm_fused", "masked_matmul"):
+        for rep in ptxas[name]:
+            m = re.match(r"spconv_gemm_fused_kernel<(\d+)>", rep["kernel"])
+            if m:
+                rep["dynamic_smem"] = gemm_smem(int(m.group(1)))
+            elif rep["kernel"] == "masked_matmul_kernel":
+                rep["dynamic_smem"] = mm_smem()
+            else:
+                continue
+            # the 3xTF32 tile loops are held to two CTAs per SM
+            check(rep["spill_stores"] == rep["spill_loads"] == 0
+                  and rep["registers"] <= 128,
+                  f"{rep['kernel']} spills or exceeds 128 registers: {rep}")
     emit(phase="device", nvidia_smi=smi, torch=torch.__version__,
          cuda=torch.version.cuda, name=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), build_s=build_s, ptxas=ptxas)
@@ -302,11 +327,17 @@ def _kill_tiles(f, tiles, bk, rng):
 
 
 def _bound(flops, nbytes):
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_S
+    """The least time for float32-accurate work: the operations at the
+    float32-exact tensor-core rate (3xTF32) against the bytes at HBM's
+    rate; beside it the bound at the CUDA cores' float32 rate, the rate
+    of the kernels' first, CUDA-core forms, so that shares measured
+    against it stay comparable."""
+    t_ops, t_bytes = flops / PEAK_TF32X3_FLOPS, nbytes / PEAK_BYTES_S
     return {"flops": flops, "bytes": nbytes,
             "bound_ms": max(t_ops, t_bytes) * 1e3,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "ops_ms": t_ops * 1e3, "bytes_ms": t_bytes * 1e3}
+            "ops_ms": t_ops * 1e3, "bytes_ms": t_bytes * 1e3,
+            "bound_ms_f32_cores": max(flops / PEAK_F32_FLOPS, t_bytes) * 1e3}
 
 
 def layer_shapes(dev, scene, cfg):
@@ -356,6 +387,7 @@ def phase_gemm(dev, scene, cfg):
     dead tiles and dead Cin blocks so that both skip branches run."""
     import torch
     from repro_torch.core import sparsity
+    from repro_torch.kernels.spconv_gemm import kernel as sg_kernel
     from repro_torch.kernels.spconv_gemm import ops as sg_ops
     from repro_torch.kernels.spconv_gemm.kernel import spconv_gemm_fused
     from repro_torch.kernels.spconv_gemm.ref import spconv_gemm_fused_ref
@@ -386,6 +418,27 @@ def phase_gemm(dev, scene, cfg):
                                             n_out=plan.n_out, row_nz=row_nz,
                                             epilogue=epi)
             tile_nz, tile_bk_nz = args[5], args[7]
+            # the wrapper's work plan at this shape, the planning kernel
+            # held to its plain version
+            n_blocks, n_slabs = kw["n_out_pad"] // kw["bo"], -(-cout // 128)
+            n_ctas, busy_min = sg_kernel.plan_shape(
+                n_blocks, n_slabs, sg_kernel.sm_count(dev),
+                sg_kernel.MAX_SPLITS)
+            pkw = dict(n_blocks=n_blocks, n_ctas=n_ctas, busy_min=busy_min,
+                       max_splits=sg_kernel.MAX_SPLITS)
+            work, blk = sg_kernel.split_plan(plan.tiles.tile_ob, tile_nz,
+                                             **pkw)
+            want_work, want_blk = sg_kernel.split_plan_ref(
+                plan.tiles.tile_ob, tile_nz, **pkw)
+            check(torch.equal(work, want_work) and torch.equal(blk, want_blk),
+                  f"{name}: split_plan differs from its plain version")
+            busy = (work[:, 0] >= 0) & (work[:, 2] > work[:, 1])
+            rec["plan"] = {
+                "ctas_launched": n_ctas * n_slabs,
+                "ctas_with_tiles": int(busy.sum()) * n_slabs,
+                "live_blocks": int(torch.unique(work[busy, 0]).numel()),
+                "split_blocks": int((blk[:, 1] > 1).sum()),
+                "most_ctas_per_block": int(blk[:, 1].max())}
             rec["dead_tiles"] = int(((plan.tiles.tile_nz != 0)
                                      & (tile_nz == 0)).sum())
             rec["dead_blocks_in_live_tiles"] = int(
@@ -414,16 +467,18 @@ def phase_gemm(dev, scene, cfg):
                 "ms": time_ms(lambda: spconv_gemm_fused(*args, **kw), 10),
                 "plain_ms": time_ms(
                     lambda: spconv_gemm_fused_ref(*args, **kw), 3)}
+        rec["tflops"] = rec["flops"] / rec["plain"]["ms"] / 1e9
+        rec["share_of_bound"] = rec["bound_ms"] / rec["plain"]["ms"]
         per_shape[name] = rec
         emit(phase="spconv_gemm_fused", **rec)
     # per request: every layer of one forward at its shape's time
     total = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "ops_ms": 0.0,
-             "bytes_ms": 0.0}
+             "bytes_ms": 0.0, "bound_ms_f32_cores": 0.0}
     for rec in per_shape.values():
         n = len(rec["layers"])
         total["ms"] += n * rec["plain"]["ms"]
         total["plain_ms"] += n * rec["plain"]["plain_ms"]
-        for key in ("bound_ms", "ops_ms", "bytes_ms"):
+        for key in ("bound_ms", "ops_ms", "bytes_ms", "bound_ms_f32_cores"):
             total[key] += n * rec[key]
     err = max(r[m]["max_abs_err"] for r in per_shape.values()
               for m in ("plain", "epilogue") if m in r)
@@ -436,6 +491,7 @@ def phase_gemm(dev, scene, cfg):
             "bound_by": ("operations" if total["ops_ms"] >= total["bytes_ms"]
                          else "bytes"),
             "library_ms": None,
+            "bound_ms_f32_cores": total["bound_ms_f32_cores"],
             "timing": "sum over the 25 layers of one forward, unfused mode"}
 
 
@@ -443,8 +499,8 @@ def _kernel_entry(name, src, replaces, per_shape, launches, *,
                   library: bool, **extra):
     """One kernel's line of the ``kernels`` JSON: per-shape numbers summed
     over the 25 layers of one forward, each shape weighted by its layers."""
-    keys = ("ms", "plain_ms", "bound_ms", "ops_ms", "bytes_ms") + (
-        ("library_ms",) if library else ())
+    keys = ("ms", "plain_ms", "bound_ms", "ops_ms", "bytes_ms",
+            "bound_ms_f32_cores") + (("library_ms",) if library else ())
     tot = {key: sum(len(r["layers"]) * r[key] for r in per_shape)
            for key in keys}
     return {"name": name, "route": "cuda", "source": src,
@@ -455,6 +511,7 @@ def _kernel_entry(name, src, replaces, per_shape, launches, *,
             "bound_by": ("operations" if tot["ops_ms"] >= tot["bytes_ms"]
                          else "bytes"),
             "library_ms": tot.get("library_ms"),
+            "bound_ms_f32_cores": tot["bound_ms_f32_cores"],
             "timing": "sum over the 25 layers of one forward", **extra}
 
 
@@ -638,8 +695,23 @@ def phase_masked(dev, scene, cfg):
                "plain_ms": time_ms(lambda: masked_matmul_ref(ap, bp, mask),
                                    3),
                "library_ms": time_ms(lambda: torch.matmul(ap, bp), 10)}
+        rec["tflops"] = rec["flops"] / rec["ms"] / 1e9
+        rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
+        rec["vs_library"] = rec["ms"] / rec["library_ms"]
         per_shape.append(rec)
         emit(phase="masked_matmul", **rec)
+        if rec["ms"] > rec["library_ms"]:
+            # the target is no shape slower than torch.matmul; a miss is
+            # reported, not fatal
+            emit(phase="masked_matmul.slower_than_library", layer=name,
+                 ms=rec["ms"], library_ms=rec["library_ms"])
+    emit(phase="masked_matmul.per_forward",
+         shapes=len(per_shape),
+         slower_than_library=[r["layers"][0] for r in per_shape
+                              if r["ms"] > r["library_ms"]],
+         **{key: sum(len(r["layers"]) * r[key] for r in per_shape)
+            for key in ("ms", "library_ms", "plain_ms", "bound_ms",
+                        "bound_ms_f32_cores")})
 
     # the main path of this backend: sparse_dense_matmul over every shape
     mm_kernel.launches = 0
@@ -953,7 +1025,8 @@ def _counts():
     from repro_torch.kernels.octent import kernel as oct_kernel
     from repro_torch.kernels.spconv_gemm import kernel as sg_kernel
     return (oct_kernel.launches, sg_kernel.launches,
-            sg_kernel.epilogue_launches, planlib.MAPSEARCH_CALLS[0])
+            sg_kernel.epilogue_launches, planlib.MAPSEARCH_CALLS[0],
+            sg_kernel.reduce_launches, sg_kernel.plan_launches)
 
 
 def _reset_counts():
@@ -962,6 +1035,7 @@ def _reset_counts():
     from repro_torch.kernels.spconv_gemm import kernel as sg_kernel
     oct_kernel.launches = 0
     sg_kernel.launches = sg_kernel.epilogue_launches = 0
+    sg_kernel.reduce_launches = sg_kernel.plan_launches = 0
     planlib.MAPSEARCH_CALLS[0] = 0
 
 
@@ -1000,21 +1074,23 @@ def phase_serve(dev, cfg, scenes, warm):
               f"want {want_per_req}")
         check(d[2] == (n_subm if eng is engines[1] else 0),
               f"{rid}: {d[2]} epilogue launches")
-        results.append((rid, sc, res))
+        check(d[5] == n_layers, f"{rid}: {d[5]} planning launches")
+        results.append((rid, sc, res, d[4]))
     counts = _counts()
-    lat = [r.latency_s for _, _, r in results[:len(scenes)]]
-    vox = sum(int(sc.valid.sum()) for _, sc, _ in results[:len(scenes)])
+    lat = [r.latency_s for _, _, r, _ in results[:len(scenes)]]
+    vox = sum(int(sc.valid.sum()) for _, sc, _, _ in results[:len(scenes)])
     emit(phase="serve", config=cfg.name, bucket=BUCKET,
          requests=[{"rid": rid, "voxels": int(sc.valid.sum()),
-                    "latency_ms": r.latency_s * 1e3, "digest": r.digest}
-                   for rid, sc, r in results],
+                    "latency_ms": r.latency_s * 1e3, "digest": r.digest,
+                    "split_reduce_launches": n_red}
+                   for rid, sc, r, n_red in results],
          latency_p50_ms=float(np.percentile(lat, 50)) * 1e3,
          voxels_per_s=vox / sum(lat),
          launches_per_request={"octent_query": want_per_req[0],
                                "spconv_gemm_fused": want_per_req[1],
                                "mapsearch": want_per_req[2]},
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
-    return model, results, counts
+    return model, [r[:3] for r in results], counts
 
 
 def phase_reference(dev, cfg, model, results):
@@ -1079,7 +1155,9 @@ def main() -> int:
         dev, cfg, scenes, (warm.coords, warm.batch, warm.valid, warm.feats))
     phase_reference(dev, cfg, model, results)
     k1["launches"], k2["launches"] = counts[0], counts[1]
-    k2["epilogue_launches"] = counts[2]
+    k2["epilogue_launches"], k2["split_reduce_launches"] = counts[2], counts[4]
+    k2["plan_launches"] = counts[5]
+    check(counts[4] > 0, "the split-sum kernel never ran on the served path")
     k3 = phase_materialized(dev, lidar[0], cfg)
     k4 = phase_masked(dev, lidar[0], cfg)
     phase_scan(dev, cfg, lidar[0], model)

@@ -5,101 +5,251 @@
 //   where each (bm x bk) tile of A whose block-mask entry is 0 counts as
 //   zero, and is neither loaded nor multiplied.
 //
-// What bounds it on the H100: operations. A live (bm x bk) tile costs
-// 2 * bm * bk * N float32 FLOPs on the CUDA cores (67 TFLOP/s; no TF32 and
-// no tensor cores in this version) against 4 * bm * bk bytes of A; B and C
-// move once. At the sparsity of post-ReLU activations the live tiles still
-// carry far more FLOPs than bytes.
+// What bounds it on the H100: at the served shapes (M = 65,536 rows, K and
+// N 128-512, most of A's tiles dead) bytes: C is written whole, zeros
+// included, and the live tiles of A are read once. Where most tiles are
+// live the float32-exact product does: 2 * bm * bk * N FLOPs per live
+// tile at the 3xTF32 tensor-core rate (495 / 3 TFLOP/s).
 //
 // Design:
-//  * One CTA per 128 x 128 tile of C, summed over K in 32-wide steps through
-//    shared memory with 8 x 8 values per thread in registers, and stored
-//    once (the register-tile step of tile128.cuh). The TPU carried the sum
-//    in VMEM across a sequential k grid; here the k loop runs inside the
-//    CTA.
-//  * Before each K step the CTA reads the mask entries that step covers
-//    (one entry when bm and bk are multiples of 128 and 32) and skips the
-//    step, loads and FMAs both, when all are 0. When a step straddles live
-//    and dead entries (small bm or bk), the elements of dead tiles are
-//    loaded as zeros, which is the plain version's contract: a caller's
-//    mask that kills a nonzero tile zeroes it.
-//  * Ragged edges in M, N and K are masked, so any tile grid works.
+//  * One CTA of 8 warps per 128 x 128 tile of C; the TPU carried the sum in
+//    VMEM across a sequential k grid, here the k loop runs inside the CTA.
+//  * The CTA first lists the 32-wide K steps that its mask rows keep live,
+//    once, into shared memory (in windows of 256 steps), and loops over that
+//    list only: a dead step costs neither loads nor products.
+//  * A (128 x 32, K-contiguous rows) and B (32 x 128) of each live step are
+//    staged with 16-byte cp.async into a 3-stage ring; the loads of step
+//    i + 2 are issued before the products of step i, so two steps are in
+//    flight while the tensor cores run.
+//  * Each warp owns a 64 x 32 block of C (2 x 4 warps) and runs the 3xTF32
+//    step of tf32x3.cuh: 4 x 4 m16n8k8 fragments, 3 products each.
+//  * When a step straddles live and dead mask entries (bm not a multiple of
+//    128 or bk not a multiple of 32), each 16-byte chunk of A is loaded
+//    only if its own tile is live and zero-filled otherwise, which is the
+//    plain version's contract: a caller's mask that kills a nonzero tile
+//    zeroes it. Ragged edges in M, N and K zero-fill; rows that are not
+//    16-byte aligned (K or bk not a multiple of 4, N not a multiple of 4)
+//    fall back to 4-byte copies.
+//  * Two CTAs fit on an SM (106 KB of ring each, at most 128 registers a
+//    thread), so one CTA's loads and stores overlap the other's products.
 #include <cuda_runtime.h>
 
-#include "tile128.cuh"
+#include <cstdint>
+
+#include "tf32x3.cuh"
 
 namespace {
 
-using tile128::kKC;
-using tile128::kMT;
-using tile128::kNT;
-using tile128::kThreads;
+constexpr int kMT = 128;        // rows of C per CTA
+constexpr int kNT = 128;        // columns of C per CTA
+constexpr int kKC = 32;         // depth of one staged step
+constexpr int kThreads = 256;
+constexpr int kStages = 3;
+constexpr int kWin = kThreads;  // K steps listed per window
+constexpr int kLda = kKC + 4;   // 36: A fragment reads hit 32 banks
+constexpr int kLdb = kNT + 8;   // 136: B fragment reads hit 32 banks
+constexpr int kStageA = kMT * kLda;
+constexpr int kStageB = kKC * kLdb;
+using tf32x3::cp_async16;
+using tf32x3::cp_async4;
 
-__global__ void __launch_bounds__(kThreads) masked_matmul_kernel(
-    const float* __restrict__ a, const float* __restrict__ b,
-    const int* __restrict__ mask, float* __restrict__ c, int m, int n, int k,
-    int bm, int bk) {
-  __shared__ tile128::Stage s;
+constexpr size_t kSmem =
+    sizeof(float) * kStages * (kStageA + kStageB) + sizeof(uint32_t) * kWin;
 
-  const int row0 = blockIdx.x * kMT;
-  const int col0 = blockIdx.y * kNT;
-  const int tid = threadIdx.x;
-  const int n_kb = k / bk;
-  const int mr0 = row0 / bm, mr1 = (min(row0 + kMT, m) - 1) / bm;
+struct Args {
+  const float* a;
+  const float* b;
+  const int* mask;
+  float* c;
+  int m, n, k, bm, bk, n_kb;
+  int uniform;  // one mask entry covers every 128 x 32 step of a CTA
+  int a_vec;    // A's chunks may be copied 16 bytes at a time
+  int b_vec;    // B's chunks likewise
+};
 
-  tile128::Acc acc;
-  tile128::zero(acc);
-
-  for (int k0 = 0; k0 < k; k0 += kKC) {
-    // the mask entries this step covers: skip it when all are dead
-    const int mc0 = k0 / bk, mc1 = (min(k0 + kKC, k) - 1) / bk;
-    const int n_cols = mc1 - mc0 + 1;
-    const int n_entries = (mr1 - mr0 + 1) * n_cols;
-    int live = 0;
-    for (int e = tid; e < n_entries; e += kThreads) {
-      const int er = e / n_cols;
-      live |= mask[(long long)(mr0 + er) * n_kb + mc0 + e - er * n_cols];
+// Stage the live K step `step` of the CTA at rows row0 and columns col0.
+__device__ __forceinline__ void load_step(const Args& p, float* sa, float* sb,
+                                          int step, int row0, int col0,
+                                          int tid) {
+  const int k0 = step * kKC;
+  {  // A: one row per thread pair, 4 chunks of 4 floats each
+    const int r = tid >> 1, row = row0 + r;
+    float* dst = sa + r * kLda;
+    const long long row_off = (long long)row * p.k;
+    const int mrow = (row / p.bm) * p.n_kb;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int kk = ((tid & 1) * 4 + q) * 4, kc = k0 + kk;
+      if (p.a_vec) {
+        bool ok = row < p.m && kc < p.k;
+        if (ok && !p.uniform) ok = p.mask[mrow + kc / p.bk] != 0;
+        cp_async16(dst + kk, ok ? p.a + row_off + kc : p.a, ok ? 16 : 0);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          bool ok = row < p.m && kc + e < p.k;
+          if (ok && !p.uniform) ok = p.mask[mrow + (kc + e) / p.bk] != 0;
+          cp_async4(dst + kk + e, ok ? p.a + row_off + kc + e : p.a,
+                    ok ? 4 : 0);
+        }
+      }
     }
-    if (!__syncthreads_or(live)) continue;
-    const bool uniform = n_entries == 1;
+  }
+#pragma unroll
+  for (int q = 0; q < kKC * kNT / 4 / kThreads; ++q) {  // B: 4 chunks each
+    const int idx = tid + q * kThreads, kk = idx >> 5, c4 = (idx & 31) * 4;
+    const int kr = k0 + kk, col = col0 + c4;
+    float* dst = sb + kk * kLdb + c4;
+    const long long off = (long long)kr * p.n + col;
+    if (p.b_vec) {
+      const bool ok = kr < p.k && col < p.n;
+      cp_async16(dst, ok ? p.b + off : p.b, ok ? 16 : 0);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool ok = kr < p.k && col + e < p.n;
+        cp_async4(dst + e, ok ? p.b + off + e : p.b, ok ? 4 : 0);
+      }
+    }
+  }
+}
 
-    for (int idx = tid; idx < kMT * kKC; idx += kThreads) {
-      const int r = idx / kKC, kk = idx - r * kKC;
-      const int row = row0 + r, kc = k0 + kk;
-      float v = 0.f;
-      if (row < m && kc < k &&
-          (uniform || mask[(long long)(row / bm) * n_kb + kc / bk] != 0))
-        v = __ldg(a + (long long)row * k + kc);
-      s.a[kk][r] = v;
+__global__ void __launch_bounds__(kThreads, 2)
+    masked_matmul_kernel(const Args p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* s_a = reinterpret_cast<float*>(smem);
+  float* s_b = s_a + kStages * kStageA;
+  uint32_t* s_list = reinterpret_cast<uint32_t*>(s_b + kStages * kStageB);
+  __shared__ int s_warp[kThreads / 32];
+
+  const int row0 = blockIdx.x * kMT, col0 = blockIdx.y * kNT;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp & 1, wn = warp >> 1;  // 64-row half, 32-column quarter
+  const int mr0 = row0 / p.bm, mr1 = (min(row0 + kMT, p.m) - 1) / p.bm;
+  const int n_steps = (p.k + kKC - 1) / kKC;
+
+  float acc[4][4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  for (int w0 = 0; w0 < n_steps; w0 += kWin) {
+    // the live steps of this window, in K order
+    const int step = w0 + tid;
+    bool live = false;
+    if (step < n_steps) {
+      const int k0 = step * kKC;
+      const int mc0 = k0 / p.bk, mc1 = (min(k0 + kKC, p.k) - 1) / p.bk;
+      for (int r = mr0; r <= mr1 && !live; ++r)
+        for (int cc = mc0; cc <= mc1 && !live; ++cc)
+          live = p.mask[(long long)r * p.n_kb + cc] != 0;
     }
-    for (int idx = tid; idx < kKC * kNT; idx += kThreads) {
-      const int kk = idx / kNT, cc = idx - kk * kNT;
-      const int kc = k0 + kk, col = col0 + cc;
-      s.b[kk][cc] = (kc < k && col < n) ? __ldg(b + (long long)kc * n + col)
-                                        : 0.f;
+    const int n_live = tf32x3::append_live<kThreads>(live, step, s_list, 0,
+                                                    s_warp);
+
+#pragma unroll
+    for (int s = 0; s < kStages - 1; ++s) {
+      if (s < n_live)
+        load_step(p, s_a + s * kStageA, s_b + s * kStageB, s_list[s], row0,
+                  col0, tid);
+      tf32x3::cp_async_commit();
     }
-    __syncthreads();
-    tile128::fma_step(s, acc, tid & 15, tid >> 4);
+    for (int i = 0; i < n_live; ++i) {
+      // step i has landed for every thread, and every warp is done with
+      // the stage that the next load overwrites
+      tf32x3::cp_async_wait<kStages - 2>();
+      __syncthreads();
+      const int nxt = i + kStages - 1;
+      if (nxt < n_live)
+        load_step(p, s_a + (nxt % kStages) * kStageA,
+                  s_b + (nxt % kStages) * kStageB, s_list[nxt], row0, col0,
+                  tid);
+      tf32x3::cp_async_commit();
+
+      const float* a = s_a + (i % kStages) * kStageA + wm * 64 * kLda;
+      const float* b = s_b + (i % kStages) * kStageB + wn * 32;
+#pragma unroll
+      for (int ks = 0; ks < kKC; ks += 8) {
+        uint32_t bh[4][2], bl[4][2];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          tf32x3::load_b(b, kLdb, ks, j * 8, lane, bh[j], bl[j]);
+#pragma unroll
+        for (int mi = 0; mi < 4; ++mi) {
+          uint32_t ah[4], al[4];
+          tf32x3::load_a(a, kLda, mi * 16, ks, lane, ah, al);
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            tf32x3::mma3(acc[mi][j], ah, al, bh[j], bl[j]);
+        }
+      }
+    }
+    // drained: the next window rewrites the list and the ring
+    tf32x3::cp_async_wait<0>();
     __syncthreads();
   }
-  tile128::store_acc(acc, c + (long long)row0 * n + col0, n, m - row0,
-                     n - col0, tid & 15, tid >> 4);
+
+  const int g = lane >> 2, t = lane & 3;
+  const bool vec2 = (p.n & 1) == 0;
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + wm * 64 + mi * 16 + g + 8 * h;
+      if (row >= p.m) continue;
+      float* o = p.c + (long long)row * p.n;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = col0 + wn * 32 + j * 8 + 2 * t;
+        const float v0 = acc[mi][j][2 * h], v1 = acc[mi][j][2 * h + 1];
+        if (vec2 && col + 1 < p.n) {
+          *reinterpret_cast<float2*>(o + col) = make_float2(v0, v1);
+        } else {
+          if (col < p.n) o[col] = v0;
+          if (col + 1 < p.n) o[col + 1] = v1;
+        }
+      }
+    }
 }
 
 }  // namespace
 
 // c (m, n) f32 = a (m, k) @ b (k, n) with the (bm x bk) tiles of a whose
 // mask ((m/bm, k/bk) int32) entry is 0 taken as zero. Every pointer is a
-// device pointer; bm must divide m and bk divide k. Returns the CUDA error
-// code of the launch (0 on success).
+// device pointer; bm must divide m and bk divide k, and c must be 8-byte
+// aligned. Returns the CUDA error code of the launch (0 on success).
 extern "C" int masked_matmul_launch(const void* a, const void* b,
                                     const void* mask, void* c, int m, int n,
                                     int k, int bm, int bk, void* stream) {
   if (m > 0 && n > 0) {
+    Args p;
+    p.a = (const float*)a;
+    p.b = (const float*)b;
+    p.mask = (const int*)mask;
+    p.c = (float*)c;
+    p.m = m;
+    p.n = n;
+    p.k = k;
+    p.bm = bm;
+    p.bk = bk;
+    p.n_kb = bk > 0 ? k / bk : 0;
+    p.uniform = bm % kMT == 0 && bk % kKC == 0;
+    p.a_vec = k % 4 == 0 && (p.uniform || bk % 4 == 0) &&
+              (reinterpret_cast<uintptr_t>(a) & 15) == 0;
+    p.b_vec = n % 4 == 0 && (reinterpret_cast<uintptr_t>(b) & 15) == 0;
+    cudaError_t err = cudaFuncSetAttribute(
+        masked_matmul_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)kSmem);
+    if (err != cudaSuccess) return (int)err;
     const dim3 grid((m + kMT - 1) / kMT, (n + kNT - 1) / kNT);
-    masked_matmul_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-        (const float*)a, (const float*)b, (const int*)mask, (float*)c, m, n,
-        k, bm, bk);
+    masked_matmul_kernel<<<grid, kThreads, kSmem, (cudaStream_t)stream>>>(p);
   }
   return (int)cudaGetLastError();
 }
+
+// Dynamic shared memory of the kernel, in bytes: the ring and the list of
+// live K steps.
+extern "C" int masked_matmul_smem() { return (int)kSmem; }

@@ -117,11 +117,11 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-def launch_fn(name: str, argtypes: list):
-    """The C function ``<name>_launch`` of kernel ``name`` (built and
-    loaded at first use), with its argument types declared and an ``int``
-    result: the CUDA error code of the launch."""
-    fn = getattr(load(name), f"{name}_launch")
+def launch_fn(name: str, argtypes: list, entry: str | None = None):
+    """The C function ``entry`` (default ``<name>_launch``) of kernel
+    ``name`` (built and loaded at first use), with its argument types
+    declared and an ``int`` result: the CUDA error code of the launch."""
+    fn = getattr(load(name), entry or f"{name}_launch")
     if fn.argtypes is None:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int

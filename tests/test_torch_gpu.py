@@ -9,12 +9,19 @@ file imports no JAX: run it on the card's machine with
 The OCTENT kernel must equal its plain version bit for bit; the gather-GEMM
 kernel must stay within 1e-4 of the plain version's scale (float32, other
 summation order), at the edge cases: Cin = 4, all-dead tiles, empty output
-blocks, out-of-grid queries, tile heights that are not a multiple of the
-kernel's 64-slot register tile, and the fused epilogue. The materialized
+blocks, out-of-grid queries, tile heights of 32, 96 and 256 slots with
+output blocks of 64 and 192 rows, (block, tap) groups of 1, 15, 16, 17,
+127 and 128 maps (the 16-row fragment edges), at most 1, 2, 3, 4 or 64
+CTAs per output block, and the fused epilogue after the split-sum kernel;
+its planning kernel must equal its plain version bit for bit, repeated
+calls must give the same bits, and neither it nor the block-masked matmul
+may synchronise with the host. The materialized
 GEMM and the block-masked matmul are held to the same 1e-4 at all-dead
 tiles, the Cin = 4 stem, Cin = Cout = 512, tile heights other than 128, a
-caller's mask that kills a nonzero tile, and shapes that are not tile
-multiples through ``sparse_dense_matmul``. The flash-attention kernel is
+caller's mask that kills a nonzero tile, masks whose tiles straddle the
+kernel's 128 x 32 steps, ragged M, N and K (K and N not multiples of 4
+included), and shapes that are not tile multiples through
+``sparse_dense_matmul``. The flash-attention kernel is
 held to its plain version in float32 (2e-5: summation order, the
 reference's own) and bf16 (2^-7 relative plus 2e-3: one ulp of the bf16
 output plus the float32 summation order), for each
@@ -27,6 +34,8 @@ TinyLlama prefill through the kernel is held to the same prefill through
 the plain version.
 """
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import pytest
@@ -202,6 +211,211 @@ def test_gemm_kernel_vs_plain_full_output(cuda):
     assert (got - want).abs().max().item() <= TOL * want.abs().max().item()
 
 
+@contextlib.contextmanager
+def _max_splits(n):
+    """The fused wrapper with at most n CTAs per output block."""
+    old, sg_kernel.MAX_SPLITS = sg_kernel.MAX_SPLITS, n
+    try:
+        yield
+    finally:
+        sg_kernel.MAX_SPLITS = old
+
+
+def _fused(dev, kmap, c_in, c_out, *, bm, bo, splits, dead_rows=0.25,
+           epilogue=False, seed=0):
+    """The fused wrapper with at most ``splits`` CTAs per output block
+    against its
+    plain version on the raw padded output (and, with the epilogue, the
+    liveness against a sweep of the kernel's own output). Returns the
+    wrapper's arguments and the kernel output."""
+    rng = np.random.default_rng(seed)
+    n = kmap.shape[0]
+    f = np.maximum(rng.standard_normal((n, c_in)), 0).astype(np.float32)
+    f[rng.random(n) < dead_rows] = 0.0
+    w = rng.standard_normal((kmap.shape[1], c_in, c_out)).astype(np.float32)
+    f, w, km = _dev(dev, f, w, kmap)
+    tiles = sg_ops.build_tap_tiles(km, bm=bm, bo=bo)
+    epi = None
+    if epilogue:
+        epi = sg_ops.FusedEpilogue(
+            scale=torch.as_tensor(rng.uniform(0.5, 1.5, c_out), device=dev),
+            shift=torch.as_tensor(rng.uniform(-0.5, 0.5, c_out), device=dev),
+            valid=torch.as_tensor(rng.random(n) < 0.9, device=dev))
+    args, kw = sg_ops.kernel_inputs(f, w, tiles, n_out=n,
+                                    row_nz=sparsity.row_nonzero(f),
+                                    epilogue=epi)
+    before = (sg_kernel.launches, sg_kernel.reduce_launches,
+              sg_kernel.plan_launches)
+    with _max_splits(splits):
+        got = sg_kernel.spconv_gemm_fused(*args, **kw)
+    torch.cuda.synchronize()
+    assert sg_kernel.launches == before[0] + 1
+    assert sg_kernel.reduce_launches == before[1] + int(splits > 1)
+    assert sg_kernel.plan_launches == before[2] + 1
+    want = spconv_gemm_fused_ref(*args, **kw)
+    if epilogue:
+        (got, nz), (want, _) = got, want
+        sweep = (got.reshape(got.shape[0], -1, 128) != 0).any(-1)
+        assert torch.equal(nz, sweep.int())
+    _close(got, want)
+    return args, kw, got
+
+
+def _group_kmap(count, bo, n_blocks, seed=4):
+    """A kmap in which every (output block, tap 0) group holds exactly
+    ``count`` maps (the block's first rows), tap 1 the block's other rows,
+    and tap 2 one map per block."""
+    rng = np.random.default_rng(seed)
+    n = bo * n_blocks
+    km = np.full((n, 3), -1, np.int32)
+    local = np.arange(n) % bo
+    km[local < count, 0] = rng.integers(0, n, int((local < count).sum()))
+    km[local >= count, 1] = rng.integers(0, n, int((local >= count).sum()))
+    km[local == bo - 1, 2] = rng.integers(0, n, n_blocks)
+    return km
+
+
+@pytest.mark.parametrize("count", [1, 15, 16, 17, 127, 128])
+@pytest.mark.parametrize("splits", [1, 2])
+def test_gemm_group_live_counts(cuda, count, splits):
+    """The kernel multiplies each tile only up to its last valid slot, in
+    16-row fragments: group sizes at and around the fragment and tile
+    edges."""
+    _fused(cuda, _group_kmap(count, 256, 6), 64, 128, bm=128, bo=256,
+           splits=splits, dead_rows=0.0)
+
+
+def _empty_block_kmap(dev):
+    c, b, v = _cloud(np.random.default_rng(2), 8192, 40, 1500)
+    c, b, v = _dev(dev, c, b, v)
+    maps = mapsearch.build_maps_gconv2(c, b, v)
+    return mapsearch.strided_to_kmap(maps, n_out=8192,
+                                     n_taps=8).cpu().numpy()
+
+
+@pytest.mark.parametrize("splits", [1, 2, 64])
+@pytest.mark.parametrize("case", ["empty_blocks", "all_dead", "subm"])
+def test_gemm_splits(cuda, splits, case):
+    """At most 1, 2 and more CTAs per block than the tiles of any run, over
+    empty output blocks (their CTA walks no tile and must give zeros),
+    all-dead tiles and a Subm3 layer."""
+    if case == "empty_blocks":
+        kmap, dead = _empty_block_kmap(cuda), 0.25
+    else:
+        kmap, dead = _subm_kmap(1500, 16, 1200), float(case == "all_dead")
+    _, _, got = _fused(cuda, kmap, 64, 128, bm=128, bo=512, splits=splits,
+                       dead_rows=dead)
+    if case == "all_dead":
+        assert not got.any()
+
+
+@pytest.mark.parametrize("bm,bo", [(32, 64), (96, 192), (32, 192),
+                                   (96, 64)])
+@pytest.mark.parametrize("splits", [1, 3])
+def test_gemm_split_tile_heights(cuda, bm, bo, splits):
+    _fused(cuda, _subm_kmap(1200, 14, 1000), 32, 128, bm=bm, bo=bo,
+           splits=splits)
+
+
+@pytest.mark.parametrize("c_in,c_out", [(4, 32), (160, 128), (320, 192)])
+@pytest.mark.parametrize("splits", [1, 4])
+def test_gemm_split_widths(cuda, c_in, c_out, splits):
+    _fused(cuda, _subm_kmap(2000, 16, 1700), c_in, c_out, bm=128, bo=512,
+           splits=splits)
+
+
+@pytest.mark.parametrize("c_in,c_out", [(4, 32), (128, 256), (320, 192)])
+def test_gemm_epilogue_split(cuda, c_in, c_out):
+    """The epilogue after the split-sum kernel: values and liveness."""
+    _fused(cuda, _subm_kmap(2000, 16, 1700), c_in, c_out, bm=128, bo=512,
+           splits=3, epilogue=True)
+
+
+def test_gemm_tall_tiles(cuda):
+    """bm = 256: each tile is walked as two 128-slot pieces."""
+    _fused(cuda, _subm_kmap(3000, 14, 2600), 64, 128, bm=256, bo=512,
+           splits=2)
+
+
+@pytest.mark.parametrize("splits", [1, 3])
+def test_gemm_bit_identical_repeats(cuda, splits):
+    """No float atomics: the same layer twice gives the same bits."""
+    args, kw, got = _fused(cuda, _subm_kmap(2500, 18, 2000), 128, 256,
+                           bm=128, bo=512, splits=splits, epilogue=True)
+    with _max_splits(splits):
+        again = sg_kernel.spconv_gemm_fused(*args, **kw)
+        third = sg_kernel.spconv_gemm_fused(*args, **kw)
+    assert torch.equal(got, again[0]) and torch.equal(got, third[0])
+    assert torch.equal(again[1], third[1])
+
+
+@pytest.mark.parametrize("case", ["deep", "res0", "all_dead", "short"])
+@pytest.mark.parametrize("max_splits", [1, 8, 64])
+def test_split_plan_kernel_vs_plain(cuda, case, max_splits):
+    """The planning kernel equals its plain version bit for bit: a deep
+    layer (a dozen live blocks of 128, a long all-pad tail), a res-0 layer
+    (every block live), all-dead tiles, and runs shorter than the cap."""
+    rng = np.random.default_rng(len(case) + max_splits)
+    n_blocks, n_slabs = 128, 4
+    lengths = np.ones(n_blocks, np.int64)
+    if case == "deep":
+        lengths[:12] = rng.integers(20, 60, 12)
+        lengths[-1] = 15000
+    elif case == "short":
+        n_blocks, n_slabs = 3, 1
+        lengths = np.array([2, 1, 3])
+    else:
+        lengths[:] = rng.integers(20, 45, n_blocks)
+        lengths[-1] = 5000
+    ob = np.repeat(np.arange(n_blocks), lengths).astype(np.int32)
+    nz = (rng.random(ob.size) < 0.8).astype(np.int32)
+    nz[np.isin(ob, np.arange(12, n_blocks)) & (case == "deep")] = 0
+    if ob.size > 4000:
+        nz[-4000:] = 0                    # the all-pad tail of the last run
+    if case == "all_dead":
+        nz[:] = 0
+    tile_ob, tile_nz = _dev(cuda, ob, nz)
+    n_ctas, busy_min = sg_kernel.plan_shape(n_blocks, n_slabs, 132,
+                                            max_splits)
+    kw = dict(n_blocks=n_blocks, n_ctas=n_ctas, max_splits=max_splits,
+              busy_min=busy_min)
+    before = sg_kernel.plan_launches
+    work, blk = sg_kernel.split_plan(tile_ob, tile_nz, **kw)
+    torch.cuda.synchronize()
+    assert sg_kernel.plan_launches == before + 1
+    want_work, want_blk = sg_kernel.split_plan_ref(tile_ob, tile_nz, **kw)
+    assert torch.equal(work, want_work) and torch.equal(blk, want_blk)
+    if case == "deep" and max_splits > 1:
+        assert int(blk[:12, 1].min()) > 1
+
+
+def test_wrappers_make_no_host_sync(cuda):
+    """The kernel 2 and kernel 4 wrappers only enqueue work: under the sync
+    debug mode "error" any host synchronisation would raise."""
+    kmap = torch.as_tensor(_subm_kmap(1500, 16, 1200), device=cuda)
+    tiles = sg_ops.build_tap_tiles(kmap, bm=128, bo=512)
+    rng = np.random.default_rng(6)
+    f, w = _dev(cuda, rng.standard_normal((1500, 64)).astype(np.float32),
+                rng.standard_normal((27, 64, 128)).astype(np.float32))
+    args, kw = sg_ops.kernel_inputs(f, w, tiles, n_out=1500)
+    a, b = _dev(cuda, rng.standard_normal((256, 128)).astype(np.float32),
+                rng.standard_normal((128, 128)).astype(np.float32))
+    mask = torch.ones((2, 1), dtype=torch.int32, device=cuda)
+    # first calls build and load the kernels outside the checked region
+    sg_kernel.spconv_gemm_fused(*args, **kw)
+    mm_kernel.masked_matmul(a, b, mask)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for splits in (sg_kernel.MAX_SPLITS, 1, 3):
+            with _max_splits(splits):
+                sg_kernel.spconv_gemm_fused(*args, **kw)
+        mm_kernel.masked_matmul(a, b, mask)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
 def _close(got, want):
     err = (got - want).abs().max().item() if got.numel() else 0.0
     assert err <= TOL * max(1.0, want.abs().max().item())
@@ -305,6 +519,24 @@ def test_masked_matmul_kills_nonzero_tile(cuda, m, k, n, bm, bn, bk):
     got, _ = _check_masked(cuda, a, b, mask, bm=bm, bn=bn, bk=bk)
     full = torch.as_tensor(a, device=cuda) @ torch.as_tensor(b, device=cuda)
     assert (got - full).abs().max().item() > 1e-3
+
+
+@pytest.mark.parametrize("m,k,n,bm,bn,bk", [
+    (200, 52, 72, 8, 8, 4),              # every step straddles tiles
+    (96, 50, 30, 16, 10, 2),             # K, N not multiples of 4
+    (384, 96, 136, 64, 8, 48),           # bk straddles the 32-wide steps
+    (260, 68, 132, 20, 12, 17),          # bm straddles 128 rows, bk odd
+    (640, 160, 264, 128, 8, 32)])        # ragged N past two CTA columns
+def test_masked_matmul_straddling_and_ragged(cuda, m, k, n, bm, bn, bk):
+    rng = np.random.default_rng(m * k + n)
+    a = _tiled(rng, m, k, bm, bk, dead=0.5)
+    b = rng.standard_normal((k, n)).astype(np.float32)
+    mask = sparsity.block_mask(torch.as_tensor(a), bm, bk).int()
+    # a caller's mask that also kills a third of the nonzero tiles
+    live = torch.nonzero(mask)
+    for i, j in live[::3].tolist():
+        mask[i, j] = 0
+    _check_masked(cuda, a, b, mask, bm=bm, bn=bn, bk=bk)
 
 
 def test_masked_matmul_all_dead(cuda):

@@ -196,3 +196,98 @@ def test_tap_counts_and_schedule_bit_identical():
     _eq(counts, jrulebook.tap_counts(jnp.asarray(kmap)).astype(np.int32))
     _eq(rulebook.tap_schedule(counts),
         jrulebook.tap_schedule(jnp.asarray(counts.numpy())))
+
+
+def _runs(lengths, live_share, seed):
+    """tile_ob / tile_nz of output blocks whose runs have ``lengths`` tiles,
+    each tile live with probability ``live_share``."""
+    rng = np.random.default_rng(seed)
+    ob = np.repeat(np.arange(len(lengths)), lengths).astype(np.int32)
+    nz = (rng.random(ob.size) < live_share).astype(np.int32)
+    return _t(ob), _t(nz)
+
+
+def _check_plan(tile_ob, tile_nz, n_blocks, n_ctas, max_splits, busy_min):
+    """The plan's contract: every block gets consecutive CTAs, at least one
+    and at most ``max_splits``; left-over CTAs get block -1; the tile
+    ranges of a block's CTAs are in order, lie in the block's run, and hold
+    each of its live tiles exactly once."""
+    from repro_torch.kernels.spconv_gemm.kernel import split_plan_ref
+    work, blk = split_plan_ref(tile_ob, tile_nz, n_blocks=n_blocks,
+                               n_ctas=n_ctas, max_splits=max_splits,
+                               busy_min=busy_min)
+    assert work.dtype == blk.dtype == torch.int32
+    assert work.shape == (n_ctas, 4) and blk.shape == (n_blocks, 2)
+    ob, nz = tile_ob.numpy(), tile_nz.numpy()
+    w, bl = work.numpy(), blk.numpy()
+    assert (bl[:, 1] >= 1).all() and (bl[:, 1] <= max_splits).all()
+    assert np.array_equal(bl[:, 0], np.cumsum(bl[:, 1]) - bl[:, 1])
+    used = int(bl[:, 1].sum())
+    assert used <= n_ctas
+    assert (w[used:] == [-1, 0, 0, 0]).all()
+    owner = np.full(ob.size, -1)
+    for b in range(n_blocks):
+        first, n = bl[b]
+        rows = w[first:first + n]
+        assert (rows[:, 0] == b).all() and (rows[:, 3] == n).all()
+        assert (rows[:, 1] <= rows[:, 2]).all()
+        assert (rows[1:, 1] >= rows[:-1, 2]).all()          # in order
+        for lo, hi in rows[:, 1:3]:
+            assert (ob[lo:hi] == b).all()
+            assert (owner[lo:hi] == -1).all()
+            owner[lo:hi] = b
+    live = nz != 0
+    assert np.array_equal(owner[live], ob[live])
+    return w, bl
+
+
+@pytest.mark.parametrize("max_splits", [1, 2, 3, 8, 64])
+@pytest.mark.parametrize("live_share", [0.0, 0.3, 1.0])
+def test_split_plan_partitions_every_run(max_splits, live_share):
+    """The fused kernel's work plan (plain version): the ranges partition
+    the live tiles of every run exactly, with empty output blocks, runs
+    shorter than ``max_splits`` and all-dead runs."""
+    from repro_torch.kernels.spconv_gemm.kernel import plan_shape
+    lengths = np.random.default_rng(max_splits).integers(1, 40, 30)
+    lengths[[0, 7, 8]] = 1                          # all-pad blocks
+    lengths[3] = 2
+    tile_ob, tile_nz = _runs(lengths, live_share, seed=max_splits)
+    n_ctas, busy_min = plan_shape(30, 1, 132, max_splits)
+    _, bl = _check_plan(tile_ob, tile_nz, 30, n_ctas, max_splits, busy_min)
+    if max_splits == 1 or live_share == 0.0:
+        assert (bl[:, 1] == 1).all()
+
+
+def test_split_plan_splits_only_few_live_blocks():
+    """A deep layer: 128 blocks, a dozen live with long runs and a long
+    all-pad tail on the last block. The live blocks get several CTAs each,
+    in proportion to their live tiles, and the tail none of its tiles;
+    with most blocks live (res 0) every block keeps one CTA."""
+    from repro_torch.kernels.spconv_gemm.kernel import plan_shape
+    lengths = np.ones(128, np.int64)
+    lengths[:12] = 30
+    lengths[5] = 60
+    lengths[-1] = 5000
+    ob = np.repeat(np.arange(128), lengths).astype(np.int32)
+    nz = np.zeros(ob.size, np.int32)
+    nz[ob < 12] = 1
+    n_ctas, busy_min = plan_shape(128, 4, 132, 8)
+    assert (n_ctas, busy_min) == (128 + 66, 29)
+    w, bl = _check_plan(_t(ob), _t(nz), 128, n_ctas, 8, busy_min)
+    assert (bl[:12, 1] > 1).all() and bl[5, 1] >= bl[4, 1]
+    assert (bl[12:, 1] == 1).all()
+    assert (w[w[:, 0] == 127][:, 1:3] == w[w[:, 0] == 127][0, 1]).all()
+    nz[:] = 1
+    _, bl = _check_plan(_t(ob), _t(nz), 128, n_ctas, 8, busy_min)
+    assert (bl[:, 1] == 1).all()
+
+
+@pytest.mark.parametrize("n_blocks,n_slabs,max_splits,want", [
+    (128, 1, 8, (128 + 264, 116)),
+    (128, 4, 8, (128 + 66, 29)),
+    (3, 2, 64, (3 + 132, 58)),
+    (128, 1, 1, (128, 0)),
+    (0, 1, 8, (0, 0))])
+def test_plan_shape(n_blocks, n_slabs, max_splits, want):
+    from repro_torch.kernels.spconv_gemm.kernel import plan_shape
+    assert plan_shape(n_blocks, n_slabs, 132, max_splits) == want
