@@ -194,6 +194,15 @@ def phase_device():
                   f"{rep['kernel']} spills: {rep}")
     check(len(ptxas["flash_attention"]) == 2 * len(HEAD_DIMS),
           f"flash_attention.cu built {ptxas['flash_attention']}")
+    oct_smem = build.load("octent_query").octent_query_smem
+    oct_smem.argtypes, oct_smem.restype = [ctypes.c_int], ctypes.c_int
+    for rep in ptxas["octent_query"]:
+        if rep["kernel"].startswith("octent_query_kernel"):
+            rep["dynamic_smem"] = oct_smem(27)
+    check(sorted(r["kernel"] for r in ptxas["octent_query"])
+          == ["octent_index_kernel", "octent_query_kernel<0>",
+              "octent_query_kernel<27>"],
+          f"octent_query.cu built {ptxas['octent_query']}")
     gemm_smem = build.load("spconv_gemm_fused").spconv_gemm_fused_smem
     gemm_smem.argtypes, gemm_smem.restype = [ctypes.c_int], ctypes.c_int
     mm_smem = build.load("masked_matmul").masked_matmul_smem
@@ -217,49 +226,79 @@ def phase_device():
     return smi
 
 
-def phase_octent(dev, scene):
-    """Kernel 1 on a real scene against its plain version and the host
-    hash oracle."""
+def phase_octent(dev, scene, cfg):
+    """Kernel 1 at the 5 query shapes of one served request, one per
+    resolution, from the plans ``build_plans`` builds: each bit-equal to
+    its plain version and to the plan's kmap, res 0 also to the host hash
+    oracle; each shape's time, bytes bound and share of it, and their sum a
+    request."""
     import torch
     from repro_torch.core import mapsearch, morton
     from repro_torch.kernels.octent import kernel as oct_kernel
     from repro_torch.kernels.octent import ops as oct_ops
     from repro_torch.kernels.octent.ref import octent_query_ref
-    c, b, v = (torch.as_tensor(a, device=dev)
-               for a in (scene.coords, scene.batch, scene.valid))
+    from repro_torch.models import minkunet
+    plans = minkunet.build_plans(scene.coords, scene.batch, scene.valid, cfg,
+                                 device=dev)
+    levels = [tuple(torch.as_tensor(a, device=dev) for a in (
+        scene.coords, scene.batch, scene.valid))] + [
+        (d.out_coords, d.out_batch, d.out_valid) for d in plans.down]
+    check(len(levels) == len(plans.subm) == 5,
+          f"{len(levels)} resolutions, {len(plans.subm)} Subm3 plans")
     offs = torch.as_tensor(morton.subm3_offsets(), device=dev)
-    qt = oct_ops.build_query_table(c, b, v, max_blocks=BUCKET)
-    args = (c, b, v, offs, qt.ublocks, qt.tkey, qt.tval, qt.n_blocks)
-    got = oct_kernel.octent_query(*args)
-    want = octent_query_ref(*args)
-    torch.cuda.synchronize()
-    check(torch.equal(got, want), "octent_query differs from its plain version")
-    rng = np.random.default_rng(SEED)
-    rows = rng.choice(np.flatnonzero(scene.valid), 2000, replace=False)
-    host = mapsearch.build_kmap_hash(scene.coords, scene.batch, scene.valid,
-                                     morton.subm3_offsets())
-    check(np.array_equal(got.cpu().numpy()[rows], host[rows]),
-          "octent_query differs from the host hash oracle")
-    ms = time_ms(lambda: oct_kernel.octent_query(*args), 50)
-    plain_ms = time_ms(lambda: octent_query_ref(*args), 5)
-    # bytes the function needs: every valid flag, coords and batch of the
-    # valid rows only, the live prefix of ublocks, the non-sentinel table
-    # entries, the offsets and n_blocks, and the whole (N, K) kmap out
-    n, k = c.shape[0], offs.shape[0]
-    n_valid = int(v.sum())
-    live_blocks = min(int(qt.n_blocks), qt.ublocks.numel())
-    n_table = int((qt.tkey < BUCKET * morton.TABLE_SIZE).sum())
-    nbytes = (n + 16 * n_valid + 4 * live_blocks + 8 * n_table
-              + k * 3 * 4 + 4 + n * k * 4)
-    bound_ms = nbytes / PEAK_BYTES_S * 1e3
-    emit(phase="octent_query", voxels=int(scene.valid.sum()),
-         blocks=int(qt.n_blocks), rows=n, hits=int((got >= 0).sum()),
-         equal_to_plain=True, hash_rows_checked=int(rows.size), ms=ms,
-         plain_ms=plain_ms, bound_ms=bound_ms, bytes=nbytes)
+    kw = dict(grid_bits=cfg.grid_bits, batch_bits=cfg.batch_bits)
+    shapes = []
+    for res, (c, b, v) in enumerate(levels):
+        qt = oct_ops.build_query_table(c, b, v, max_blocks=BUCKET, **kw)
+        args = (c, b, v, offs, qt.ublocks, qt.tkey, qt.tval, qt.n_blocks)
+        got = oct_kernel.octent_query(*args, **kw)
+        want = octent_query_ref(*args, **kw)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want),
+              f"octent_query differs from its plain version at res {res}")
+        check(torch.equal(got, plans.subm[res].kmap),
+              f"octent_query differs from the plan's kmap at res {res}")
+        if res == 0:
+            rng = np.random.default_rng(SEED)
+            rows = rng.choice(np.flatnonzero(scene.valid), 2000,
+                              replace=False)
+            host = mapsearch.build_kmap_hash(scene.coords, scene.batch,
+                                             scene.valid,
+                                             morton.subm3_offsets())
+            check(np.array_equal(got.cpu().numpy()[rows], host[rows]),
+                  "octent_query differs from the host hash oracle")
+        ms = time_ms(lambda: oct_kernel.octent_query(*args, **kw), 50)
+        plain_ms = time_ms(lambda: octent_query_ref(*args, **kw), 5)
+        # bytes the function needs: every valid flag, coords and batch of
+        # the valid rows only, the live prefix of ublocks, the non-sentinel
+        # table entries, the offsets and n_blocks, and the whole (N, K)
+        # kmap out
+        n, k = c.shape[0], offs.shape[0]
+        n_valid = int(v.sum())
+        live_blocks = min(int(qt.n_blocks), qt.ublocks.numel())
+        n_table = int((qt.tkey < BUCKET * morton.TABLE_SIZE).sum())
+        nbytes = (n + 16 * n_valid + 4 * live_blocks + 8 * n_table
+                  + k * 3 * 4 + 4 + n * k * 4)
+        bound_ms = nbytes / PEAK_BYTES_S * 1e3
+        shapes.append({"res": res, "rows": n, "voxels": n_valid,
+                       "blocks": int(qt.n_blocks),
+                       "hits": int((got >= 0).sum()), "ms": ms,
+                       "plain_ms": plain_ms, "bound_ms": bound_ms,
+                       "bytes": nbytes, "share_of_bound": bound_ms / ms})
+    tot = {key: sum(sh[key] for sh in shapes)
+           for key in ("ms", "plain_ms", "bound_ms")}
+    emit(phase="octent_query", equal_to_plain=True,
+         hash_rows_checked=int(rows.size), shapes=shapes,
+         ms_per_request=tot["ms"], plain_ms_per_request=tot["plain_ms"],
+         bound_ms_per_request=tot["bound_ms"],
+         share_of_bound_per_request=tot["bound_ms"] / tot["ms"])
     return {"name": "octent_query", "route": "cuda", "source": OCTENT_SRC,
             "replaces": "src/repro/kernels/octent/kernel.py:122",
-            "max_abs_err": 0, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None}
+            "max_abs_err": 0, "ms": tot["ms"], "plain_ms": tot["plain_ms"],
+            "bound_ms": tot["bound_ms"], "bound_by": "bytes",
+            "library_ms": None,
+            "timing": "sum of the 5 launches of one request, one per "
+                      "resolution (res 0 first in phase octent_query)"}
 
 
 def model_layers(cfg, plans, valids):
@@ -1147,7 +1186,7 @@ def main() -> int:
                                     "indoor", 1, BUCKET) for i in range(2)]
     warm = pointcloud.make_batch(np.random.default_rng(SEED + 99), "lidar",
                                  1, BUCKET, voxel_size=LIDAR_VOXEL)
-    k1 = phase_octent(dev, lidar[0])
+    k1 = phase_octent(dev, lidar[0], cfg)
     k2 = phase_gemm(dev, lidar[0], cfg)
     scenes = [("lidar-0", lidar[0]), ("lidar-1", lidar[1]),
               ("indoor-0", indoor[0]), ("indoor-1", indoor[1])]

@@ -3,7 +3,8 @@
 :func:`octent_query` checks its inputs, then launches the hand-written
 kernel on a CUDA tensor, or runs the plain version (ref.py) on a CPU tensor.
 There is no fallback: a CUDA input launches the kernel or raises.
-``launches`` counts kernel launches.
+``launches`` counts calls that launched it: each launches an index pass
+over the table and the blocks, then the query kernel.
 """
 from __future__ import annotations
 
@@ -27,7 +28,11 @@ _I = ctypes.c_int
 
 def _lib():
     return build.launch_fn("octent_query", [_P, _P, _P, _I, _P, _I, _P, _I,
-                                            _P, _P, _P, _I, _I, _P, _P])
+                                            _P, _P, _P, _I, _I, _P, _P, _P])
+
+
+def _scratch():
+    return build.launch_fn("octent_query", [_I, _I], "octent_query_scratch")
 
 
 def octent_query(coords: torch.Tensor, batch: torch.Tensor,
@@ -57,6 +62,8 @@ def octent_query(coords: torch.Tensor, batch: torch.Tensor,
         raise ValueError("tkey must be LANE-padded and ublocks non-empty")
     if 3 * grid_bits + batch_bits > 31:
         raise ValueError("block key overflows int32")
+    if n * offsets.shape[0] >= 2 ** 31:
+        raise ValueError("the (N, K) kmap must have fewer than 2^31 entries")
     dev = coords.device
     for name, t in (("batch", batch), ("valid", valid), ("offsets", offsets),
                     ("ublocks", ublocks), ("tkey", tkey), ("tval", tval),
@@ -72,11 +79,16 @@ def octent_query(coords: torch.Tensor, batch: torch.Tensor,
     k = offsets.shape[0]
     out = torch.empty((n, k), dtype=torch.int32, device=dev)
     fn = _lib()
+    # the index the kernel's first pass writes: each block's segment of the
+    # table, each row's block and each block's 26 neighbours
+    scratch = torch.empty(_scratch()(n, ublocks.shape[0]), dtype=torch.int32,
+                          device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = fn(coords.data_ptr(), batch.data_ptr(), valid.data_ptr(), n,
             offsets.data_ptr(), k, ublocks.data_ptr(), ublocks.shape[0],
             n_blocks.data_ptr(), tkey.data_ptr(), tval.data_ptr(),
-            tkey.shape[0], grid_bits, out.data_ptr(), stream)
+            tkey.shape[0], grid_bits, scratch.data_ptr(), out.data_ptr(),
+            stream)
     if rc != 0:
         raise RuntimeError(f"octent_query launch failed: CUDA error {rc}")
     if n * k > 0:

@@ -16,7 +16,8 @@ Execution comes in two forms:
   output-stationary fused kernel: it refreshes the SPAC liveness from the
   current features (or from the previous layer's epilogue), pads Cout to
   the kernel's 128-column groups and launches the kernel (or its plain
-  version). The default backend.
+  version). The default backend. Its backward is the plain math's over
+  the geometry liveness, so SPAC skips stay forward-only.
 * :func:`apply_kmap` — the materialized baseline: an (M_pad, Cin) gathered
   copy of the features, the tiled GEMM kernel into (M_pad, Cout_pad)
   partial products, then a scatter-add of the valid slots.
@@ -36,7 +37,8 @@ from repro_torch.core import sparsity as _sparsity
 from repro_torch.kernels.spconv_gemm.kernel import (BN, KC, spconv_gemm,
                                                     spconv_gemm_fused)
 from repro_torch.kernels.spconv_gemm.ref import (epilogue_math,
-                                                 spconv_gemm_fused_ref)
+                                                 spconv_gemm_fused_ref,
+                                                 spconv_gemm_fused_ref_vjp)
 
 #: gather-run metadata granularity (slots per group), as in the reference
 GRP = 8
@@ -291,6 +293,48 @@ def kernel_inputs(feats: torch.Tensor, weights: torch.Tensor,
     return args, kw
 
 
+class _FusedExec(torch.autograd.Function):
+    """One layer's fused execution (the kernel, or its plain version) with
+    the SPAC-correct backward: the reference's ``_exec_fused``.
+
+    The forward skips what the elided liveness of :func:`kernel_inputs`
+    marks dead, which is lossless: a zero row adds exactly 0. Its gradient
+    is not 0 but ``W^T g``, so the backward runs the plain math's VJP over
+    the geometry liveness ``tiles.tile_nz`` with every Cin block live. It
+    returns the whole padded output (and, with the epilogue, the liveness,
+    which is not differentiable); the caller slices it. Inference-only with
+    the epilogue: its backward raises.
+    """
+
+    @staticmethod
+    def forward(ctx, feats, weights, tiles, n_out, opts, impl):
+        args, kw = kernel_inputs(feats, weights, tiles, n_out=n_out, **opts)
+        fn = spconv_gemm_fused if impl == "kernel" else spconv_gemm_fused_ref
+        res = fn(*args, **kw)
+        ctx.tiles = tiles
+        ctx.epilogue = opts["epilogue"] is not None
+        if ctx.epilogue:
+            ctx.mark_non_differentiable(res[1])
+        else:
+            ctx.save_for_backward(feats, weights)
+        return res
+
+    @staticmethod
+    def backward(ctx, g, *_):
+        if ctx.epilogue:
+            raise NotImplementedError(
+                "the fused BN/ReLU epilogue is inference-only: its backward "
+                "would differentiate through elided activation state. For "
+                "training, compose subm_conv3 + batch_norm + relu unfused.")
+        feats, weights = ctx.saved_tensors
+        t = ctx.tiles
+        dfeats, dweights = spconv_gemm_fused_ref_vjp(
+            feats, weights, g, t.gather_idx, t.scatter_idx, t.tile_tap,
+            t.tile_nz, t.tile_ob, bm=t.bm, bo=t.bo)
+        return (dfeats.to(feats.dtype), dweights.to(weights.dtype), None,
+                None, None, None)
+
+
 def apply_tiles(feats: torch.Tensor, weights: torch.Tensor, tiles: TapTiles,
                 bias: torch.Tensor | None = None, *, n_out: int,
                 row_nz: torch.Tensor | None = None,
@@ -301,7 +345,10 @@ def apply_tiles(feats: torch.Tensor, weights: torch.Tensor, tiles: TapTiles,
 
     Liveness as in :func:`kernel_inputs`. impl: None or ``"kernel"`` goes
     through the kernel wrapper (CUDA kernel on a card, plain version on the
-    CPU); ``"ref"`` runs the plain version on any device.
+    CPU); ``"ref"`` runs the plain version on any device. Differentiable
+    in ``feats`` and ``weights`` under both, with the same gradient: the
+    plain math over the geometry liveness (:class:`_FusedExec`), so SPAC
+    stays forward-only.
 
     Returns the (n_out, Cout) output (+ bias); with ``epilogue`` it returns
     ``(out, ActSparsity)`` for the next layer, and ``bias`` must be None.
@@ -313,11 +360,9 @@ def apply_tiles(feats: torch.Tensor, weights: torch.Tensor, tiles: TapTiles,
         raise ValueError("bias and epilogue together would apply the bias "
                          "twice: fold it into the epilogue shift "
                          "(spconv.fold_bn_inference)")
-    args, kw = kernel_inputs(feats, weights, tiles, n_out=n_out,
-                             row_nz=row_nz, act=act, epilogue=epilogue,
-                             bk=bk)
-    fn = spconv_gemm_fused if impl == "kernel" else spconv_gemm_fused_ref
-    res = fn(*args, **kw)
+    res = _FusedExec.apply(feats, weights, tiles, n_out,
+                           dict(row_nz=row_nz, act=act, epilogue=epilogue,
+                                bk=bk), impl)
     c_out = weights.shape[-1]
     if epilogue is not None:
         out, nz = res

@@ -71,20 +71,53 @@ def spconv_gemm_fused_ref(feats: torch.Tensor, weights: torch.Tensor,
     the plain version reads neither.
     """
     del tile_bk_nz, bk
-    c_out = weights.shape[-1]
-    slot_ob = tile_ob.repeat_interleave(bm)
-    local = scatter_idx - slot_ob * bo
-    live = ((local >= 0) & (local < bo)
-            & (tile_nz != 0).repeat_interleave(bm))
-    slot_tap = tile_tap.repeat_interleave(bm)
-    out = torch.zeros((n_out_pad, c_out), dtype=torch.float32,
+    out = torch.zeros((n_out_pad, weights.shape[-1]), dtype=torch.float32,
                       device=feats.device)
-    for t in range(weights.shape[0]):
-        sel = torch.nonzero(live & (slot_tap == t)).squeeze(1)
-        if sel.numel() == 0:
-            continue
+    for t, sel in _tap_slots(scatter_idx, tile_tap, tile_nz, tile_ob,
+                             bm=bm, bo=bo, k=weights.shape[0]):
         rows = feats[gather_idx[sel].long()].float()
         out.index_add_(0, scatter_idx[sel].long(), rows @ weights[t].float())
     if not epilogue:
         return out
     return epilogue_math(out, epi_scale, epi_shift, epi_valid)
+
+
+def _tap_slots(scatter_idx, tile_tap, tile_nz, tile_ob, *, bm, bo, k):
+    """``(tap, slots)`` for each tap with a slot that adds into the output:
+    a slot of a live tile whose target lies in the tile's output block."""
+    local = scatter_idx - tile_ob.repeat_interleave(bm) * bo
+    live = ((local >= 0) & (local < bo)
+            & (tile_nz != 0).repeat_interleave(bm))
+    slot_tap = tile_tap.repeat_interleave(bm)
+    for t in range(k):
+        sel = torch.nonzero(live & (slot_tap == t)).squeeze(1)
+        if sel.numel():
+            yield t, sel
+
+
+def spconv_gemm_fused_ref_vjp(feats: torch.Tensor, weights: torch.Tensor,
+                              g: torch.Tensor, gather_idx: torch.Tensor,
+                              scatter_idx: torch.Tensor,
+                              tile_tap: torch.Tensor, tile_nz: torch.Tensor,
+                              tile_ob: torch.Tensor, *, bm: int, bo: int):
+    """``(dfeats, dweights)`` of :func:`spconv_gemm_fused_ref` (no
+    epilogue) for the output cotangent ``g``, float32.
+
+    ``weights`` is (K, Cin, Cout) and ``g`` has at least Cout columns;
+    columns past Cout (the zero padding) are not read. Each slot that adds
+    ``feats[gather] @ W[tap]`` into ``out[scatter]`` sends ``g[scatter] @
+    W[tap]^T`` back to its source row, whether or not that row is zero,
+    and ``feats[gather]^T g[scatter]`` to its tap.
+    """
+    c_out = weights.shape[-1]
+    dfeats = torch.zeros(feats.shape, dtype=torch.float32,
+                         device=feats.device)
+    dweights = torch.zeros(weights.shape, dtype=torch.float32,
+                           device=weights.device)
+    for t, sel in _tap_slots(scatter_idx, tile_tap, tile_nz, tile_ob,
+                             bm=bm, bo=bo, k=weights.shape[0]):
+        src = gather_idx[sel].long()
+        gs = g[scatter_idx[sel].long(), :c_out].float()
+        dweights[t] = feats[src].float().t() @ gs
+        dfeats.index_add_(0, src, gs @ weights[t].float().t())
+    return dfeats, dweights

@@ -6,7 +6,12 @@ file imports no JAX: run it on the card's machine with
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
-The OCTENT kernel must equal its plain version bit for bit; the gather-GEMM
+The OCTENT kernel must equal its plain version bit for bit (dense, grid
+edge, sparse and multi-batch clouds, duplicate coordinates, fewer directory
+slots than blocks, one block holding all 4,096 voxels, offsets that leave
+the 3x3x3 blocks, an all-invalid cloud); ``apply_tiles`` must be
+differentiable on the card with the plain version's CPU gradient; the
+gather-GEMM
 kernel must stay within 1e-4 of the plain version's scale (float32, other
 summation order), at the edge cases: Cin = 4, all-dead tiles, empty output
 blocks, out-of-grid queries, tile heights of 32, 96 and 256 slots with
@@ -90,10 +95,20 @@ def _dev(dev, *arrays):
     return [torch.as_tensor(a, device=dev) for a in arrays]
 
 
-@pytest.mark.parametrize("case", ["dense", "edge", "sparse", "multibatch"])
-def test_octent_kernel_bit_identical(cuda, case):
-    rng = np.random.default_rng(0)
-    gb = 7
+def _full_block(rng):
+    """All 4,096 voxels of one 16^3 block (more than the kernel stages) and
+    a shell of voxels in its neighbours, shuffled."""
+    g = np.stack(np.meshgrid(*[np.arange(16, 32)] * 3, indexing="ij"),
+                 -1).reshape(-1, 3)
+    shell = rng.integers(12, 36, (600, 3))
+    c = np.unique(np.concatenate([g, shell]), axis=0).astype(np.int32)
+    c = c[rng.permutation(c.shape[0])]
+    return c, np.zeros(c.shape[0], np.int32), np.ones(c.shape[0], bool)
+
+
+def _octent_case(case, rng):
+    """(coords, batch, valid, grid_bits, max_blocks, offsets, host_check)."""
+    gb, offs, host = 7, morton.subm3_offsets(), True
     if case == "dense":
         c, b, v = _cloud(rng, 4096, 24, 3000)
     elif case == "edge":         # queries step out of the grid
@@ -101,12 +116,41 @@ def test_octent_kernel_bit_identical(cuda, case):
         c, b, v = _cloud(rng, 1000, 10, 900, origin=(1 << gb) * 16 - 10)
     elif case == "sparse":       # mostly empty blocks
         c, b, v = _cloud(rng, 2048, 1500, 1200)
-    else:
+    elif case == "multibatch":
         c, b, v = _cloud(rng, 3000, 16, 2500, batch=4)
+    elif case == "duplicates":   # a run of equal keys: the first slot wins
+        c, b, v = _cloud(rng, 3000, 20, 2000)
+        dup = rng.integers(0, 2000, 1000)
+        c[2000:], v[2000:] = c[dup], True
+        host = False
+    elif case == "overflow":     # fewer directory slots than blocks
+        c, b, v = _cloud(rng, 3000, 120, 2500)
+        host = False
+    elif case == "full_block":
+        c, b, v = _full_block(rng)
+    elif case == "far_offsets":  # taps that leave the 3x3x3 blocks
+        c, b, v = _cloud(rng, 2048, 200, 1800)
+        offs = rng.integers(-20, 21, (27, 3)).astype(np.int32)
+        host = False
+    else:                        # all_invalid
+        c, b, v = _cloud(rng, 1000, 16, 800)
+        v[:] = False
+    max_blocks = 64 if case == "overflow" else c.shape[0]
+    return c, b, v, gb, max_blocks, offs, host
+
+
+@pytest.mark.parametrize("case", ["dense", "edge", "sparse", "multibatch",
+                                  "duplicates", "overflow", "full_block",
+                                  "far_offsets", "all_invalid"])
+def test_octent_kernel_bit_identical(cuda, case):
+    rng = np.random.default_rng(0)
+    c, b, v, gb, max_blocks, offs, host = _octent_case(case, rng)
     c, b, v = _dev(cuda, c, b, v)
-    qt = oct_ops.build_query_table(c, b, v, max_blocks=c.shape[0],
+    qt = oct_ops.build_query_table(c, b, v, max_blocks=max_blocks,
                                    grid_bits=gb)
-    offs = torch.as_tensor(morton.subm3_offsets(), device=cuda)
+    if case == "overflow":
+        assert int(qt.n_blocks) > max_blocks
+    offs = torch.as_tensor(offs, device=cuda)
     before = oct_kernel.launches
     got = oct_kernel.octent_query(c, b, v, offs, qt.ublocks, qt.tkey,
                                   qt.tval, qt.n_blocks, grid_bits=gb)
@@ -115,9 +159,40 @@ def test_octent_kernel_bit_identical(cuda, case):
     want = octent_query_ref(c, b, v, offs, qt.ublocks, qt.tkey, qt.tval,
                             qt.n_blocks, grid_bits=gb)
     assert torch.equal(got, want)
-    host = mapsearch.build_kmap_hash(*(t.cpu().numpy() for t in (c, b, v)),
-                                     morton.subm3_offsets())
-    assert np.array_equal(got.cpu().numpy(), host)
+    if case == "all_invalid":
+        assert bool((got == -1).all())
+    if host:
+        host_kmap = mapsearch.build_kmap_hash(
+            *(t.cpu().numpy() for t in (c, b, v)), morton.subm3_offsets())
+        assert np.array_equal(got.cpu().numpy(), host_kmap)
+
+
+def test_apply_tiles_grads_on_card(cuda):
+    """The fused path is differentiable on the card, with the plain
+    version's gradient over the geometry liveness, computed on the CPU."""
+    rng = np.random.default_rng(5)
+    kmap = _subm_kmap(1500, 16, 1200)
+    n = kmap.shape[0]
+    f = rng.standard_normal((n, 32)).astype(np.float32)
+    f[: n // 2] = 0.0                  # whole tiles dead in the forward
+    w = rng.standard_normal((27, 32, 64)).astype(np.float32)
+    g = rng.standard_normal((n, 64)).astype(np.float32)
+    grads = {}
+    for dev in (cuda, torch.device("cpu")):
+        ft, wt = (torch.as_tensor(a, device=dev).requires_grad_()
+                  for a in (f, w))
+        tiles = sg_ops.build_tap_tiles(torch.as_tensor(kmap, device=dev),
+                                       bm=64, bo=128)
+        before = sg_kernel.launches
+        out = sg_ops.apply_tiles(ft, wt, tiles, n_out=n,
+                                 row_nz=sparsity.row_nonzero(ft))
+        assert out.grad_fn is not None
+        assert sg_kernel.launches == before + int(dev.type == "cuda")
+        out.backward(torch.as_tensor(g, device=dev))
+        grads[dev.type] = (ft.grad.cpu(), wt.grad.cpu())
+    for got, want in zip(grads["cuda"], grads["cpu"]):
+        _close(got, want)
+    assert float(grads["cuda"][0][: n // 2].abs().max()) > 0
 
 
 def _check_gemm(dev, kmap, c_in, c_out, *, bm, bo, dead_rows=0.25,

@@ -189,3 +189,36 @@ def test_subm3_plan_raises_on_block_overflow():
     assert planlib.mapsearch_call_count() == 2
     assert np.array_equal(plan.kmap.numpy(),
                           jmapsearch.build_kmap_hash(c, b, v, OFFS))
+
+
+def _kernel_edge_cloud(name):
+    """The clouds that steer the CUDA kernel's other branches: a run of
+    duplicate keys (keep-first), and one 16^3 block holding all 4,096
+    voxels, more than the kernel stages, inside a shell of neighbours."""
+    rng = np.random.default_rng(5)
+    if name == "duplicates":
+        c, b, v = random_cloud(rng, 160, 12, batch=2, n_valid=120)
+        c[120:], b[120:], v[120:] = c[:40], b[:40], True
+        return c, b, v
+    g = np.stack(np.meshgrid(*[np.arange(16, 32)] * 3, indexing="ij"),
+                 -1).reshape(-1, 3)
+    c = np.unique(np.concatenate([g, rng.integers(12, 36, (300, 3))]),
+                  axis=0).astype(np.int32)
+    c = c[rng.permutation(c.shape[0])]
+    return c, np.zeros(c.shape[0], np.int32), np.ones(c.shape[0], bool)
+
+
+@pytest.mark.parametrize("name", ["duplicates", "full_block"])
+def test_kmap_kernel_edge_clouds_bit_identical(name):
+    c, b, v = _kernel_edge_cloud(name)
+    jqt = joct_ops.build_query_table(jnp.asarray(c), jnp.asarray(b),
+                                     jnp.asarray(v), max_blocks=c.shape[0])
+    kmap, _ = oct_ops.build_kmap(_t(c), _t(b), _t(v), max_blocks=c.shape[0])
+    want = joctent_query_ref(jnp.asarray(c), jnp.asarray(b), jnp.asarray(v),
+                             jnp.asarray(OFFS), jqt.ublocks, jqt.tkey,
+                             jqt.tval, jqt.n_blocks)
+    _eq(kmap, want)
+    if name == "duplicates":
+        # both copies see the first copy's row
+        hits = kmap.numpy()[120:, 13]
+        assert np.array_equal(hits, np.arange(40))
