@@ -16,7 +16,9 @@ dense-decoder serving path at TinyLlama-1.1B's:
   against its plain PyTorch version at the shapes the serving path gives
   it (for kernel 2 also its planning kernel, bit for bit, and each
   shape's CTAs and split blocks), then MinkUNet-large served through
-  ``ServeEngine`` (4 requests), the launch counts, and the logits against
+  ``ServeEngine`` (4 requests, then the first one re-submitted, which
+  must hit the engine's content-keyed plan cache: no search, no kernel-1
+  launch, the same logits), the launch counts, and the logits against
   the plain-version forward;
 * ``spconv_gemm``: the materialized backend at the 20 distinct layer
   shapes, the kernel against its plain version, then ``apply_kmap``
@@ -26,7 +28,16 @@ dense-decoder serving path at TinyLlama-1.1B's:
   ``torch.matmul`` (a shape where the kernel is slower is reported, not
   fatal);
 * ``scan_forward``: one forward through the tap-scan oracle
-  (``impl="scan"``) against the kernel forward, unfused and fused.
+  (``impl="scan"``) against the kernel forward, unfused and fused;
+* ``train``: MinkUNet-large trained for 3 steps through ``run_spconv_demo``
+  on one indoor scene (kernel 1 five times, kernel 2 75 times, 9 map
+  searches, finite losses, no recovery), each step's plan build,
+  forward, backward, optimizer and checkpoint ms and the peak memory; one
+  step's loss and gradients through the kernels against the plain
+  versions (gradients with the ReLU masks pinned; loss, ReLU flips and
+  gradient norms left free), and a control, the plain step in TF32, that
+  must fail that gate; one step under ``torch.profiler`` (device busy,
+  idle share, the 10 longest device ops, kernel 2's own time);
 * ``flash_attention``: the kernel (bf16 on the tensor cores, float32 on
   the CUDA cores) against its plain version at six attention shapes of
   the repo's configs (TinyLlama's served prefill, in bf16 and float32, a
@@ -87,6 +98,26 @@ PEAK_BF16_FLOPS = 989e12       # bf16 on the tensor cores, float32 sum
 TOL_FLASH = {"bfloat16": (2.0 ** -7, 2e-3), "float32": (2e-5, 2e-5)}
 TOL_LM_BF16 = 2e-2             # x max|logit|: the reference's prefill/decode
 TOL_LM_F32 = 1e-3              # x max|logit|: f32 order through 22 layers
+# a training step, kernels against plain versions: 3xTF32 through 25
+# layers, then training BatchNorm, so wider than the forward's 1e-3. The
+# gradients are held with the plain run's ReLU masks pinned to the kernel
+# run's: at full size a few pre-activations within rounding of zero take
+# the other side of the ReLU (13 of about 2.5e7 outputs over 25 layers at
+# this phase's scene on an H100) and move the weight gradients by up to
+# about 5e-3 of their max, a property of the input, not of either
+# implementation. What the pins take away is gated on its own: the loss
+# and the ReLU flips come from the unpinned run, and so does the largest
+# relative norm of a weight gradient's difference (3.45e-3 there)
+TOL_TRAIN_LOSS = 1e-4          # relative, unpinned
+TOL_TRAIN_GRAD = 1e-3          # x each gradient tensor's own max |g|, pinned
+TOL_TRAIN_NORM = 1e-2          # |gk - gr| / |gr| per weight tensor, unpinned
+TOL_TRAIN_FLIPS = (1e-4, 1e-5)  # flipped ReLU outputs: share of a layer's
+#                                 valid outputs, share of all of them
+# every conv bias feeds a training BatchNorm, which subtracts the batch
+# mean: its gradient is zero in exact arithmetic, so both sides are
+# rounding noise, held below this share of the model's largest |g|
+TOL_TRAIN_ZERO = 1e-5
+TRAIN_STEPS = 3
 LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN = "tinyllama-1.1b", 4, 512, 32
 #: (name, b, hq, hkv, sq, skv, d, causal, window, dtype)
 FLASH_SHAPES = [
@@ -1115,6 +1146,19 @@ def phase_serve(dev, cfg, scenes, warm):
               f"{rid}: {d[2]} epilogue launches")
         check(d[5] == n_layers, f"{rid}: {d[5]} planning launches")
         results.append((rid, sc, res, d[4]))
+    # the first scene again, in fresh buffers: the engine's long-lived
+    # cache hits by content, so no search and no kernel-1 launch
+    rid, sc = scenes[0]
+    before = _counts()
+    engines[0].submit(rid + "-again", sc.coords.copy(), sc.batch.copy(),
+                      sc.valid.copy(), sc.feats.copy())
+    (again,) = engines[0].step()
+    d = [a - b for a, b in zip(_counts(), before)]
+    check(again.status == "completed" and (d[0], d[1], d[3]) ==
+          (0, n_layers, 0), f"{rid} re-submitted: (octent, gemm, searches)"
+          f" = {(d[0], d[1], d[3])}, want (0, {n_layers}, 0)")
+    check(again.digest == results[0][2].digest,
+          f"{rid} re-submitted: logits differ from the first serving")
     counts = _counts()
     lat = [r.latency_s for _, _, r, _ in results[:len(scenes)]]
     vox = sum(int(sc.valid.sum()) for _, sc, _, _ in results[:len(scenes)])
@@ -1123,6 +1167,10 @@ def phase_serve(dev, cfg, scenes, warm):
                     "latency_ms": r.latency_s * 1e3, "digest": r.digest,
                     "split_reduce_launches": n_red}
                    for rid, sc, r, n_red in results],
+         resubmitted={"rid": rid + "-again",
+                      "latency_ms": again.latency_s * 1e3,
+                      "octent_launches": d[0], "searches": d[3],
+                      "cache": engines[0].cache.stats()},
          latency_p50_ms=float(np.percentile(lat, 50)) * 1e3,
          voxels_per_s=vox / sum(lat),
          launches_per_request={"octent_query": want_per_req[0],
@@ -1158,6 +1206,232 @@ def phase_reference(dev, cfg, model, results):
               f"{rid}: max|served - plain| {err} > {TOL_LOGITS} * {scale}")
         errs[rid] = {"max_abs_err": err, "max_abs_logit": scale}
     emit(phase="reference", tolerance=f"{TOL_LOGITS} * max|logit|", **errs)
+
+
+def _grad_check(gk, gr):
+    """Worst kernel-vs-plain ratio over the gradient tensors: |gk - gr|
+    over the tensor's own max |gr|, and for the tensors whose gradient is
+    zero in exact arithmetic (conv biases, BatchNorm statistics) the larger
+    side's max |g| over the model's largest |gr|."""
+    gmax = max(float(g.abs().max()) for g in gr.values())
+    worst, worst_zero = ("", -1.0), ("", -1.0)
+    for k in gr:
+        if k.endswith((".conv.b", ".mean", ".var")):
+            r = max(float(gk[k].abs().max()), float(gr[k].abs().max())) / gmax
+            worst_zero = max(worst_zero, (k, r), key=lambda t: t[1])
+        else:
+            scale = float(gr[k].abs().max())
+            check(scale > 0, f"train: gradient of {k} is all zero")
+            r = float((gk[k] - gr[k]).abs().max()) / scale
+            worst = max(worst, (k, r), key=lambda t: t[1])
+    return worst, worst_zero, gmax
+
+
+def _train_gate(lk, gk, k_masks, sizes, plain, pinned):
+    """The kernel step against a plain one: ``plain`` is ``(loss, grads,
+    relu masks)`` of the plain step run free, ``pinned`` its grads with
+    the ReLU masks pinned to the kernel run's (``k_masks``). Returns the
+    readings and the limits they break."""
+    lu, gu, u_masks = plain
+    flips = [int((a != b).sum()) for a, b in zip(k_masks, u_masks)]
+    loss_err = abs(float(lk) - float(lu)) / abs(float(lu))
+    norm_name, norm = max(
+        ((k, float((gk[k] - gu[k]).norm() / gu[k].norm())) for k in gu
+         if not k.endswith((".conv.b", ".mean", ".var"))),
+        key=lambda t: t[1])
+    (uname, uratio), _, _ = _grad_check(gk, gu)
+    (gname, gratio), (zname, zratio), gmax = _grad_check(gk, pinned)
+    r = {"loss_kernel": float(lk), "loss_plain": float(lu),
+         "loss_rel_err": loss_err, "relu_flips": flips,
+         "worst_layer_flip_share": max(f / n for f, n in zip(flips, sizes)),
+         "flip_share": sum(flips) / sum(sizes),
+         "worst_norm_grad": norm_name, "worst_norm_ratio": norm,
+         "unpinned_worst_grad": uname, "unpinned_worst_grad_ratio": uratio,
+         "worst_grad": gname, "worst_grad_ratio": gratio,
+         "worst_zero_grad": zname, "worst_zero_grad_ratio": zratio,
+         "max_abs_grad": gmax}
+    limits = {"loss_rel_err": TOL_TRAIN_LOSS,
+              "worst_layer_flip_share": TOL_TRAIN_FLIPS[0],
+              "flip_share": TOL_TRAIN_FLIPS[1],
+              "worst_norm_ratio": TOL_TRAIN_NORM,
+              "worst_grad_ratio": TOL_TRAIN_GRAD,
+              "worst_zero_grad_ratio": TOL_TRAIN_ZERO}
+    return r, [f"{k} {r[k]} > {lim}" for k, lim in limits.items()
+               if not r[k] <= lim]
+
+
+def phase_train(dev, cfg):
+    """The training path: ``run_spconv_demo`` over MinkUNet-large on one
+    indoor scene of the bucket (the kernels, a checkpoint after every
+    step into a temporary directory), with the launch counts set to 0 just
+    before and read just after; then one step's loss and gradients through
+    the kernels against the plain versions on the same plans, weights and
+    batch: the gradients with the plain run's ReLU masks pinned to the
+    kernel run's, the loss, the ReLU outputs whose sign differs and the
+    gradients' norms from the plain run left free (``_train_gate``); a
+    control, the plain step in TF32, must break those limits; then one
+    step under ``torch.profiler``. Returns the demo's launches of kernels
+    1 and 2 and kernel 2's device ms a step."""
+    import shutil
+    import tempfile
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import spconv
+    from repro_torch.data import pointcloud
+    from repro_torch.launch import train
+    from repro_torch.models import minkunet
+    from repro_torch.optim import adamw
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ckpt = tempfile.mkdtemp(prefix="chip-smoke-train-")
+    try:
+        _reset_counts()
+        t0 = time.perf_counter()
+        res = train.run_spconv_demo(TRAIN_STEPS, voxels=BUCKET, cfg=cfg,
+                                    impl=None, seed=SEED, scene="indoor",
+                                    ckpt_dir=ckpt, device=dev)
+        demo_s = time.perf_counter() - t0
+        counts = _counts()
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_layers = 1 + (1 + cfg.blocks) * (len(cfg.enc) + len(cfg.dec))
+    check(len(res["losses"]) == TRAIN_STEPS
+          and all(np.isfinite(res["losses"])),
+          f"train: losses {res['losses']}")
+    check(res["mapsearch_calls"] == res["searches_per_cloud"]
+          == 2 * len(cfg.enc) + 1,
+          f"train: {res['mapsearch_calls']} map searches over "
+          f"{TRAIN_STEPS} steps")
+    check(res["recoveries"] == 0 and res["skipped_batches"] == 0,
+          f"train: {res['recoveries']} recoveries, "
+          f"{res['skipped_batches']} skipped batches")
+    check(counts[0] == len(cfg.enc) + 1 and counts[1] == TRAIN_STEPS
+          * n_layers and counts[2] == 0,
+          f"train: (octent, gemm, epilogue) launches = {counts[:3]}, want "
+          f"({len(cfg.enc) + 1}, {TRAIN_STEPS * n_layers}, 0)")
+
+    # kernels against plain versions on one step
+    model = minkunet.MinkUNet(cfg, device=dev,
+                              generator=torch.Generator().manual_seed(SEED))
+    vb = pointcloud.make_batch(np.random.default_rng(SEED), "indoor", 1,
+                               BUCKET)
+    batch = {k: torch.as_tensor(np.array(v), device=dev)
+             for k, v in vb._asdict().items()}
+    batch["labels"] = batch["labels"].clamp(0, cfg.classes - 1)
+    plans = minkunet.build_plans(batch["coords"], batch["batch"],
+                                 batch["valid"], cfg, device=dev)
+    params = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    relu = spconv.relu
+
+    def recording(masks, sizes=None):
+        def fn(st):
+            out = relu(st)
+            masks.append(out.feats != 0)
+            if sizes is not None:
+                sizes.append(int(st.valid.sum()) * st.feats.shape[1])
+            return out
+        return fn
+
+    def pinning(masks):
+        it = iter(masks)
+        return lambda st: st.replace_feats(torch.where(next(it), st.feats,
+                                                       0.0))
+
+    def run(impl, relu_fn, tf32=False):
+        spconv.relu = relu_fn
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        try:
+            loss, _, grads = train.loss_and_grads(model, params, batch,
+                                                  plans=plans, impl=impl)
+            return loss, grads
+        finally:
+            spconv.relu = relu
+            torch.backends.cuda.matmul.allow_tf32 = False
+
+    def plain(tf32=False):
+        masks = []
+        lu, gu = run("ref", recording(masks), tf32)
+        return (lu, gu, masks), run("ref", pinning(k_masks), tf32)[1]
+
+    k_masks, sizes = [], []
+    lk, gk = run("kernel", recording(k_masks, sizes))
+    check(len(k_masks) == n_layers,
+          f"train: {len(k_masks)} ReLU calls, want {n_layers}")
+    gate, broken = _train_gate(lk, gk, k_masks, sizes, *plain())
+    check(not broken, f"train: kernel against plain: {'; '.join(broken)}")
+    # the control: a plain step with TF32 matmuls must fail the same gate
+    control, control_broken = _train_gate(lk, gk, k_masks, sizes,
+                                          *plain(tf32=True))
+    check(bool(control_broken), "train: the gate passed a plain step in "
+          f"TF32 (control): {control}")
+    del gk, k_masks
+
+    # one step timed apart, then the same step profiled
+    opt_cfg = adamw.AdamWConfig(lr=1e-3, total_steps=TRAIN_STEPS,
+                                warmup_steps=1)
+    step = train.make_spconv_step(model, opt_cfg, plans)
+    state = (params, adamw.init(params))
+    state, _ = step(state, batch)                      # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, m = step(state, batch)
+    float(m["loss"])
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        profiled_ms = (time.perf_counter() - t0) * 1e3
+    rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA),
+                  key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows)
+    k2 = [r for r in rows if "spconv_" in r[0]]
+    k2_ms = sum(r[1] for r in k2)
+    check(sum(r[2] for r in k2 if "spconv_gemm_fused_kernel" in r[0])
+          == n_layers,
+          f"train: profiled step ran kernel 2 {k2} times, want {n_layers}")
+    saves = res["save_ms"]
+    emit(phase="train", config=cfg.name, scene="indoor",
+         voxels=int(vb.valid.sum()), bucket=BUCKET, steps=TRAIN_STEPS,
+         losses=res["losses"], mapsearch_calls=res["mapsearch_calls"],
+         plan_sets=res["plan_sets"], cache=res["cache"],
+         launches={"octent_query": counts[0], "spconv_gemm_fused": counts[1],
+                   "split_plan": counts[5], "split_reduce": counts[4]},
+         recoveries=res["recoveries"], demo_s=demo_s,
+         step_ms=[{**t, "save_ms": saves[i + 1]}
+                  for i, t in enumerate(res["timings"])],
+         baseline_save_ms=saves[0], final_save_ms=saves[-1],
+         peak_mem_gb=peak_gb, held_before_gb=held / 1e9,
+         kernel_vs_plain={
+             **gate,
+             "limits": {"loss_rel_err": TOL_TRAIN_LOSS,
+                        "worst_layer_flip_share": TOL_TRAIN_FLIPS[0],
+                        "flip_share": TOL_TRAIN_FLIPS[1],
+                        "worst_norm_ratio": TOL_TRAIN_NORM,
+                        "worst_grad_ratio": f"{TOL_TRAIN_GRAD} x its max "
+                                            "|g|, pinned",
+                        "worst_zero_grad_ratio": f"{TOL_TRAIN_ZERO} x max "
+                                                 "|g|"},
+             "relu_outputs": sizes,
+             "control_tf32": {**control, "broken": control_broken}},
+         profile={"step_ms": step_ms, "profiled_wall_ms": profiled_ms,
+                  "device_busy_ms": busy, "idle_share": 1 - busy / step_ms,
+                  "device_ops": sum(r[2] for r in rows),
+                  "kernel2_ms": k2_ms,
+                  "kernel2": [{"name": n[:80], "device_ms": ms, "calls": c}
+                              for n, ms, c in k2],
+                  "top10": [{"name": n[:80], "device_ms": ms, "calls": c}
+                            for n, ms, c in rows[:10]]})
+    del state, params, model, plans, batch
+    torch.cuda.empty_cache()
+    return counts[0], counts[1], k2_ms
 
 
 def main() -> int:
@@ -1201,6 +1475,8 @@ def main() -> int:
     k4 = phase_masked(dev, lidar[0], cfg)
     phase_scan(dev, cfg, lidar[0], model)
     del model, results
+    k1["train_launches"], k2["train_launches"], k2["train_ms_per_step"] = \
+        phase_train(dev, cfg)
     flash = phase_flash(dev)
     lm_cfg, lm_params, fa_launches = phase_lm_serve(dev)
     phase_lm_reference(dev, lm_cfg, lm_params)

@@ -7,16 +7,31 @@ blocks pay for OCTENT once, and a MinkUNet decoder stage reuses the
 encoder plan at its resolution. SPAC liveness depends on the current
 features and is refreshed per layer at execution time.
 
-The cache is keyed by the identity of the coordinate tensors plus the
-static search parameters; entries hold their key tensors so an id cannot
-be recycled while the entry lives. ``MAPSEARCH_CALLS`` counts actual map
-searches, so callers can check that a forward searches 2E+1 times.
+Cache keys come in two forms, as in the reference:
+
+* **identity keys** (the fast path): the ids of the key tensors plus the
+  static search parameters. Entries anchor their key tensors, so an id
+  cannot be recycled while its alias lives.
+* **content keys**: on an identity miss, :func:`array_fingerprint` of
+  each integer or bool key tensor (three 32-bit words, the reference's bit
+  for bit) plus its shape and dtype, or a key the caller derives from it.
+  A re-allocated identical cloud (a replayed training batch, a
+  re-submitted request) then hits with zero map searches. Float tensors
+  are refused (identity only). ``minkunet.build_plans`` hashes each
+  level's coordinate set once, on a miss, and keys that level's lookups
+  by it (one host sync for a replayed cloud, one a level for a fresh
+  one).
+
+``MAPSEARCH_CALLS`` counts actual map searches, so callers can check that
+a forward searches 2E+1 times, and a replayed cloud zero times.
 """
 from __future__ import annotations
 
+import functools
 from collections import OrderedDict
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.core import mapsearch, rulebook, sparsity
@@ -34,6 +49,99 @@ def mapsearch_call_count() -> int:
 
 def reset_mapsearch_counter() -> None:
     MAPSEARCH_CALLS[0] = 0
+
+
+# ---------------------------------------------------------------------------
+# Content fingerprinting: the reference's uint32 arithmetic in int64
+# ---------------------------------------------------------------------------
+
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(x: torch.Tensor, c_lo, c_hi) -> torch.Tensor:
+    """``x * c mod 2**32`` for int64 ``x`` in [0, 2**32), ``c`` given as its
+    16-bit halves ``c_lo`` and ``c_hi``, so that no product leaves int64."""
+    return (x * c_lo + (((x * c_hi) & 0xFFFF) << 16)) & _M32
+
+
+def _mix32(x: torch.Tensor) -> torch.Tensor:
+    """lowbias32 finalizer (the reference's ``_mix32``) on int64 words."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x352D, 0x7FEB)          # 0x7FEB352D
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0xA68B, 0x846C)          # 0x846CA68B
+    return x ^ (x >> 16)
+
+
+@functools.lru_cache(maxsize=8)
+def _index_words(size: int, device: torch.device):
+    """Constants of a padded length: the indices, their mix, and the 16-bit
+    halves of their odd weights ``2 * idx + 1``."""
+    idx = torch.arange(size, dtype=torch.int64, device=device)
+    w = (2 * idx + 1) & _M32
+    return idx, _mix32(idx), w & 0xFFFF, w >> 16
+
+
+def _fp_words(flats: list[torch.Tensor]) -> torch.Tensor:
+    """(S, 3) int64 fingerprint words of S flat int32 tensors.
+
+    Row s is the reference's ``_fp_words(flats[s])``: each word, as uint32,
+    is mixed with the mix of its index, then reduced by XOR, by a sum mod
+    2**32 and by a sum weighted by ``2 * idx + 1`` mod 2**32. The tensors
+    are laid out as the rows of one zero-padded (S, 2**k) array, so that
+    one pass serves them all; XOR reduces by a halving fold.
+    """
+    size = 1 << max(max(f.numel() for f in flats) - 1, 0).bit_length()
+    dev = flats[0].device
+    idx, idx_mix, w_lo, w_hi = _index_words(size, dev)
+    words = torch.zeros((len(flats), size), dtype=torch.int64, device=dev)
+    for row, f in zip(words, flats):
+        row[:f.numel()] = f
+    words &= _M32
+    lengths = torch.tensor([f.numel() for f in flats], device=dev)
+    h = torch.where(idx < lengths[:, None], _mix32(words ^ idx_mix), 0)
+    tot = h.sum(1) & _M32
+    wtot = _mul32(h, w_lo, w_hi).sum(1) & _M32
+    while h.shape[1] > 1:
+        half = h.shape[1] // 2
+        h = h[:, :half] ^ h[:, half:]
+    return torch.stack([h[:, 0], tot, wtot], dim=1)
+
+
+def _as_words(a: torch.Tensor) -> torch.Tensor | None:
+    """The flat int32 words the reference hashes, or None for floats."""
+    if a.dtype.is_floating_point or a.dtype.is_complex:
+        return None
+    if a.element_size() > 4:
+        # every 32-bit word, little-endian as the reference's bitcast:
+        # values equal mod 2**32 must not collide
+        return a.reshape(-1).contiguous().view(torch.int32)
+    return a.reshape(-1).to(torch.int32)
+
+
+def content_fingerprint(arrays) -> tuple | None:
+    """Fingerprints of a tuple of key tensors (numpy arrays are taken as
+    CPU tensors), one :func:`array_fingerprint` tuple each; None if any is
+    a float tensor. The words of all of them come to the host in one
+    copy."""
+    arrays = [a if isinstance(a, torch.Tensor) else torch.as_tensor(
+        np.asarray(a)) for a in arrays]
+    flats = [_as_words(a) for a in arrays]
+    if any(f is None for f in flats):
+        return None
+    words = _fp_words(flats).cpu().tolist()
+    return tuple((tuple(a.shape), str(a.dtype).removeprefix("torch."), *w)
+                 for a, w in zip(arrays, words))
+
+
+def array_fingerprint(a) -> tuple | None:
+    """``(shape, dtype, w0, w1, w2)`` of an integer or bool tensor: the
+    reference's content fingerprint, with its three 32-bit words equal to
+    the reference's bit for bit on the same values. None for floats
+    (plan keys are integral; refusing keeps the cache conservative about
+    NaN and -0.0)."""
+    fp = content_fingerprint((a,))
+    return None if fp is None else fp[0]
 
 
 class CapacityOverflow(RuntimeError):
@@ -66,45 +174,124 @@ class ConvPlan(NamedTuple):
     maps: StridedMaps | None
 
 
-class PlanCache:
-    """Identity-keyed FIFO memo of ConvPlans.
+class _Entry(NamedTuple):
+    """One canonical cache entry: the plan and the anchored key tensors of
+    every identity alias pointing at it."""
 
-    One instance per forward, or longer-lived for a serving loop. Counters:
-    ``hits`` and ``misses`` (see :meth:`stats`).
+    plan: ConvPlan
+    aliases: OrderedDict        # identity key -> anchored tensor tuple
+
+
+#: identity aliases kept per canonical entry before the oldest is dropped
+#: (a loop over re-allocated clouds would otherwise anchor every step's
+#: tensors for as long as the entry lives)
+ALIAS_CAP = 8
+
+
+class PlanCache:
+    """Content-addressed FIFO memo of ConvPlans with an identity fast path.
+
+    One instance per forward, or longer-lived for a serving engine or a
+    training loop, where the content keys make re-allocated identical
+    clouds hit.
+
+    Args:
+      capacity: canonical entries kept (FIFO eviction).
+      verify: on every content hit, compare the key tensors element-wise
+        with an anchored alias's; a mismatch counts as a ``collision`` and
+        rebuilds instead of serving a stale plan.
+
+    Counters: ``hits`` (total), ``id_hits``, ``content_hits``, ``misses``,
+    ``collisions`` (see :meth:`stats`).
     """
 
-    def __init__(self, capacity: int = 64):
+    def __init__(self, capacity: int = 64, *, verify: bool = False):
         self.capacity = capacity
-        self._entries: OrderedDict = OrderedDict()  # key -> (plan, anchors)
+        self.verify = verify
+        self._entries: OrderedDict = OrderedDict()  # canonical key -> _Entry
+        self._by_id: dict = {}                      # identity key -> canonical
         self.hits = 0
+        self.id_hits = 0
+        self.content_hits = 0
         self.misses = 0
+        self.collisions = 0
 
     def __len__(self) -> int:
         return len(self._entries)
 
     def stats(self) -> dict:
         return {"entries": len(self), "hits": self.hits,
-                "misses": self.misses}
+                "id_hits": self.id_hits, "content_hits": self.content_hits,
+                "misses": self.misses, "collisions": self.collisions}
 
-    def lookup(self, arrays, statics, build):
-        """Memoized plan for ``(arrays, statics)``; ``build()`` on a miss."""
-        key = (tuple(id(a) for a in arrays), tuple(statics))
-        entry = self._entries.get(key)
-        if entry is not None:
+    def _evict_to_capacity(self) -> None:
+        while len(self._entries) >= self.capacity:
+            _, entry = self._entries.popitem(last=False)
+            for idkey in entry.aliases:
+                self._by_id.pop(idkey, None)
+
+    def _alias(self, canonical, idkey, arrays) -> None:
+        entry = self._entries[canonical]
+        if idkey in entry.aliases:
+            return
+        entry.aliases[idkey] = tuple(arrays)
+        self._by_id[idkey] = canonical
+        while len(entry.aliases) > ALIAS_CAP:
+            old, _ = entry.aliases.popitem(last=False)
+            self._by_id.pop(old, None)
+
+    @staticmethod
+    def _same(anchored, arrays) -> bool:
+        return all(torch.equal(torch.as_tensor(a), torch.as_tensor(b))
+                   for a, b in zip(anchored, arrays))
+
+    def lookup(self, arrays, statics, build, content_key=None):
+        """Memoized plan for ``(arrays, statics)``; ``build()`` on a miss.
+
+        On an identity miss the content key is ``content_key()`` if given
+        (a key the caller derives for tensors whose content it knows),
+        else :func:`content_fingerprint` of ``arrays`` (one host sync)."""
+        statics = tuple(statics)
+        idkey = (tuple(id(a) for a in arrays), statics)
+        canonical = self._by_id.get(idkey)
+        if canonical is not None and canonical in self._entries:
             self.hits += 1
-            return entry[0]
+            self.id_hits += 1
+            return self._entries[canonical].plan
+
+        fp = content_key() if content_key is not None \
+            else content_fingerprint(arrays)
+        if fp is not None:
+            ckey = (fp, statics)
+            entry = self._entries.get(ckey)
+            if entry is not None:
+                # the newest alias is always anchored
+                if not self.verify or self._same(
+                        next(reversed(entry.aliases.values())), arrays):
+                    self.hits += 1
+                    self.content_hits += 1
+                    self._alias(ckey, idkey, arrays)
+                    return entry.plan
+                self.collisions += 1
+                self._entries.pop(ckey)            # latest wins
+                for ik in entry.aliases:
+                    self._by_id.pop(ik, None)
+        else:
+            ckey = idkey                           # identity-only entry
+
         self.misses += 1
         plan = build()
-        while len(self._entries) >= self.capacity:
-            self._entries.popitem(last=False)
-        self._entries[key] = (plan, tuple(arrays))
+        self._evict_to_capacity()
+        self._entries[ckey] = _Entry(plan, OrderedDict())
+        self._alias(ckey, idkey, arrays)
         return plan
 
 
-def _maybe_cached(cache: PlanCache | None, arrays, statics, build):
+def _maybe_cached(cache: PlanCache | None, arrays, statics, build,
+                  content_key=None):
     if cache is None:
         return build()
-    return cache.lookup(arrays, statics, build)
+    return cache.lookup(arrays, statics, build, content_key)
 
 
 def _require_block_capacity(n_blocks: torch.Tensor, max_blocks: int) -> None:
@@ -123,12 +310,14 @@ def _require_block_capacity(n_blocks: torch.Tensor, max_blocks: int) -> None:
 def subm3_plan(coords, batch, valid, *, max_blocks: int, grid_bits: int = 7,
                batch_bits: int = 4, bm: int = 128, bo: int | None = None,
                search_impl: str | None = None,
-               cache: PlanCache | None = None) -> ConvPlan:
+               cache: PlanCache | None = None,
+               content_key=None) -> ConvPlan:
     """Submanifold 3x3x3 plan by OCTENT search: outputs == inputs, 27 taps.
 
     ``search_impl``: None / ``"kernel"`` (the CUDA query kernel on a card)
     or ``"ref"`` (its plain version). Raises :class:`CapacityOverflow` when
-    the scene occupies more than ``max_blocks`` blocks.
+    the scene occupies more than ``max_blocks`` blocks. ``content_key``
+    stands in for the key tensors' fingerprint (:meth:`PlanCache.lookup`).
     """
     simpl = search_impl or "kernel"
     statics = ("subm3", max_blocks, simpl, grid_bits, batch_bits, bm, bo)
@@ -143,12 +332,14 @@ def subm3_plan(coords, batch, valid, *, max_blocks: int, grid_bits: int = 7,
         return ConvPlan("subm3", kmap, tiles, coords.shape[0], 27,
                         None, None, None, None)
 
-    return _maybe_cached(cache, (coords, batch, valid), statics, build)
+    return _maybe_cached(cache, (coords, batch, valid), statics, build,
+                         content_key)
 
 
 def gconv2_plan(coords, batch, valid, *, grid_bits: int = 7,
                 batch_bits: int = 4, bm: int = 128, bo: int | None = None,
-                cache: PlanCache | None = None) -> ConvPlan:
+                cache: PlanCache | None = None,
+                content_key=None) -> ConvPlan:
     """Gconv2 (k=2, s=2) plan: octant taps to octree parents. Carries the
     downsampled ``out_*`` coordinate set and the scatter-form ``maps`` the
     paired Tconv2 reuses."""
@@ -165,12 +356,14 @@ def gconv2_plan(coords, batch, valid, *, grid_bits: int = 7,
         return ConvPlan("gconv2", kmap, tiles, n, 8, maps.out_coords,
                         maps.out_batch, maps.out_valid, maps)
 
-    return _maybe_cached(cache, (coords, batch, valid), statics, build)
+    return _maybe_cached(cache, (coords, batch, valid), statics, build,
+                         content_key)
 
 
 def tconv2_plan(gconv2_maps: StridedMaps, target_coords, target_batch,
                 target_valid, *, bm: int = 128, bo: int | None = None,
-                cache: PlanCache | None = None) -> ConvPlan:
+                cache: PlanCache | None = None,
+                content_key=None) -> ConvPlan:
     """Tconv2 plan: transposes the paired Gconv2 maps (map reuse, so this
     never counts as a map search)."""
     statics = ("tconv2", bm, bo)
@@ -186,7 +379,7 @@ def tconv2_plan(gconv2_maps: StridedMaps, target_coords, target_batch,
 
     keys = (gconv2_maps.in_idx, gconv2_maps.out_idx, gconv2_maps.tap,
             gconv2_maps.mvalid, target_coords, target_batch, target_valid)
-    return _maybe_cached(cache, keys, statics, build)
+    return _maybe_cached(cache, keys, statics, build, content_key)
 
 
 def execute(plan: ConvPlan, feats: torch.Tensor, weights: torch.Tensor,

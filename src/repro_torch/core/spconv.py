@@ -3,8 +3,8 @@
 Functional layers over a padded, mask-carrying :class:`SparseTensor`. Each
 layer is map search (a cached :class:`~repro_torch.core.plan.ConvPlan`) plus
 rulebook execution through the gather-GEMM kernel. Weights keep the
-reference layout ``(K, Cin, Cout)``. BatchNorm here is the inference form;
-training comes with the backward in a later part of the port.
+reference layout ``(K, Cin, Cout)``. BatchNorm has the reference's training
+form (batch statistics of the valid rows) and its inference form.
 """
 from __future__ import annotations
 
@@ -144,12 +144,29 @@ def tconv2(st: SparseTensor, w: torch.Tensor, b: torch.Tensor | None,
 
 
 def batch_norm(st: SparseTensor, bn: Mapping[str, torch.Tensor], *,
-               eps: float = 1e-5) -> SparseTensor:
-    """Inference BatchNorm over valid rows (running statistics)."""
+               training: bool, momentum: float = 0.9, eps: float = 1e-5):
+    """Masked BatchNorm over the valid rows; returns ``(st, new_stats)``.
+
+    Training normalizes by the batch statistics of the valid rows (``n =
+    max(valid.sum(), 1)``, biased variance) and returns ``bn`` with the
+    momentum-updated running ``mean`` and ``var``; inference uses the
+    running statistics and returns ``bn`` as it is.
+    """
     f = st.feats.float()
-    y = ((f - bn["mean"].float()) * torch.rsqrt(bn["var"].float() + eps)
-         * bn["scale"] + bn["bias"])
-    return st.replace_feats(_zero_invalid(st.valid, y).to(st.feats.dtype))
+    mask = st.valid[:, None]
+    if training:
+        n = st.valid.sum().clamp(min=1).float()
+        mean = (f * mask).sum(0) / n
+        var = ((f - mean) ** 2 * mask).sum(0) / n
+        new_stats = {**bn,
+                     "mean": momentum * bn["mean"] + (1 - momentum) * mean,
+                     "var": momentum * bn["var"] + (1 - momentum) * var}
+    else:
+        mean, var = bn["mean"].float(), bn["var"].float()
+        new_stats = bn
+    y = (f - mean) * torch.rsqrt(var + eps) * bn["scale"] + bn["bias"]
+    return (st.replace_feats(_zero_invalid(st.valid, y).to(st.feats.dtype)),
+            new_stats)
 
 
 def relu(st: SparseTensor) -> SparseTensor:

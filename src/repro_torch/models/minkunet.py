@@ -1,4 +1,4 @@
-"""MinkowskiUNet — the paper's segmentation benchmark, inference form.
+"""MinkowskiUNet — the paper's segmentation benchmark.
 
 Sparse UNet over the SpOctA core: Subm3 feature blocks, Gconv2
 downsampling, Tconv2 upsampling with exact coordinate recovery + skip
@@ -8,10 +8,15 @@ concat. ``SMALL`` ~ Seg(i) (ScanNet-sized), ``LARGE`` ~ Seg(o)
 :class:`MinkUNet` holds the parameters as an ``nn.Module`` whose
 ``state_dict`` keys are the reference's parameter-tree paths
 (``stem.conv.w``, ``enc0.block1.bn.var``, ``head.w``, ...), so
-:func:`params_from_jax` carries trained or seeded reference weights across.
+:func:`params_from_jax` carries trained or seeded reference weights across
+(and :func:`adamw_state_from_jax` the optimizer state). :func:`forward`
+runs inference under ``torch.no_grad`` unless ``training=True``;
+:func:`segmentation_loss` is the training objective.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 from dataclasses import dataclass
 from typing import Mapping, NamedTuple
 
@@ -61,7 +66,7 @@ class Conv(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Inference BatchNorm: affine parameters plus running statistics."""
+    """BatchNorm: affine parameters plus running statistics (buffers)."""
 
     def __init__(self, c: int):
         super().__init__()
@@ -91,7 +96,7 @@ class MinkPlans(NamedTuple):
 
 
 class MinkUNet(nn.Module):
-    """MinkUNet parameters plus the inference forward.
+    """MinkUNet parameters plus the forward.
 
     Weights are drawn from ``generator`` (a CPU ``torch.Generator``; None
     uses a fresh one seeded 0) with He-normal scaling as in the reference's
@@ -133,12 +138,13 @@ class MinkUNet(nn.Module):
                                 * (2.0 / (k * cin)) ** 0.5)
         self.to(dev)
 
-    @torch.no_grad()
     def forward(self, st: SparseTensor, *, plans: MinkPlans | None = None,
                 cache: planlib.PlanCache | None = None,
-                impl: str | None = None) -> torch.Tensor:
+                impl: str | None = None,
+                training: bool = False) -> torch.Tensor:
         """Per-voxel class logits (N, classes); see :func:`forward`."""
-        return forward(self, st, plans=plans, cache=cache, impl=impl)
+        return forward(self, st, plans=plans, cache=cache, impl=impl,
+                       training=training)
 
 
 def params_from_jax(tree: Mapping) -> dict[str, torch.Tensor]:
@@ -159,6 +165,15 @@ def params_from_jax(tree: Mapping) -> dict[str, torch.Tensor]:
     return out
 
 
+def adamw_state_from_jax(state: Mapping) -> dict:
+    """The reference's AdamW state ``{"m", "v", "count"}`` (numpy leaves) as
+    the port's (:func:`repro_torch.optim.adamw.init`'s layout)."""
+    return {"m": params_from_jax(state["m"]),
+            "v": params_from_jax(state["v"]),
+            "count": torch.tensor(int(np.asarray(state["count"])),
+                                  dtype=torch.int32)}
+
+
 def _as_tensor(a, dtype, device):
     if isinstance(a, torch.Tensor):
         return a.to(device=device, dtype=dtype)
@@ -176,6 +191,16 @@ def build_plans(coords, batch, valid, cfg: MinkUNetConfig, *,
     coordinate arrays (numpy or tensors) are placed on ``device`` (None:
     the card; raises without one). ``n_max`` is the octree directory
     capacity (default: the row budget, which no scene can overflow).
+
+    With a ``cache``, an identity miss is keyed by the content of its
+    level's coordinate set, as in the reference: the set's fingerprint
+    (one host sync, taken at most once a level and only on a miss) keys
+    that level's Subm3 and Gconv2 lookups and the Tconv2 lookup back onto
+    it (whose maps and target the set determines). A replayed cloud
+    hashes once: its content hit returns plans whose derived sets then hit
+    by identity. A fresh cloud hashes every level, so that a coarse level
+    it shares with a cached cloud hits, and costs the searches that the
+    reference's cache would.
     """
     if cfg.map_method != "octree":
         raise ValueError(f"map method {cfg.map_method!r} is not ported")
@@ -183,50 +208,58 @@ def build_plans(coords, batch, valid, cfg: MinkUNetConfig, *,
     coords = _as_tensor(coords, torch.int32, dev).contiguous()
     batch = _as_tensor(batch, torch.int32, dev).contiguous()
     valid = _as_tensor(valid, torch.bool, dev).contiguous()
-    if cache is None:
-        cache = planlib.PlanCache()
     n_max = coords.shape[0] if n_max is None else n_max
     gb, bb = cfg.grid_bits, cfg.batch_bits
 
-    def subm(c, b, v):
+    def content_key(c, b, v):
+        return functools.cache(lambda: (planlib.content_fingerprint(
+            (c, b, v)), gb, bb))
+
+    def subm(c, b, v, key):
         return planlib.subm3_plan(c, b, v, max_blocks=n_max, grid_bits=gb,
                                   batch_bits=bb, bm=cfg.bm, bo=cfg.bo,
-                                  search_impl=search_impl, cache=cache)
+                                  search_impl=search_impl, cache=cache,
+                                  content_key=key)
 
     cur = (coords, batch, valid)
-    subms, downs, stack = [subm(*cur)], [], [cur]
-    for _ in range(len(cfg.enc)):
+    keys = [content_key(*cur)]
+    subms, downs, stack = [subm(*cur, keys[0])], [], [cur]
+    for level in range(len(cfg.enc)):
         d = planlib.gconv2_plan(*cur, grid_bits=gb, batch_bits=bb, bm=cfg.bm,
-                                bo=cfg.bo, cache=cache)
+                                bo=cfg.bo, cache=cache,
+                                content_key=keys[level])
         cur = (d.out_coords, d.out_batch, d.out_valid)
+        keys.append(content_key(*cur))
         downs.append(d)
-        subms.append(subm(*cur))
+        subms.append(subm(*cur, keys[-1]))
         stack.append(cur)
     ups = []
     for i in range(len(cfg.dec)):
-        target = stack[-(i + 2)]
-        ups.append(planlib.tconv2_plan(downs[-(i + 1)].maps, *target,
-                                       bm=cfg.bm, bo=cfg.bo, cache=cache))
+        level = len(stack) - i - 2                 # the Tconv2's output level
+        ups.append(planlib.tconv2_plan(downs[level].maps, *stack[level],
+                                       bm=cfg.bm, bo=cfg.bo, cache=cache,
+                                       content_key=keys[level]))
     return MinkPlans(tuple(subms), tuple(downs), tuple(ups))
 
 
-def _apply_subm(model_cfg, st, cb: ConvBN, plan, impl, act=None):
+def _apply_subm(model_cfg, st, cb: ConvBN, plan, impl, training, act=None):
     """One Subm3 + BN + ReLU block; returns ``(st, act)`` where act is the
-    fused epilogue's liveness (None on the unfused path)."""
-    if model_cfg.fused_epilogue:
+    fused epilogue's liveness (None on the unfused path). Training always
+    takes the unfused path: the epilogue is inference BatchNorm."""
+    if model_cfg.fused_epilogue and not training:
         return spconv.subm_conv3_bn_relu(
             st, cb.conv.w, cb.conv.b, cb.bn.stats(), max_blocks=st.n_max,
             spac=model_cfg.spac, act=act, plan=plan, impl=impl)
     st = spconv.subm_conv3(st, cb.conv.w, cb.conv.b, max_blocks=st.n_max,
                            spac=model_cfg.spac, act=act, plan=plan, impl=impl)
-    return spconv.relu(spconv.batch_norm(st, cb.bn.stats())), None
+    st, _ = spconv.batch_norm(st, cb.bn.stats(), training=training)
+    return spconv.relu(st), None
 
 
-@torch.no_grad()
 def forward(model: MinkUNet, st: SparseTensor, *,
             plans: MinkPlans | None = None,
             cache: planlib.PlanCache | None = None,
-            impl: str | None = None) -> torch.Tensor:
+            impl: str | None = None, training: bool = False) -> torch.Tensor:
     """Per-voxel class logits (N, classes), zero on invalid rows.
 
     ``plans`` (from :func:`build_plans`) skips every plan lookup; without
@@ -235,7 +268,17 @@ def forward(model: MinkUNet, st: SparseTensor, *,
     ``"scan"`` executes every layer by the plain tap scan
     (``plan.execute``), the reference's ``impl="xla"``, and searches with
     the kernel. The tensors of ``st`` must be on the model's device.
+
+    Inference (the default) runs under ``torch.no_grad`` with the running
+    BatchNorm statistics. ``training=True`` records the graph for
+    autograd and normalizes by batch statistics, discarding the updated
+    running statistics as the reference does.
     """
+    with contextlib.nullcontext() if training else torch.no_grad():
+        return _forward(model, st, plans, cache, impl, training)
+
+
+def _forward(model, st, plans, cache, impl, training):
     cfg = model.cfg
     if plans is None:
         plans = build_plans(st.coords, st.batch, st.valid, cfg, cache=cache,
@@ -243,7 +286,7 @@ def forward(model: MinkUNet, st: SparseTensor, *,
                             device=st.coords.device)
     n_enc = len(cfg.enc)
     st = spconv.mask_feats(st._replace(feats=st.feats.float()))
-    st, _ = _apply_subm(cfg, st, model.stem, plans.subm[0], impl)
+    st, _ = _apply_subm(cfg, st, model.stem, plans.subm[0], impl, training)
 
     skips, maps_stack = [st], []
     for i in range(n_enc):
@@ -251,11 +294,13 @@ def forward(model: MinkUNet, st: SparseTensor, *,
         down, maps = spconv.gconv2(st, stage["down"].conv.w,
                                    stage["down"].conv.b, plan=plans.down[i],
                                    impl=impl)
-        st = spconv.relu(spconv.batch_norm(down, stage["down"].bn.stats()))
+        down, _ = spconv.batch_norm(down, stage["down"].bn.stats(),
+                                    training=training)
+        st = spconv.relu(down)
         act = None    # new resolution/channels: previous masks don't apply
         for b in range(cfg.blocks):
             st, act = _apply_subm(cfg, st, stage[f"block{b}"],
-                                  plans.subm[i + 1], impl, act=act)
+                                  plans.subm[i + 1], impl, training, act=act)
         maps_stack.append(maps)
         skips.append(st)
 
@@ -265,12 +310,15 @@ def forward(model: MinkUNet, st: SparseTensor, *,
         up = spconv.tconv2(st, stage["up"].conv.w, stage["up"].conv.b,
                            maps_stack[-(i + 1)], target, plan=plans.up[i],
                            impl=impl)
-        up = spconv.relu(spconv.batch_norm(up, stage["up"].bn.stats()))
+        up, _ = spconv.batch_norm(up, stage["up"].bn.stats(),
+                                  training=training)
+        up = spconv.relu(up)
         st = up.replace_feats(torch.cat([up.feats, target.feats], dim=-1))
         act = None    # concat changed the channel layout: masks are stale
         for b in range(cfg.blocks):
             st, act = _apply_subm(cfg, st, stage[f"block{b}"],
-                                  plans.subm[n_enc - 1 - i], impl, act=act)
+                                  plans.subm[n_enc - 1 - i], impl, training,
+                                  act=act)
 
     logits = torch.matmul(st.feats, model.head.w[0]) + model.head.b
     return torch.where(st.valid[:, None], logits, 0.0)
@@ -287,3 +335,28 @@ def forward_multicloud(model: MinkUNet, clouds, *, plans=None,
     return [forward(model, st, cache=cache, impl=impl,
                     plans=plans[i] if plans is not None else None)
             for i, st in enumerate(clouds)]
+
+
+def segmentation_loss(model: MinkUNet, batch: Mapping[str, torch.Tensor], *,
+                      plans: MinkPlans | None = None,
+                      impl: str | None = None):
+    """Masked per-voxel cross-entropy of a training forward.
+
+    ``batch`` holds the :class:`SparseTensor` fields (``coords``, ``batch``,
+    ``valid``, ``feats``) and ``labels`` (N,) int, as tensors on the
+    model's device; ``plans`` and ``impl`` as in :func:`forward`. Returns
+    ``(loss, {"ce": loss, "acc": acc})``: the float32 ``logsumexp`` NLL and
+    the argmax accuracy, both averaged over the valid rows.
+    """
+    st = SparseTensor(batch["coords"], batch["batch"], batch["valid"],
+                      batch["feats"])
+    labels = batch["labels"].long()
+    logits = forward(model, st, plans=plans, impl=impl,
+                     training=True).float()
+    lse = torch.logsumexp(logits, -1)
+    ll = logits.gather(-1, labels[:, None])[:, 0]
+    nll = torch.where(st.valid, lse - ll, 0.0)
+    n = st.valid.sum().clamp(min=1)
+    loss = nll.sum() / n
+    acc = (st.valid & (logits.argmax(-1) == labels)).sum() / n
+    return loss, {"ce": loss, "acc": acc}

@@ -10,7 +10,12 @@ The OCTENT kernel must equal its plain version bit for bit (dense, grid
 edge, sparse and multi-batch clouds, duplicate coordinates, fewer directory
 slots than blocks, one block holding all 4,096 voxels, offsets that leave
 the 3x3x3 blocks, an all-invalid cloud); ``apply_tiles`` must be
-differentiable on the card with the plain version's CPU gradient; the
+differentiable on the card with the plain version's CPU gradient; one
+training step of the demo MinkUNet must give the loss (1e-4 relative) and
+every gradient (1e-3 x its own max |g|) through the kernels that it gives
+through the plain versions; the content fingerprint of a tensor on the
+card must equal its CPU fingerprint, and a re-allocated cloud must hit
+the plan cache with no search; the
 gather-GEMM
 kernel must stay within 1e-4 of the plain version's scale (float32, other
 summation order), at the edge cases: Cin = 4, all-dead tiles, empty output
@@ -193,6 +198,77 @@ def test_apply_tiles_grads_on_card(cuda):
     for got, want in zip(grads["cuda"], grads["cpu"]):
         _close(got, want)
     assert float(grads["cuda"][0][: n // 2].abs().max()) > 0
+
+
+def test_segmentation_loss_grads_kernel_vs_plain_on_card(cuda):
+    """One training step at the demo config: loss and gradients through
+    the kernels (``impl="kernel"``) against the plain versions on the same
+    plans, weights and batch. Every conv bias feeds a training BatchNorm,
+    so its gradient is zero in exact arithmetic: both sides must stay
+    below 1e-5 of the model's largest |g| there."""
+    from repro_torch.data import pointcloud
+    from repro_torch.launch import train
+    from repro_torch.models import minkunet
+    cfg = train.DEMO_CFG
+    model = minkunet.MinkUNet(cfg, device=cuda,
+                              generator=torch.Generator().manual_seed(0))
+    vb = pointcloud.make_batch(np.random.default_rng(0), "indoor", 1, 4096)
+    batch = {k: torch.as_tensor(np.array(v), device=cuda)
+             for k, v in vb._asdict().items()}
+    batch["labels"] = batch["labels"].clamp(0, cfg.classes - 1)
+    plans = minkunet.build_plans(batch["coords"], batch["batch"],
+                                 batch["valid"], cfg, device=cuda)
+    params = {k: v.clone() for k, v in model.state_dict().items()}
+    before = sg_kernel.launches
+    lk, _, gk = train.loss_and_grads(model, params, batch, plans=plans,
+                                     impl="kernel")
+    n_layers = 1 + (1 + cfg.blocks) * (len(cfg.enc) + len(cfg.dec))
+    assert sg_kernel.launches - before == n_layers
+    lr, _, gr = train.loss_and_grads(model, params, batch, plans=plans,
+                                     impl="ref")
+    assert sg_kernel.launches - before == n_layers
+    assert torch.isfinite(lk) and abs(float(lk - lr)) <= 1e-4 * abs(
+        float(lr))
+    gmax = max(float(g.abs().max()) for g in gr.values())
+    for k in gr:
+        if k.endswith((".conv.b", ".mean", ".var")):
+            assert max(float(gk[k].abs().max()),
+                       float(gr[k].abs().max())) <= 1e-5 * gmax, k
+        else:
+            scale = float(gr[k].abs().max())
+            assert scale > 0 and float((gk[k] - gr[k]).abs().max()) \
+                <= 1e-3 * scale, k
+
+
+def test_content_fingerprint_on_card_equals_cpu(cuda):
+    """Fingerprint words computed on the card equal the CPU's (int32,
+    bool, int64 with differing high words), and a re-allocated cloud hits
+    the plan cache by content with no search and no kernel-1 launch."""
+    from repro_torch.core import plan as planlib
+    from repro_torch.models import minkunet
+    rng = np.random.default_rng(11)
+    coords, batch, valid = _cloud(rng, 3000, 40, 2500)
+    wide = np.arange(5000, dtype=np.int64) * 3 + (1 << 33)
+    for a in (coords, valid, wide):
+        t = torch.from_numpy(a)
+        assert planlib.array_fingerprint(t.to(cuda)) == \
+            planlib.array_fingerprint(t)
+    cfg = minkunet.MinkUNetConfig(stem=8, enc=(8, 16), dec=(16, 8),
+                                  classes=4)
+    cache = planlib.PlanCache()
+    planlib.reset_mapsearch_counter()
+
+    def build():
+        return minkunet.build_plans(*(torch.as_tensor(a, device=cuda)
+                                      for a in (coords, batch, valid)),
+                                    cfg, cache=cache, device=cuda)
+
+    first = build()
+    launches = oct_kernel.launches
+    again = build()
+    assert planlib.mapsearch_call_count() == 2 * len(cfg.enc) + 1
+    assert oct_kernel.launches == launches
+    assert again.subm[0] is first.subm[0] and cache.content_hits > 0
 
 
 def _check_gemm(dev, kmap, c_in, c_out, *, bm, bo, dead_rows=0.25,

@@ -45,6 +45,9 @@ def _imported_roots(path: Path) -> set[str]:
 def test_port_never_imports_jax_or_repro():
     files = _port_files()
     assert len(files) > 15 and files[0].exists()
+    for mod in ("optim/adamw.py", "checkpoint/checkpoint.py",
+                "runtime/fault.py", "launch/train.py"):
+        assert PKG / mod in files, mod
     bad = {str(p.relative_to(REPO)): sorted(_imported_roots(p)
                                             & {"jax", "jaxlib", "repro"})
            for p in files}
@@ -104,6 +107,19 @@ def test_every_cuda_source_is_built_and_names_its_tpu_kernel():
         assert f"def {m.group(1)}(" in tpu and "pallas_call" in tpu
         assert "What bounds it on the H100" in head, src
         assert f'extern "C" int {name}_launch(' in text, src
+
+
+def test_training_entry_points_raise_without_a_card(monkeypatch, tmp_path):
+    from repro_torch.launch import train
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.run_spconv_demo(1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--arch", "minkunet", "--steps", "1"])
+    # the explicit CPU request runs, and writes only where it is told to
+    res = train.run_spconv_demo(1, ckpt_dir=str(tmp_path), device="cpu")
+    assert res["recoveries"] == 0 and len(res["losses"]) == 1
+    assert any(p.name.startswith("step-") for p in tmp_path.iterdir())
 
 
 def _octent_args():
