@@ -9,8 +9,9 @@ It builds the five hand-written kernels from the checkout's sources (one
 ``nvcc`` per source, in parallel; phase ``device`` reports each
 instantiation's registers, shared memory and spills) and drives each
 execution path of the port at MinkUNet-large's full published widths and
-depth (seeded random weights), on a 65,536-voxel bucket, then the
-dense-decoder serving path at TinyLlama-1.1B's:
+depth (seeded random weights), on a 65,536-voxel bucket, SECOND-large
+on two LiDAR scans in a 131,072-row bucket, then the dense-decoder
+serving path at TinyLlama-1.1B's:
 
 * ``octent_query`` and ``spconv_gemm_fused`` (both modes): each kernel
   against its plain PyTorch version at the shapes the serving path gives
@@ -38,6 +39,17 @@ dense-decoder serving path at TinyLlama-1.1B's:
   gradient norms left free), and a control, the plain step in TF32, that
   must fail that gate; one step under ``torch.profiler`` (device busy,
   idle share, the 10 longest device ops, kernel 2's own time);
+* ``second``: SECOND-large (the detection path: Gconv3 in both
+  dataflows, Subm3 blocks, BEV densification, the RPN head) forward
+  through kernels 1 and 2 (3 and 8 launches, 6 map searches plus one
+  probe per overflowing Gconv3 budget), its ``cls`` / ``box`` against
+  the plain-version forward (whole grid, and the interior that the
+  clipped edge does not reach against its own max), every kmap, budget
+  and true output count against the plain search's, kernel 1 at its 3
+  and kernel 2 at its 8 layer shapes against their plain versions, plan
+  build and forward ms, one profiled forward, and one ``detection_loss``
+  step held to the plain versions by the training gate, with the TF32
+  control that must fail it;
 * ``flash_attention``: the kernel (bf16 on the tensor cores, float32 on
   the CUDA cores) against its plain version at six attention shapes of
   the repo's configs (TinyLlama's served prefill, in bf16 and float32, a
@@ -63,6 +75,7 @@ CUDA device is visible or when ``src/repro_torch`` is not beside it.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import re
@@ -76,6 +89,11 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 SEED = 0
 BUCKET = 65536                 # padding bucket of the served requests
+SECOND_BUCKET = 131072         # two LiDAR scans of phase second
+# the same scans in buckets whose Gconv3 budgets overflow: at 98,304 rows
+# stage 1 (kernel 2) replans from 98,304 output rows to 196,608; at 89,812
+# stage 0 replans to 179,624, which is not a multiple of 128
+SECOND_REPLAN_BUCKETS = (98304, 89812)
 LIDAR_VOXEL = 0.0125           # make_batch lidar voxel: 4 x this = 5 cm
 TOL_KERNEL = 1e-4              # f32, another summation order than plain
 TOL_LOGITS = 1e-3              # 25 layers of it, relative to max |logit|
@@ -257,6 +275,41 @@ def phase_device():
     return smi
 
 
+def _octent_shape(c, b, v, max_blocks, kw, where):
+    """Kernel 1 at one coordinate set, the 27 Subm3 queries against a
+    ``max_blocks`` directory: its kmap, bit-equal to the plain version's,
+    and the shape's ms, plain ms and bytes bound."""
+    import torch
+    from repro_torch.core import morton
+    from repro_torch.kernels.octent import kernel as oct_kernel
+    from repro_torch.kernels.octent import ops as oct_ops
+    from repro_torch.kernels.octent.ref import octent_query_ref
+    offs = torch.as_tensor(morton.subm3_offsets(), device=c.device)
+    qt = oct_ops.build_query_table(c, b, v, max_blocks=max_blocks, **kw)
+    args = (c, b, v, offs, qt.ublocks, qt.tkey, qt.tval, qt.n_blocks)
+    got = oct_kernel.octent_query(*args, **kw)
+    want = octent_query_ref(*args, **kw)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want),
+          f"octent_query differs from its plain version at {where}")
+    ms = time_ms(lambda: oct_kernel.octent_query(*args, **kw), 50)
+    plain_ms = time_ms(lambda: octent_query_ref(*args, **kw), 5)
+    # bytes the function needs: every valid flag, coords and batch of the
+    # valid rows only, the live prefix of ublocks, the non-sentinel table
+    # entries, the offsets and n_blocks, and the whole (N, K) kmap out
+    n, k = c.shape[0], offs.shape[0]
+    n_valid = int(v.sum())
+    live_blocks = min(int(qt.n_blocks), qt.ublocks.numel())
+    n_table = int((qt.tkey < max_blocks * morton.TABLE_SIZE).sum())
+    nbytes = (n + 16 * n_valid + 4 * live_blocks + 8 * n_table
+              + k * 3 * 4 + 4 + n * k * 4)
+    bound_ms = nbytes / PEAK_BYTES_S * 1e3
+    return got, {"rows": n, "voxels": n_valid, "blocks": int(qt.n_blocks),
+                 "hits": int((got >= 0).sum()), "ms": ms,
+                 "plain_ms": plain_ms, "bound_ms": bound_ms,
+                 "bytes": nbytes, "share_of_bound": bound_ms / ms}
+
+
 def phase_octent(dev, scene, cfg):
     """Kernel 1 at the 5 query shapes of one served request, one per
     resolution, from the plans ``build_plans`` builds: each bit-equal to
@@ -265,9 +318,6 @@ def phase_octent(dev, scene, cfg):
     request."""
     import torch
     from repro_torch.core import mapsearch, morton
-    from repro_torch.kernels.octent import kernel as oct_kernel
-    from repro_torch.kernels.octent import ops as oct_ops
-    from repro_torch.kernels.octent.ref import octent_query_ref
     from repro_torch.models import minkunet
     plans = minkunet.build_plans(scene.coords, scene.batch, scene.valid, cfg,
                                  device=dev)
@@ -276,17 +326,10 @@ def phase_octent(dev, scene, cfg):
         (d.out_coords, d.out_batch, d.out_valid) for d in plans.down]
     check(len(levels) == len(plans.subm) == 5,
           f"{len(levels)} resolutions, {len(plans.subm)} Subm3 plans")
-    offs = torch.as_tensor(morton.subm3_offsets(), device=dev)
     kw = dict(grid_bits=cfg.grid_bits, batch_bits=cfg.batch_bits)
     shapes = []
     for res, (c, b, v) in enumerate(levels):
-        qt = oct_ops.build_query_table(c, b, v, max_blocks=BUCKET, **kw)
-        args = (c, b, v, offs, qt.ublocks, qt.tkey, qt.tval, qt.n_blocks)
-        got = oct_kernel.octent_query(*args, **kw)
-        want = octent_query_ref(*args, **kw)
-        torch.cuda.synchronize()
-        check(torch.equal(got, want),
-              f"octent_query differs from its plain version at res {res}")
+        got, rec = _octent_shape(c, b, v, BUCKET, kw, f"res {res}")
         check(torch.equal(got, plans.subm[res].kmap),
               f"octent_query differs from the plan's kmap at res {res}")
         if res == 0:
@@ -298,24 +341,7 @@ def phase_octent(dev, scene, cfg):
                                              morton.subm3_offsets())
             check(np.array_equal(got.cpu().numpy()[rows], host[rows]),
                   "octent_query differs from the host hash oracle")
-        ms = time_ms(lambda: oct_kernel.octent_query(*args, **kw), 50)
-        plain_ms = time_ms(lambda: octent_query_ref(*args, **kw), 5)
-        # bytes the function needs: every valid flag, coords and batch of
-        # the valid rows only, the live prefix of ublocks, the non-sentinel
-        # table entries, the offsets and n_blocks, and the whole (N, K)
-        # kmap out
-        n, k = c.shape[0], offs.shape[0]
-        n_valid = int(v.sum())
-        live_blocks = min(int(qt.n_blocks), qt.ublocks.numel())
-        n_table = int((qt.tkey < BUCKET * morton.TABLE_SIZE).sum())
-        nbytes = (n + 16 * n_valid + 4 * live_blocks + 8 * n_table
-                  + k * 3 * 4 + 4 + n * k * 4)
-        bound_ms = nbytes / PEAK_BYTES_S * 1e3
-        shapes.append({"res": res, "rows": n, "voxels": n_valid,
-                       "blocks": int(qt.n_blocks),
-                       "hits": int((got >= 0).sum()), "ms": ms,
-                       "plain_ms": plain_ms, "bound_ms": bound_ms,
-                       "bytes": nbytes, "share_of_bound": bound_ms / ms})
+        shapes.append({"res": res, **rec})
     tot = {key: sum(sh[key] for sh in shapes)
            for key in ("ms", "plain_ms", "bound_ms")}
     emit(phase="octent_query", equal_to_plain=True,
@@ -412,11 +438,9 @@ def _bound(flops, nbytes):
 
 def layer_shapes(dev, scene, cfg):
     """The scene's plans, the 25 layers of one forward, and the seeded
-    inputs of each distinct layer shape, in forward order: features with
-    dead tiles and dead Cin blocks, weights, and for Subm3 shapes an
-    epilogue. Deterministic: every call draws the same inputs."""
+    inputs of each distinct layer shape (``seeded_shapes``, with an
+    epilogue for the Subm3 shapes)."""
     import torch
-    from repro_torch.kernels.spconv_gemm import ops as sg_ops
     from repro_torch.models import minkunet
     plans = minkunet.build_plans(scene.coords, scene.batch, scene.valid, cfg,
                                  device=dev)
@@ -424,6 +448,17 @@ def layer_shapes(dev, scene, cfg):
         d.out_valid for d in plans.down]
     layers = model_layers(cfg, plans, valids)
     check(len(layers) == 25, f"expected 25 layers, got {len(layers)}")
+    return layers, seeded_shapes(dev, layers, epilogue=True)
+
+
+def seeded_shapes(dev, layers, *, epilogue: bool):
+    """The seeded inputs of each distinct shape of ``layers`` ((name, plan,
+    in_valid, out_valid, Cin, Cout, is_subm), in forward order): features
+    with dead tiles and dead Cin blocks, weights, and with ``epilogue`` an
+    epilogue for the Subm3 shapes. Deterministic: every call draws the
+    same inputs."""
+    import torch
+    from repro_torch.kernels.spconv_gemm import ops as sg_ops
     gen = torch.Generator(device=dev).manual_seed(SEED)
     rng = np.random.default_rng(SEED)
     shapes = {}
@@ -440,7 +475,7 @@ def layer_shapes(dev, scene, cfg):
         w = torch.randn((k, cin, cout), generator=gen, device=dev) \
             * (2.0 / (k * cin)) ** 0.5
         epi = None
-        if subm:
+        if subm and epilogue:
             epi = sg_ops.FusedEpilogue(
                 scale=torch.rand(cout, generator=gen, device=dev) + 0.5,
                 shift=torch.rand(cout, generator=gen, device=dev) - 0.5,
@@ -448,98 +483,108 @@ def layer_shapes(dev, scene, cfg):
         shapes[key] = {"layers": [name], "plan": plan, "vout": vout,
                        "cin": cin, "cout": cout, "k": k, "bk": bk, "f": f,
                        "w": w, "epi": epi}
-    return layers, list(shapes.values())
+    return list(shapes.values())
 
 
-def phase_gemm(dev, scene, cfg):
-    """Kernel 2 at every distinct layer shape of the model on the scene's
-    plans, in both modes, against its plain version, on features with
-    dead tiles and dead Cin blocks so that both skip branches run."""
+def _gemm_shape(dev, shp):
+    """Kernel 2 at one layer shape (``layer_shapes``' record), in both
+    modes where the shape has an epilogue, against its plain version: the
+    error, ms, plain ms, the bound of the work this data needs, and the
+    work plan (CTAs, split blocks) with the planning kernel held to its
+    plain version bit for bit."""
     import torch
     from repro_torch.core import sparsity
     from repro_torch.kernels.spconv_gemm import kernel as sg_kernel
     from repro_torch.kernels.spconv_gemm import ops as sg_ops
     from repro_torch.kernels.spconv_gemm.kernel import spconv_gemm_fused
     from repro_torch.kernels.spconv_gemm.ref import spconv_gemm_fused_ref
+    name, plan, vout = shp["layers"][0], shp["plan"], shp["vout"]
+    cin, cout, k, bk = shp["cin"], shp["cout"], shp["k"], shp["bk"]
+    f, w = shp["f"], shp["w"]
+    row_nz = sparsity.row_nonzero(f)
+    blk_nz = sparsity.row_block_nonzero(f, bk) & row_nz[:, None]
+    gidx = plan.tiles.gather_idx.long()
+    live_slot = plan.tiles.slot_valid & row_nz[gidx]
+    live = int(live_slot.sum())
+    # work this data needs: the live Cin blocks of each live map, and
+    # the live blocks of the feature rows read once
+    live_blocks = int((blk_nz[gidx] & live_slot[:, None]).sum())
+    flops = 2.0 * live_blocks * bk * cout
+    nbytes = 4.0 * (int(blk_nz.sum()) * bk + k * cin * cout
+                    + int(vout.sum()) * cout) + 8.0 * live
+    rec = {"layers": shp["layers"], "cin": cin, "cout": cout, "taps": k,
+           "bk": bk, "live_maps": live, **_bound(flops, nbytes)}
+    modes = [("plain", None)]
+    if shp["epi"] is not None:
+        modes.append(("epilogue", shp["epi"]))
+    for mode, epi in modes:
+        args, kw = sg_ops.kernel_inputs(f, w, plan.tiles,
+                                        n_out=plan.n_out, row_nz=row_nz,
+                                        epilogue=epi)
+        tile_nz, tile_bk_nz = args[5], args[7]
+        # the wrapper's work plan at this shape, the planning kernel
+        # held to its plain version
+        n_blocks, n_slabs = kw["n_out_pad"] // kw["bo"], -(-cout // 128)
+        n_ctas, busy_min = sg_kernel.plan_shape(
+            n_blocks, n_slabs, sg_kernel.sm_count(dev),
+            sg_kernel.MAX_SPLITS)
+        pkw = dict(n_blocks=n_blocks, n_ctas=n_ctas, busy_min=busy_min,
+                   max_splits=sg_kernel.MAX_SPLITS)
+        work, blk = sg_kernel.split_plan(plan.tiles.tile_ob, tile_nz,
+                                         **pkw)
+        want_work, want_blk = sg_kernel.split_plan_ref(
+            plan.tiles.tile_ob, tile_nz, **pkw)
+        check(torch.equal(work, want_work) and torch.equal(blk, want_blk),
+              f"{name}: split_plan differs from its plain version")
+        busy = (work[:, 0] >= 0) & (work[:, 2] > work[:, 1])
+        rec["plan"] = {
+            "ctas_launched": n_ctas * n_slabs,
+            "ctas_with_tiles": int(busy.sum()) * n_slabs,
+            "live_blocks": int(torch.unique(work[busy, 0]).numel()),
+            "split_blocks": int((blk[:, 1] > 1).sum()),
+            "most_ctas_per_block": int(blk[:, 1].max())}
+        rec["dead_tiles"] = int(((plan.tiles.tile_nz != 0)
+                                 & (tile_nz == 0)).sum())
+        rec["dead_blocks_in_live_tiles"] = int(
+            ((tile_nz != 0)[:, None] & (tile_bk_nz == 0)).sum())
+        check(rec["dead_tiles"] > 0,
+              f"{name}: no dead tile, the tile skip is not exercised")
+        check(cin == bk or rec["dead_blocks_in_live_tiles"] > 0,
+              f"{name}: no dead Cin block in a live tile, the block "
+              f"skip is not exercised")
+        got = spconv_gemm_fused(*args, **kw)
+        want = spconv_gemm_fused_ref(*args, **kw)
+        torch.cuda.synchronize()
+        if epi is not None:
+            (got, nz), (want, _) = got, want
+            sweep = (got.reshape(got.shape[0], -1, 128) != 0).any(-1)
+            check(torch.equal(nz, sweep.int()),
+                  f"{name}: epilogue liveness is not a sweep of the "
+                  f"kernel's own output")
+        err = (got - want).abs().max().item()
+        ref_max = want.abs().max().item()
+        check(err <= TOL_KERNEL * max(ref_max, 1e-30),
+              f"{name} ({mode}): max|k-p| {err} > {TOL_KERNEL} * "
+              f"{ref_max}")
+        rec[mode] = {
+            "max_abs_err": err, "ref_max": ref_max,
+            "ms": time_ms(lambda: spconv_gemm_fused(*args, **kw), 10),
+            "plain_ms": time_ms(
+                lambda: spconv_gemm_fused_ref(*args, **kw), 3)}
+    rec["tflops"] = rec["flops"] / rec["plain"]["ms"] / 1e9
+    rec["share_of_bound"] = rec["bound_ms"] / rec["plain"]["ms"]
+    return rec
+
+
+def phase_gemm(dev, scene, cfg):
+    """Kernel 2 at every distinct layer shape of the model on the scene's
+    plans, in both modes, against its plain version, on features with
+    dead tiles and dead Cin blocks so that both skip branches run."""
     layers, shapes = layer_shapes(dev, scene, cfg)
     per_shape = {}
     for shp in shapes:
-        name, plan, vout = shp["layers"][0], shp["plan"], shp["vout"]
-        cin, cout, k, bk = shp["cin"], shp["cout"], shp["k"], shp["bk"]
-        f, w = shp["f"], shp["w"]
-        row_nz = sparsity.row_nonzero(f)
-        blk_nz = sparsity.row_block_nonzero(f, bk) & row_nz[:, None]
-        gidx = plan.tiles.gather_idx.long()
-        live_slot = plan.tiles.slot_valid & row_nz[gidx]
-        live = int(live_slot.sum())
-        # work this data needs: the live Cin blocks of each live map, and
-        # the live blocks of the feature rows read once
-        live_blocks = int((blk_nz[gidx] & live_slot[:, None]).sum())
-        flops = 2.0 * live_blocks * bk * cout
-        nbytes = 4.0 * (int(blk_nz.sum()) * bk + k * cin * cout
-                        + int(vout.sum()) * cout) + 8.0 * live
-        rec = {"layers": shp["layers"], "cin": cin, "cout": cout, "taps": k,
-               "bk": bk, "live_maps": live, **_bound(flops, nbytes)}
-        modes = [("plain", None)]
-        if shp["epi"] is not None:
-            modes.append(("epilogue", shp["epi"]))
-        for mode, epi in modes:
-            args, kw = sg_ops.kernel_inputs(f, w, plan.tiles,
-                                            n_out=plan.n_out, row_nz=row_nz,
-                                            epilogue=epi)
-            tile_nz, tile_bk_nz = args[5], args[7]
-            # the wrapper's work plan at this shape, the planning kernel
-            # held to its plain version
-            n_blocks, n_slabs = kw["n_out_pad"] // kw["bo"], -(-cout // 128)
-            n_ctas, busy_min = sg_kernel.plan_shape(
-                n_blocks, n_slabs, sg_kernel.sm_count(dev),
-                sg_kernel.MAX_SPLITS)
-            pkw = dict(n_blocks=n_blocks, n_ctas=n_ctas, busy_min=busy_min,
-                       max_splits=sg_kernel.MAX_SPLITS)
-            work, blk = sg_kernel.split_plan(plan.tiles.tile_ob, tile_nz,
-                                             **pkw)
-            want_work, want_blk = sg_kernel.split_plan_ref(
-                plan.tiles.tile_ob, tile_nz, **pkw)
-            check(torch.equal(work, want_work) and torch.equal(blk, want_blk),
-                  f"{name}: split_plan differs from its plain version")
-            busy = (work[:, 0] >= 0) & (work[:, 2] > work[:, 1])
-            rec["plan"] = {
-                "ctas_launched": n_ctas * n_slabs,
-                "ctas_with_tiles": int(busy.sum()) * n_slabs,
-                "live_blocks": int(torch.unique(work[busy, 0]).numel()),
-                "split_blocks": int((blk[:, 1] > 1).sum()),
-                "most_ctas_per_block": int(blk[:, 1].max())}
-            rec["dead_tiles"] = int(((plan.tiles.tile_nz != 0)
-                                     & (tile_nz == 0)).sum())
-            rec["dead_blocks_in_live_tiles"] = int(
-                ((tile_nz != 0)[:, None] & (tile_bk_nz == 0)).sum())
-            check(rec["dead_tiles"] > 0,
-                  f"{name}: no dead tile, the tile skip is not exercised")
-            check(cin == bk or rec["dead_blocks_in_live_tiles"] > 0,
-                  f"{name}: no dead Cin block in a live tile, the block "
-                  f"skip is not exercised")
-            got = spconv_gemm_fused(*args, **kw)
-            want = spconv_gemm_fused_ref(*args, **kw)
-            torch.cuda.synchronize()
-            if epi is not None:
-                (got, nz), (want, _) = got, want
-                sweep = (got.reshape(got.shape[0], -1, 128) != 0).any(-1)
-                check(torch.equal(nz, sweep.int()),
-                      f"{name}: epilogue liveness is not a sweep of the "
-                      f"kernel's own output")
-            err = (got - want).abs().max().item()
-            ref_max = want.abs().max().item()
-            check(err <= TOL_KERNEL * max(ref_max, 1e-30),
-                  f"{name} ({mode}): max|k-p| {err} > {TOL_KERNEL} * "
-                  f"{ref_max}")
-            rec[mode] = {
-                "max_abs_err": err, "ref_max": ref_max,
-                "ms": time_ms(lambda: spconv_gemm_fused(*args, **kw), 10),
-                "plain_ms": time_ms(
-                    lambda: spconv_gemm_fused_ref(*args, **kw), 3)}
-        rec["tflops"] = rec["flops"] / rec["plain"]["ms"] / 1e9
-        rec["share_of_bound"] = rec["bound_ms"] / rec["plain"]["ms"]
-        per_shape[name] = rec
+        rec = _gemm_shape(dev, shp)
+        per_shape[shp["layers"][0]] = rec
         emit(phase="spconv_gemm_fused", **rec)
     # per request: every layer of one forward at its shape's time
     total = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "ops_ms": 0.0,
@@ -1074,12 +1119,10 @@ def phase_lm_reference(dev, cfg, params):
     torch.cuda.empty_cache()
 
 
-def _seeded_model(cfg, dev):
-    """MinkUNet with seeded random weights and batch-norm statistics."""
+def _seed_bn(model, gen):
+    """Seeded batch-norm scales, biases and running statistics."""
     import torch
     from repro_torch.models import minkunet
-    gen = torch.Generator().manual_seed(SEED)
-    model = minkunet.MinkUNet(cfg, device=dev, generator=gen)
     with torch.no_grad():
         for mod in model.modules():
             if isinstance(mod, minkunet.BatchNorm):
@@ -1088,6 +1131,14 @@ def _seeded_model(cfg, dev):
                                   (mod.mean, -0.2, 0.2), (mod.var, 0.5, 2.0)):
                     t.copy_(torch.empty(c).uniform_(lo, hi, generator=gen))
     return model
+
+
+def _seeded_model(cfg, dev):
+    """MinkUNet with seeded random weights and batch-norm statistics."""
+    import torch
+    from repro_torch.models import minkunet
+    gen = torch.Generator().manual_seed(SEED)
+    return _seed_bn(minkunet.MinkUNet(cfg, device=dev, generator=gen), gen)
 
 
 def _counts():
@@ -1260,6 +1311,54 @@ def _train_gate(lk, gk, k_masks, sizes, plain, pinned):
                if not r[k] <= lim]
 
 
+def _relu_hooks(masks, sizes=None):
+    """``(sparse, dense)`` ReLUs that record each output's nonzero mask
+    (and, with ``sizes``, the valid outputs of a sparse layer and all of a
+    dense one) in call order."""
+    from repro_torch.core import spconv
+    from repro_torch.models import second
+    sparse_relu, dense_relu = spconv.relu, second.rpn_relu
+
+    def sparse(st):
+        out = sparse_relu(st)
+        masks.append(out.feats != 0)
+        if sizes is not None:
+            sizes.append(int(st.valid.sum()) * st.feats.shape[1])
+        return out
+
+    def dense(x):
+        out = dense_relu(x)
+        masks.append(out != 0)
+        if sizes is not None:
+            sizes.append(out.numel())
+        return out
+
+    return sparse, dense
+
+
+@contextlib.contextmanager
+def _relus(hooks):
+    """Run with ``(sparse, dense)`` in place of ``spconv.relu`` and
+    ``second.rpn_relu``."""
+    from repro_torch.core import spconv
+    from repro_torch.models import second
+    saved = spconv.relu, second.rpn_relu
+    spconv.relu, second.rpn_relu = hooks
+    try:
+        yield
+    finally:
+        spconv.relu, second.rpn_relu = saved
+
+
+def _pinned_relus(masks):
+    """``(sparse, dense)`` ReLUs that apply the recorded masks in order."""
+    import torch
+    it = iter(masks)
+    return (lambda st: st.replace_feats(torch.where(next(it), st.feats,
+                                                    0.0)),
+            lambda x: torch.where(next(it), x, 0.0))
+
+
 def phase_train(dev, cfg):
     """The training path: ``run_spconv_demo`` over MinkUNet-large on one
     indoor scene of the bucket (the kernels, a checkpoint after every
@@ -1276,7 +1375,6 @@ def phase_train(dev, cfg):
     import tempfile
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.core import spconv
     from repro_torch.data import pointcloud
     from repro_torch.launch import train
     from repro_torch.models import minkunet
@@ -1324,40 +1422,24 @@ def phase_train(dev, cfg):
     plans = minkunet.build_plans(batch["coords"], batch["batch"],
                                  batch["valid"], cfg, device=dev)
     params = {k: v.detach().clone() for k, v in model.state_dict().items()}
-    relu = spconv.relu
 
-    def recording(masks, sizes=None):
-        def fn(st):
-            out = relu(st)
-            masks.append(out.feats != 0)
-            if sizes is not None:
-                sizes.append(int(st.valid.sum()) * st.feats.shape[1])
-            return out
-        return fn
-
-    def pinning(masks):
-        it = iter(masks)
-        return lambda st: st.replace_feats(torch.where(next(it), st.feats,
-                                                       0.0))
-
-    def run(impl, relu_fn, tf32=False):
-        spconv.relu = relu_fn
+    def run(impl, hooks, tf32=False):
         torch.backends.cuda.matmul.allow_tf32 = tf32
         try:
-            loss, _, grads = train.loss_and_grads(model, params, batch,
-                                                  plans=plans, impl=impl)
+            with _relus(hooks):
+                loss, _, grads = train.loss_and_grads(model, params, batch,
+                                                      plans=plans, impl=impl)
             return loss, grads
         finally:
-            spconv.relu = relu
             torch.backends.cuda.matmul.allow_tf32 = False
 
     def plain(tf32=False):
         masks = []
-        lu, gu = run("ref", recording(masks), tf32)
-        return (lu, gu, masks), run("ref", pinning(k_masks), tf32)[1]
+        lu, gu = run("ref", _relu_hooks(masks), tf32)
+        return (lu, gu, masks), run("ref", _pinned_relus(k_masks), tf32)[1]
 
     k_masks, sizes = [], []
-    lk, gk = run("kernel", recording(k_masks, sizes))
+    lk, gk = run("kernel", _relu_hooks(k_masks, sizes))
     check(len(k_masks) == n_layers,
           f"train: {len(k_masks)} ReLU calls, want {n_layers}")
     gate, broken = _train_gate(lk, gk, k_masks, sizes, *plain())
@@ -1434,6 +1516,369 @@ def phase_train(dev, cfg):
     return counts[0], counts[1], k2_ms
 
 
+def _second_layers(cfg, st, gconv3, subm):
+    """The kernel-2 layers of one SECOND forward as (name, plan, in_valid,
+    out_valid, Cin, Cout, is_subm): the output-stationary Gconv3 of every
+    stage after the first, then the stage's Subm3 blocks."""
+    layers, vin, c_prev = [], st.valid, cfg.in_ch
+    for i, c in enumerate(cfg.channels):
+        g, vout = gconv3[i], gconv3[i].out_valid
+        if i > 0:
+            layers.append((f"stage{i}.down", g, vin, vout, c_prev, c, False))
+        layers += [(f"stage{i}.block{b}", subm[i], vout, vout, c, c, True)
+                   for b in range(cfg.blocks)]
+        vin, c_prev = vout, c
+    return layers
+
+
+def phase_second(dev):
+    """The detection path: SECOND-large (``second.LARGE``, seeded weights
+    and batch-norm statistics) on two LiDAR scans in one bucket of
+    SECOND_BUCKET rows. Its first forward is the main path, with the
+    launch counts set to 0 just before and read just after: kernel 1 once
+    a stage, kernel 2 at the 6 Subm3 layers and the output-stationary
+    Gconv3 of stages 1 and 2, 6 map searches plus one probe for each
+    stage whose output budget overflows (a second forward starts at the
+    memoized budgets: 6). Then: ``cls`` / ``box`` against an
+    ``impl="ref"`` forward (plain search and plain gather-GEMM) from the
+    same empty capacity memo, over the whole grid and over its interior,
+    the same budgets tried and replans, every plan's kmap, budget and true
+    output count against the plain forward's; the voxels ``to_bev``
+    clips; kernel 1 at the 3 Subm3 coordinate sets and kernel 2 at the 8
+    layer shapes against their plain versions; plan build and forward ms
+    (one warm forward, three timed); one forward under ``torch.profiler``;
+    one ``detection_loss`` step through the kernels against the plain
+    versions under ``_train_gate``, which a plain step in TF32 must fail;
+    peak device memory."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import plan as planlib
+    from repro_torch.core.spconv import SparseTensor
+    from repro_torch.data import pointcloud
+    from repro_torch.models import second
+    from repro_torch.runtime import guard
+    t_phase = time.perf_counter()
+    cfg = second.LARGE
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    vb = pointcloud.make_batch(np.random.default_rng(SEED), "lidar",
+                               cfg.n_batch, SECOND_BUCKET,
+                               voxel_size=LIDAR_VOXEL)
+    st = SparseTensor(*(torch.as_tensor(a, device=dev) for a in (
+        vb.coords, vb.batch, vb.valid, vb.feats)))
+    gen = torch.Generator().manual_seed(SEED)
+    model = _seed_bn(second.SECOND(cfg, device=dev, generator=gen), gen)
+    n_stages = len(cfg.channels)
+    n_gemm = n_stages * cfg.blocks + n_stages - 1
+
+    # every Subm3 and Gconv3 plan the forwards build or fetch, and each
+    # Gconv3 build tried: (input rows, budget, rows needed on overflow)
+    built, tried = {"subm3": [], "gconv3": []}, []
+    orig = {k: getattr(planlib, f"{k}_plan") for k in built}
+
+    def recording(kind):
+        def fn(*args, **kw):
+            try:
+                plan = orig[kind](*args, **kw)
+            except planlib.CapacityOverflow as e:
+                tried.append((args[0].shape[0], kw["out_budget"], e.needed))
+                raise
+            if kind == "gconv3":
+                tried.append((args[0].shape[0], kw["out_budget"], None))
+            built[kind].append(plan)
+            return plan
+        return fn
+
+    def unique(plans):
+        return list({id(p): p for p in plans}.values())
+
+    def sync_ms(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3, out
+
+    def kernel_and_plain(s):
+        """The first kernel forward of ``s``, with the counts set to 0 just
+        before and read just after; a plain forward from the same empty
+        capacity memo; then a second kernel forward, which starts at the
+        memoized budgets. Outputs, plans, counts and the Gconv3 builds
+        each of the first two tried."""
+        def first(impl):
+            tried.clear()
+            for v in built.values():
+                v.clear()
+            guard._CAPACITY_HINTS.clear()
+            _reset_counts()
+            guard.REPLANS[0] = 0
+            ms, out = sync_ms(lambda: model(s, impl=impl))
+            return {"ms": ms, "out": out, "counts": _counts(),
+                    "replans": guard.REPLANS[0], "tried": list(tried),
+                    "plans": {k: unique(v) for k, v in built.items()}}
+
+        res, ref = first(None), first("ref")
+        searches = planlib.MAPSEARCH_CALLS[0]
+        model(s)
+        res.update(kplans=res.pop("plans"), rplans=ref["plans"],
+                   ref_ms=ref["ms"], ref_out=ref["out"],
+                   ref_counts=ref["counts"], ref_replans=ref["replans"],
+                   ref_tried=ref["tried"],
+                   again_searches=planlib.MAPSEARCH_CALLS[0] - searches)
+        return res
+
+    def held(label, res):
+        """The launches, searches and replans of the kernel forward; every
+        kmap, budget and true output count against the plain forward's;
+        ``cls`` / ``box`` within TOL_LOGITS of the plain max over the whole
+        grid, and over the interior cells (those the RPN's two 3x3
+        convolutions carry no clipped edge row or column into) within
+        TOL_LOGITS of the interior's own max: ``to_bev`` piles every voxel
+        beyond the grid onto the edge, whose logits set the whole grid's
+        max. Returns the stages' records and the errors."""
+        counts, kplans, rplans = res["counts"], res["kplans"], res["rplans"]
+        probes = sum(1 for t in res["tried"] if t[2] is not None)
+        check(counts[0] == n_stages and counts[1] == n_gemm
+              and counts[2] == 0,
+              f"{label}: (octent, gemm, epilogue) launches = {counts[:3]}, "
+              f"want ({n_stages}, {n_gemm}, 0)")
+        check(counts[3] == 2 * n_stages + probes
+              and res["replans"] == probes
+              and res["again_searches"] == 2 * n_stages,
+              f"{label}: {counts[3]} searches and {res['replans']} replans "
+              f"with {probes} probes, then {res['again_searches']} searches")
+        check(res["ref_tried"] == res["tried"]
+              and res["ref_replans"] == res["replans"]
+              and res["ref_counts"][3] == counts[3],
+              f"{label}: the plain forward tried {res['ref_tried']}, the "
+              f"kernel forward {res['tried']}")
+        check(all(len(p) == n_stages for p in (*kplans.values(),
+                                               *rplans.values())),
+              f"{label}: plans {[len(p) for p in kplans.values()]}")
+        for kind in ("gconv3", "subm3"):
+            for i, (pk, pr) in enumerate(zip(kplans[kind], rplans[kind])):
+                check(torch.equal(pk.kmap, pr.kmap) and pk.n_out == pr.n_out,
+                      f"{label}: stage {i} {kind} kmap or budget differs "
+                      f"from the plain search's")
+        stages = []
+        for i, (g, pr) in enumerate(zip(kplans["gconv3"], rplans["gconv3"])):
+            rows = g.maps.in_idx.shape[0] // 8
+            check(int(g.maps.n_true) == int(pr.maps.n_true),
+                  f"{label}: stage {i} n_true differs")
+            stages.append({
+                "stage": i, "rows_in": rows, "budget": g.n_out,
+                "n_true": int(g.maps.n_true),
+                "voxels_out": int(g.out_valid.sum()),
+                "replans": sum(1 for t in res["tried"]
+                               if t[0] == rows and t[2] is not None),
+                "dataflow": "input_stationary" if i == 0
+                else "output_stationary"})
+        errs = {}
+        for name, got, want in zip(("cls", "box"), res["out"],
+                                   res["ref_out"]):
+            scale = float(want.abs().max())
+            err = float((got - want).abs().max())
+            check(bool(torch.isfinite(got).all()) and scale > 0
+                  and err <= TOL_LOGITS * scale,
+                  f"{label}: max|{name} kernel - plain| {err} > "
+                  f"{TOL_LOGITS} * {scale}")
+            inner = cfg.bev_hw - 3
+            gi, wi = got[:, :inner, :inner], want[:, :inner, :inner]
+            iscale = float(wi.abs().max())
+            ierr = float((gi - wi).abs().max())
+            nz = wi.abs()[wi != 0]
+            check(iscale > 0 and ierr <= TOL_LOGITS * iscale,
+                  f"{label}: interior max|{name} kernel - plain| {ierr} > "
+                  f"{TOL_LOGITS} * {iscale}")
+            errs[name] = {"max_abs_err": err, "max_abs": scale,
+                          "interior_cells": f"[:, :{inner}, :{inner}]",
+                          "interior_max_abs_err": ierr,
+                          "interior_max_abs": iscale,
+                          "interior_limit": TOL_LOGITS * iscale,
+                          "interior_median_abs_nonzero":
+                              float(nz.median()) if nz.numel() else 0.0,
+                          "interior_nonzero_share": nz.numel() / wi.numel()}
+        return probes, stages, errs
+
+    planlib.subm3_plan = recording("subm3")
+    planlib.gconv3_plan = recording("gconv3")
+    try:
+        main = kernel_and_plain(st)
+        probes, stages, errs = held("second", main)
+        # buckets whose Gconv3 budgets overflow: the replan on the card
+        replan = []
+        for rows in SECOND_REPLAN_BUCKETS:
+            vr = pointcloud.make_batch(np.random.default_rng(SEED), "lidar",
+                                       cfg.n_batch, rows,
+                                       voxel_size=LIDAR_VOXEL)
+            res = kernel_and_plain(SparseTensor(*(torch.as_tensor(
+                a, device=dev) for a in (vr.coords, vr.batch, vr.valid,
+                                         vr.feats))))
+            n_probes, r_stages, r_errs = held(f"second bucket {rows}", res)
+            check(n_probes > 0, f"second: bucket {rows} never replanned")
+            replan.append({"bucket": rows, "probes": n_probes,
+                           "searches": res["counts"][3],
+                           "plain_searches": res["ref_counts"][3],
+                           "searches_again": res["again_searches"],
+                           "stages": r_stages, "kernel_vs_plain": r_errs,
+                           "builds_tried": [
+                               {"rows": r, "budget": b, "overflow_needed": n}
+                               for r, b, n in res["tried"]]})
+            del res, vr
+    finally:
+        planlib.subm3_plan, planlib.gconv3_plan = (orig["subm3"],
+                                                   orig["gconv3"])
+    counts, kplans = main["counts"], main["kplans"]
+    first_ms, ref_ms = main["ms"], main["ref_ms"]
+    first_tried = main["tried"]
+    # what to_bev clips: the last stage's voxels beyond the BEV grid
+    last = kplans["gconv3"][-1]
+    oc, ov = last.out_coords, last.out_valid
+    edge = ov & ((oc[:, 0] > cfg.bev_hw - 1) | (oc[:, 1] > cfg.bev_hw - 1))
+    bev_clip = {"voxels": int(ov.sum()),
+                "clipped_onto_edge": int(edge.sum()),
+                "clipped_in_z": int((ov & (oc[:, 2] > cfg.bev_z - 1)).sum())}
+
+    # plan build and forward: fresh caches, then one holding the plans
+    fresh = [sync_ms(lambda: model(st))[0] for _ in range(3)]
+    cache = planlib.PlanCache()
+    model(st, cache=cache)
+    searches = planlib.MAPSEARCH_CALLS[0]
+    cached = [sync_ms(lambda: model(st, cache=cache))[0] for _ in range(3)]
+    check(planlib.MAPSEARCH_CALLS[0] == searches,
+          "second: a forward through a full cache searched")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        prof_ms, _ = sync_ms(lambda: model(st))
+    rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA),
+                  key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows)
+    k2_prof = sum(r[1] for r in rows if "spconv_" in r[0])
+    check(sum(r[2] for r in rows if "spconv_gemm_fused_kernel" in r[0])
+          == n_gemm, f"second: the profiled forward ran kernel 2 "
+                     f"{[r for r in rows if 'spconv_' in r[0]]}")
+
+    # kernel 1 at the 3 Subm3 coordinate sets, kernel 2 at the 8 layers
+    kw = dict(grid_bits=cfg.grid_bits, batch_bits=cfg.batch_bits)
+    k1_shapes = []
+    for i, (g, s) in enumerate(zip(kplans["gconv3"], kplans["subm3"])):
+        got, rec = _octent_shape(g.out_coords, g.out_batch, g.out_valid,
+                                 g.n_out, kw, f"second stage {i}")
+        check(torch.equal(got, s.kmap),
+              f"second: octent_query differs from stage {i}'s kmap")
+        k1_shapes.append({"stage": i, **rec})
+    layers = _second_layers(cfg, st, kplans["gconv3"], kplans["subm3"])
+    check(len(layers) == n_gemm, f"second: {len(layers)} kernel-2 layers")
+    k2_shapes = []
+    for shp in seeded_shapes(dev, layers, epilogue=False):
+        rec = _gemm_shape(dev, shp)
+        emit(phase="second.spconv_gemm_fused", **rec)
+        k2_shapes.append(rec)
+
+    # one detection_loss step, kernels against plain versions
+    hw, g2 = cfg.bev_hw, torch.Generator(device=dev).manual_seed(SEED)
+    batch = {"coords": st.coords, "batch": st.batch, "valid": st.valid,
+             "feats": st.feats,
+             "objectness": (torch.rand((cfg.n_batch, hw, hw), generator=g2,
+                                       device=dev) < 0.05).float(),
+             "boxes": torch.randn((cfg.n_batch, hw, hw, cfg.box_dim),
+                                  generator=g2, device=dev)}
+    def run(impl, hooks, tf32=False):
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        torch.backends.cudnn.allow_tf32 = tf32
+        try:
+            with _relus(hooks):
+                loss, _, grads = second.loss_and_grads(model, batch,
+                                                       impl=impl)
+            return loss, grads
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+
+    def plain(tf32=False):
+        masks = []
+        lu, gu = run("ref", _relu_hooks(masks), tf32)
+        return (lu, gu, masks), run("ref", _pinned_relus(k_masks), tf32)[1]
+
+    k_masks, sizes = [], []
+    _reset_counts()
+    step_ms, (lk, gk) = sync_ms(lambda: run("kernel",
+                                            _relu_hooks(k_masks, sizes)))
+    step_counts = _counts()
+    check(step_counts[0] == n_stages and step_counts[1] == n_gemm,
+          f"second: loss step launches {step_counts[:2]}")
+    n_relu = n_stages * (1 + cfg.blocks) + 2
+    check(len(k_masks) == n_relu,
+          f"second: {len(k_masks)} ReLU calls, want {n_relu}")
+    gate, broken = _train_gate(lk, gk, k_masks, sizes, *plain())
+    check(not broken, f"second: loss step kernel against plain: "
+                      f"{'; '.join(broken)}")
+    # the control: the plain step in TF32 (matmuls and the RPN's cuDNN
+    # convolutions) must fail the same gate
+    control, control_broken = _train_gate(lk, gk, k_masks, sizes,
+                                          *plain(tf32=True))
+    check(bool(control_broken), "second: the gate passed a plain step in "
+          f"TF32 (control): {control}")
+    del gk, k_masks
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    k1_ms = sum(r["ms"] for r in k1_shapes)
+    k2_tot = {key: sum(len(r["layers"]) * (r["plain"][key] if key in (
+        "ms", "plain_ms") else r[key]) for r in k2_shapes)
+              for key in ("ms", "plain_ms", "bound_ms", "ops_ms",
+                          "bytes_ms")}
+    emit(phase="second", config=cfg.name, bucket=SECOND_BUCKET,
+         voxels=int(vb.valid.sum()),
+         voxels_per_scan=[int((vb.valid & (vb.batch == b)).sum())
+                          for b in range(cfg.n_batch)],
+         launches={"octent_query": counts[0], "spconv_gemm_fused": counts[1],
+                   "mapsearch": counts[3], "split_plan": counts[5],
+                   "split_reduce": counts[4]},
+         probes=probes, replans=main["replans"], stages=stages,
+         builds_tried=[{"rows": r, "budget": b, "overflow_needed": n}
+                       for r, b, n in first_tried],
+         kernel_vs_plain={"tolerance": f"{TOL_LOGITS} * max|plain|, whole "
+                                       "grid and interior", **errs},
+         to_bev=bev_clip,
+         replan=replan,
+         first_forward_ms=first_ms, plain_forward_ms=ref_ms,
+         forward_ms=fresh, forward_cached_plans_ms=cached,
+         plan_build_ms=float(np.mean(fresh) - np.mean(cached)),
+         profile={"wall_ms": prof_ms, "device_busy_ms": busy,
+                  "idle_share": 1 - busy / prof_ms,
+                  "device_ops": sum(r[2] for r in rows),
+                  "kernel2_ms": k2_prof,
+                  "top10": [{"name": n[:80], "device_ms": ms, "calls": c}
+                            for n, ms, c in rows[:10]]},
+         octent_query={"shapes": k1_shapes, "ms_per_forward": k1_ms,
+                       "plain_ms_per_forward": sum(
+                           r["plain_ms"] for r in k1_shapes),
+                       "bound_ms_per_forward": sum(
+                           r["bound_ms"] for r in k1_shapes)},
+         spconv_gemm_fused_per_forward={"layers": n_gemm, **k2_tot},
+         loss_step={"ms": step_ms, "kernel_vs_plain": gate,
+                    "limits": {"loss_rel_err": TOL_TRAIN_LOSS,
+                               "worst_layer_flip_share": TOL_TRAIN_FLIPS[0],
+                               "flip_share": TOL_TRAIN_FLIPS[1],
+                               "worst_norm_ratio": TOL_TRAIN_NORM,
+                               "worst_grad_ratio": f"{TOL_TRAIN_GRAD} x its "
+                                                   "max |g|, pinned",
+                               "worst_zero_grad_ratio": f"{TOL_TRAIN_ZERO} x "
+                                                        "max |g|"},
+                    "control_tf32": {**control, "broken": control_broken},
+                    "relu_outputs": sizes,
+                    "launches": {"octent_query": step_counts[0],
+                                 "spconv_gemm_fused": step_counts[1]}},
+         peak_mem_gb=peak_gb, seconds=time.perf_counter() - t_phase)
+    del model, batch, st
+    torch.cuda.empty_cache()
+    return {"octent_query": counts[0], "spconv_gemm_fused": counts[1],
+            "octent_ms": k1_ms, "gemm_ms": k2_tot["ms"]}
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch is not beside this script; run "
@@ -1477,6 +1922,11 @@ def main() -> int:
     del model, results
     k1["train_launches"], k2["train_launches"], k2["train_ms_per_step"] = \
         phase_train(dev, cfg)
+    sec = phase_second(dev)
+    k1["second_launches"], k2["second_launches"] = (sec["octent_query"],
+                                                    sec["spconv_gemm_fused"])
+    k1["second_ms_per_forward"] = sec["octent_ms"]
+    k2["second_ms_per_forward"] = sec["gemm_ms"]
     flash = phase_flash(dev)
     lm_cfg, lm_params, fa_launches = phase_lm_serve(dev)
     phase_lm_reference(dev, lm_cfg, lm_params)

@@ -8,8 +8,10 @@ runs here. Every output is int32 and bit-identical to the reference.
 Map representation (gather form, output stationary):
     kmap : (N_out, K) int32 — input row feeding output i through tap k
            (-1 = no contribution)
-plus, for Gconv2/Tconv2, the scatter-form triples of :class:`StridedMaps`;
-:func:`strided_to_kmap` converts between the two.
+plus, for the strided layers (Gconv2, Gconv3, Tconv2), the scatter-form
+triples of :class:`StridedMaps`; :func:`strided_to_kmap` converts between
+the two, which switches a layer from the input-stationary dataflow to the
+output-stationary one.
 """
 from __future__ import annotations
 
@@ -103,8 +105,11 @@ def build_kmap_hash(coords: np.ndarray, batch: np.ndarray,
 class StridedMaps(NamedTuple):
     """Scatter-form rulebook for strided/transposed layers.
 
-    For Gconv2, features flow in_idx -> out_idx through weight tap ``tap``;
-    Tconv2 reuses the same structure with the roles swapped.
+    For Gconv2 and Gconv3, features flow in_idx -> out_idx through weight
+    tap ``tap``; Tconv2 reuses the same structure with the roles swapped.
+    Maps built under a static output budget (Gconv3) also carry the true
+    unique-output count ``n_true`` and ``overflow`` (n_true > budget: the
+    outputs were truncated); the other layers leave both None.
     """
 
     out_coords: torch.Tensor   # (N_out_max, 3) int32
@@ -115,6 +120,8 @@ class StridedMaps(NamedTuple):
     out_idx: torch.Tensor      # (M,) int32
     tap: torch.Tensor          # (M,) int32 weight tap
     mvalid: torch.Tensor       # (M,) bool
+    n_true: torch.Tensor | None = None     # () int32
+    overflow: torch.Tensor | None = None   # () bool
 
 
 def _gather_rep(rep: torch.Tensor, src: torch.Tensor, fill=0):
@@ -142,6 +149,53 @@ def build_maps_gconv2(coords: torch.Tensor, batch: torch.Tensor,
         in_idx=torch.arange(n, dtype=_I32, device=coords.device),
         out_idx=torch.where(valid, rank, 0).to(_I32),
         tap=morton.child_octant(coords).to(_I32), mvalid=valid)
+
+
+#: (8, 3) per-axis choice of each of an input's 8 Gconv3 candidates
+_CHOICE = [[(c >> 0) & 1, (c >> 1) & 1, (c >> 2) & 1] for c in range(8)]
+
+
+def build_maps_gconv3(coords: torch.Tensor, batch: torch.Tensor,
+                      valid: torch.Tensor, *, grid_bits: int = 7,
+                      batch_bits: int = 4,
+                      out_budget: int | None = None) -> StridedMaps:
+    """Gconv3 (k=3, s=2), input stationary.
+
+    Output site o receives input i through tap d iff ``2 * o + d ==
+    theta_i`` (d in {-1, 0, 1}^3): per axis an even coordinate takes d = 0
+    only and an odd one d = +-1, so each input emits at most 8 (out, tap)
+    candidates, enumerated statically (M = 8N). The unique outputs are kept
+    up to ``out_budget`` (None: 8N); candidates past it are dropped, and
+    ``n_true`` / ``overflow`` say so, for the plan to raise on.
+    """
+    n = coords.shape[0]
+    dev = coords.device
+    choice = torch.tensor(_CHOICE, dtype=_I32, device=dev)       # (8, 3)
+    odd = (coords & 1).to(_I32)                                    # (N, 3)
+    d = torch.where(odd[:, None, :] == 1, 2 * choice[None] - 1,
+                    torch.zeros((), dtype=_I32, device=dev))       # (N, 8, 3)
+    cand_ok = ((odd[:, None, :] == 1) | (choice[None] == 0)).all(dim=-1)
+    cand_ok &= valid[:, None]
+    out = (coords[:, None, :] - d) >> 1                            # (N, 8, 3)
+    tap = (d[..., 0] + 1) + 3 * (d[..., 1] + 1) + 9 * (d[..., 2] + 1)
+
+    out_flat = out.reshape(-1, 3)
+    ob = batch[:, None].expand(n, 8).reshape(-1)
+    hi = morton.block_key(out_flat, ob, grid_bits, batch_bits)
+    lo = morton.local_code(out_flat)
+    ok_flat = cand_ok.reshape(-1)
+    budget = out_budget if out_budget is not None else ok_flat.shape[0]
+    rep, n_out, rank = unique_pairs(hi, lo, ok_flat, budget)
+    ok_flat = ok_flat & (rank < budget)
+    out_coords, okv = _gather_rep(rep, out_flat)
+    out_batch, _ = _gather_rep(rep, ob)
+    return StridedMaps(
+        out_coords=out_coords.to(_I32), out_batch=out_batch.to(_I32),
+        out_valid=okv, n_out=n_out.clamp(max=budget),
+        in_idx=torch.arange(n, dtype=_I32, device=dev).repeat_interleave(8),
+        out_idx=torch.where(ok_flat, rank, 0).to(_I32),
+        tap=tap.reshape(-1).to(_I32), mvalid=ok_flat,
+        n_true=n_out, overflow=n_out > budget)
 
 
 def transpose_maps(maps: StridedMaps, target_coords: torch.Tensor,

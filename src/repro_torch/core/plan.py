@@ -145,8 +145,11 @@ def array_fingerprint(a) -> tuple | None:
 
 
 class CapacityOverflow(RuntimeError):
-    """A static capacity (the octree directory) is smaller than the scene
-    needs; the search would silently drop voxels, so it raises instead."""
+    """A static capacity is smaller than the scene needs: the octree
+    directory (``what="block_table"``) or the Gconv3 output budget
+    (``"candidates"``). The search would silently drop voxels or output
+    sites, so it raises instead; ``needed`` and ``capacity`` drive the
+    escalation of ``runtime.guard.with_replan``."""
 
     def __init__(self, what: str, msg: str, *, needed: int, capacity: int):
         super().__init__(msg)
@@ -160,12 +163,13 @@ class ConvPlan(NamedTuple):
 
     ``out_*`` are None for coordinate-preserving layers (outputs ==
     inputs); ``maps`` carries the scatter-form triples of strided layers so
-    Tconv2 can reuse them.
+    Tconv2 and the input-stationary Gconv3 can reuse them.
     """
 
-    kind: str                      # subm3 | gconv2 | tconv2
+    kind: str                      # subm3 | gconv2 | gconv3 | tconv2
     kmap: torch.Tensor             # (N_out, K) int32
-    tiles: sg_ops.TapTiles
+    tiles: sg_ops.TapTiles | None  # None for a plan built without tiles
+                                   # (input-stationary Gconv3)
     n_out: int                     # static output row budget
     n_taps: int
     out_coords: torch.Tensor | None
@@ -307,6 +311,21 @@ def _require_block_capacity(n_blocks: torch.Tensor, max_blocks: int) -> None:
             needed=needed, capacity=max_blocks)
 
 
+def _require_out_capacity(overflow: torch.Tensor, n_true: torch.Tensor,
+                          budget: int) -> None:
+    """Raise instead of silently truncating when the Gconv3 candidates
+    reach more output sites than the budget holds (one host read)."""
+    if bool(overflow):
+        needed = int(n_true)
+        raise CapacityOverflow(
+            "candidates",
+            f"gconv3 candidate budget overflow: the cloud produces {needed} "
+            f"downsampled output sites but out_budget={budget}; the "
+            f"overflowing sites would silently lose their maps — raise "
+            f"out_budget (or wrap the build in runtime.guard.with_replan)",
+            needed=needed, capacity=budget)
+
+
 def subm3_plan(coords, batch, valid, *, max_blocks: int, grid_bits: int = 7,
                batch_bits: int = 4, bm: int = 128, bo: int | None = None,
                search_impl: str | None = None,
@@ -354,6 +373,38 @@ def gconv2_plan(coords, batch, valid, *, grid_bits: int = 7,
         kmap = mapsearch.strided_to_kmap(maps, n_out=n, n_taps=8)
         tiles = sg_ops.build_tap_tiles(kmap, bm=bm, bo=bo)
         return ConvPlan("gconv2", kmap, tiles, n, 8, maps.out_coords,
+                        maps.out_batch, maps.out_valid, maps)
+
+    return _maybe_cached(cache, (coords, batch, valid), statics, build,
+                         content_key)
+
+
+def gconv3_plan(coords, batch, valid, *, grid_bits: int = 7,
+                batch_bits: int = 4, out_budget: int | None = None,
+                bm: int = 128, bo: int | None = None, with_tiles: bool = True,
+                cache: PlanCache | None = None,
+                content_key=None) -> ConvPlan:
+    """Gconv3 (k=3, s=2) plan with ``out_budget`` output rows (None: the
+    input rows). Carries the scatter maps, so the input-stationary
+    dataflow executes from the same plan; ``with_tiles=False`` skips the
+    tile build it does not need. Both are statics of the cache key. Counts
+    one map search per build, one that overflows included, and raises
+    :class:`CapacityOverflow` when the cloud has more output sites than
+    the budget."""
+    budget = out_budget if out_budget is not None else coords.shape[0]
+    statics = ("gconv3", grid_bits, batch_bits, budget, bm, bo, with_tiles)
+
+    def build():
+        MAPSEARCH_CALLS[0] += 1
+        maps = mapsearch.build_maps_gconv3(coords, batch, valid,
+                                           grid_bits=grid_bits,
+                                           batch_bits=batch_bits,
+                                           out_budget=budget)
+        _require_out_capacity(maps.overflow, maps.n_true, budget)
+        kmap = mapsearch.strided_to_kmap(maps, n_out=budget, n_taps=27)
+        tiles = sg_ops.build_tap_tiles(kmap, bm=bm, bo=bo) \
+            if with_tiles else None
+        return ConvPlan("gconv3", kmap, tiles, budget, 27, maps.out_coords,
                         maps.out_batch, maps.out_valid, maps)
 
     return _maybe_cached(cache, (coords, batch, valid), statics, build,
@@ -416,6 +467,11 @@ def execute(plan: ConvPlan, feats: torch.Tensor, weights: torch.Tensor,
                     " fold it into the epilogue shift")
             return sg_ops.apply_epilogue(out, epilogue)
         return out + bias if bias is not None else out
+    if plan.tiles is None:
+        raise ValueError(
+            f"{plan.kind} plan was built with with_tiles=False (input-"
+            f"stationary dataflow); rebuild it with tiles to execute the "
+            f"fused path, or pass impl='scan'")
     row_nz = None
     if spac and act is None:
         row_nz = sparsity.row_nonzero(feats)

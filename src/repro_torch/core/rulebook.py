@@ -10,6 +10,9 @@
   backend (``plan.execute(impl="scan")``, the reference's ``impl="xla"``).
 * :func:`apply_kmap_gather_spac`: the same with SPAC map elision in the
   forward and the gradient of the un-elided maps in the backward.
+* :func:`apply_maps_scatter`: input-stationary SpConv over scatter-form
+  maps (the Gconv3 dataflow of the paper's §IV-D3): per-tap partial sums
+  scatter-added into the outputs.
 """
 from __future__ import annotations
 
@@ -112,3 +115,39 @@ def apply_kmap_gather_spac(feats: torch.Tensor, weights: torch.Tensor,
     outside (add it after).
     """
     return _GatherSpac.apply(feats, weights, kmap, row_nz)
+
+
+def apply_maps_scatter(feats: torch.Tensor, weights: torch.Tensor, maps,
+                       bias: torch.Tensor | None = None, *, n_out: int,
+                       n_taps: int) -> torch.Tensor:
+    """Input-stationary SpConv: every valid map ``(in_idx, out_idx, tap)``
+    of the :class:`~repro_torch.core.mapsearch.StridedMaps` ``maps`` adds
+    ``feats[in_idx] @ W[tap]`` into ``out[out_idx]``.
+
+    The valid maps are ordered by tap (one host read of the per-tap
+    counts), each tap's slice is one matmul, and the partial sums go
+    through one ``index_add`` into an ``(n_out + 1)`` buffer whose last
+    row, the target of maps with ``out_idx >= n_out``, is sliced off.
+    Returns the (n_out, Cout) output (+ bias), zero on rows that
+    ``maps.out_valid`` marks invalid. Differentiable by autograd.
+    """
+    key = torch.where(maps.mvalid, maps.tap, n_taps).long()
+    order = torch.sort(key, stable=True).indices
+    counts = torch.bincount(key, minlength=n_taps + 1)[:n_taps].tolist()
+    live = order[:sum(counts)]
+    rows = feats[maps.in_idx[live].long()].to(weights.dtype)
+    parts, start = [], 0
+    for t, c in enumerate(counts):
+        if c:
+            parts.append(rows[start:start + c] @ weights[t])
+        start += c
+    dst = maps.out_idx[live].long()
+    dst = torch.where((dst >= 0) & (dst < n_out), dst, n_out)
+    acc = torch.zeros((n_out + 1, weights.shape[-1]), dtype=weights.dtype,
+                      device=weights.device)
+    if parts:
+        acc = acc.index_add(0, dst, torch.cat(parts))
+    acc = acc[:n_out]
+    if bias is not None:
+        acc = acc + bias
+    return torch.where(maps.out_valid[:n_out, None], acc, 0.0)

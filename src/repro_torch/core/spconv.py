@@ -1,4 +1,4 @@
-"""SpConv layers: Subm3 / Gconv2 / Tconv2 (paper §II-A3, §IV-D).
+"""SpConv layers: Subm3 / Gconv2 / Gconv3 / Tconv2 (paper §II-A3, §IV-D).
 
 Functional layers over a padded, mask-carrying :class:`SparseTensor`. Each
 layer is map search (a cached :class:`~repro_torch.core.plan.ConvPlan`) plus
@@ -13,9 +13,11 @@ from typing import Mapping, NamedTuple
 import torch
 
 from repro_torch.core import plan as planlib
+from repro_torch.core import rulebook
 from repro_torch.core.mapsearch import StridedMaps
 from repro_torch.core.sparsity import ActSparsity
 from repro_torch.kernels.spconv_gemm import ops as sg_ops
+from repro_torch.runtime import guard
 
 
 class SparseTensor(NamedTuple):
@@ -124,6 +126,51 @@ def gconv2(st: SparseTensor, w: torch.Tensor, b: torch.Tensor | None, *,
     new = SparseTensor(coords=plan.out_coords, batch=plan.out_batch,
                        valid=plan.out_valid,
                        feats=_zero_invalid(plan.out_valid, out))
+    return new, plan.maps
+
+
+def gconv3(st: SparseTensor, w: torch.Tensor, b: torch.Tensor | None, *,
+           grid_bits: int = 7, batch_bits: int = 4,
+           dataflow: str = "output_stationary",
+           plan: planlib.ConvPlan | None = None,
+           cache: planlib.PlanCache | None = None, impl: str | None = None,
+           bm: int = 128,
+           bo: int | None = None) -> tuple[SparseTensor, StridedMaps]:
+    """Generalized 3x3x3 stride-2 SpConv (downsampling), in either dataflow:
+    ``"output_stationary"`` executes the plan's tiles through the
+    gather-GEMM kernel, ``"input_stationary"`` scatter-adds per-tap partial
+    sums over the plan's maps (:func:`rulebook.apply_maps_scatter`).
+
+    The output budget starts at ``st.n_max``; a stride-2 window can reach
+    more output sites than there are inputs, so an overflowing build is
+    replanned at an escalated budget (``runtime.guard.with_replan``,
+    memoized per shape class, so a loop pays the failed probe once). With
+    ``REPRO_GUARD_REPLAN=0`` the overflow raises instead. Returns the new
+    tensor (``budget`` rows) and the maps.
+    """
+    if dataflow not in ("output_stationary", "input_stationary"):
+        raise ValueError(f"unknown dataflow {dataflow!r}")
+    if plan is None:
+        def build(budget):
+            return planlib.gconv3_plan(
+                st.coords, st.batch, st.valid, grid_bits=grid_bits,
+                batch_bits=batch_bits, out_budget=budget, bm=bm, bo=bo,
+                with_tiles=dataflow != "input_stationary", cache=cache)
+
+        if guard.replan_retries() > 0:
+            plan = guard.with_replan(
+                build, st.n_max,
+                key=("gconv3", st.n_max, grid_bits, batch_bits, dataflow))
+        else:
+            plan = build(st.n_max)
+    if dataflow == "input_stationary":
+        out = rulebook.apply_maps_scatter(st.feats, w, plan.maps, b,
+                                          n_out=plan.n_out, n_taps=27)
+    else:
+        out = _zero_invalid(plan.out_valid, planlib.execute(
+            plan, st.feats, w, b, spac=False, impl=impl))
+    new = SparseTensor(coords=plan.out_coords, batch=plan.out_batch,
+                       valid=plan.out_valid, feats=out)
     return new, plan.maps
 
 

@@ -41,7 +41,13 @@ Sq = Skv at and around the bf16 route's block edges (1, 64, 65, 127, 128,
 129) and Sq = Skv - 7 at every head dim, MQA, Hq / Hkv = 32 and non-causal
 attention; a bf16 view whose base is not 16-byte aligned raises. A small
 TinyLlama prefill through the kernel is held to the same prefill through
-the plain version.
+the plain version. The output-stationary Gconv3 goes through the
+gather-GEMM kernel with more output rows than input rows (after a replan
+to a row count that is not a multiple of 128) and with fewer, its plan
+bit-equal to the CPU's and its output and gradients to the plain
+version's; a small SECOND's forward (1e-3 of the plain max) and its
+``detection_loss`` gradients (the plain run's ReLU masks pinned to the
+kernel run's) are held to the plain versions.
 """
 from __future__ import annotations
 
@@ -792,3 +798,174 @@ def test_lm_prefill_kernel_vs_plain(cuda):
     assert cache["k"].shape == (4, 2, 128, 4, 64)
     scale = want.abs().max().item()
     assert (got - want).abs().max().item() <= 1e-3 * scale
+
+
+def _gconv3_inputs(dev, case):
+    """A cloud whose Gconv3 output rows lie above its input rows (sparse:
+    the build overflows its row budget and replans at the true output
+    count, which is not a multiple of 128) or below them (dense: an
+    explicit budget a little above the true count), with features whose
+    first quarter of rows is zero."""
+    from repro_torch.core.spconv import SparseTensor
+    rng = np.random.default_rng(11)
+    if case == "n_out_above_n_in":
+        c, b, v = _cloud(rng, 3001, 200, 2900, batch=2)
+    else:
+        c, b, v = _cloud(rng, 4003, 16, 3900, batch=2)
+    f = rng.standard_normal((c.shape[0], 32)).astype(np.float32)
+    f[~v] = 0.0
+    f[: c.shape[0] // 4] = 0.0
+    w = (rng.standard_normal((27, 32, 64)) / 30).astype(np.float32)
+    bias = rng.standard_normal(64).astype(np.float32)
+    st = SparseTensor(*_dev(dev, c, b, v, f))
+    return st, torch.as_tensor(w, device=dev), torch.as_tensor(bias,
+                                                               device=dev)
+
+
+@pytest.mark.parametrize("case", ["n_out_above_n_in", "n_out_below_n_in"])
+def test_gconv3_output_stationary_kernel_vs_plain(cuda, case):
+    """The output-stationary Gconv3 through kernel 2 with an output row
+    count other than its input's: the plan equal to the CPU's bit for bit,
+    one launch, the output within 1e-4 of the plain version's scale, and
+    the gradients (``dfeats`` with the input's rows) of the plain math."""
+    from repro_torch.core import plan as planlib, spconv
+    st, w, bias = _gconv3_inputs(cuda, case)
+    n_in = st.n_max
+    if case == "n_out_above_n_in":
+        _, maps = spconv.gconv3(st, w, bias, impl="kernel")
+        budget = int(maps.n_true)
+        assert budget > n_in and budget % 128 != 0
+    else:
+        n_true = int(mapsearch.build_maps_gconv3(
+            st.coords, st.batch, st.valid, out_budget=n_in).n_true)
+        budget = n_true + 5
+        assert budget < n_in
+    plan = planlib.gconv3_plan(st.coords, st.batch, st.valid,
+                               out_budget=budget)
+    cpu = planlib.gconv3_plan(*(t.cpu() for t in (st.coords, st.batch,
+                                                  st.valid)),
+                              out_budget=budget)
+    assert torch.equal(plan.kmap.cpu(), cpu.kmap)
+    for f in plan.tiles._fields[:-1]:
+        assert torch.equal(getattr(plan.tiles, f).cpu(),
+                           getattr(cpu.tiles, f)), f
+    outs = {}
+    for impl in ("kernel", "ref"):
+        ft = st.feats.clone().requires_grad_()
+        wt = w.clone().requires_grad_()
+        before = sg_kernel.launches
+        out = planlib.execute(plan, ft, wt, bias, spac=False, impl=impl)
+        torch.cuda.synchronize()
+        assert sg_kernel.launches - before == int(impl == "kernel")
+        assert out.shape == (budget, 64)
+        out.backward(torch.ones_like(out))
+        assert ft.grad.shape == (n_in, 32)
+        outs[impl] = (out.detach(), ft.grad, wt.grad)
+    for got, want in zip(outs["kernel"], outs["ref"]):
+        _close(got, want)
+
+
+def _second_batch(dev, cfg, rows):
+    from repro_torch.data import pointcloud
+    vb = pointcloud.make_batch(np.random.default_rng(0), "lidar",
+                               cfg.n_batch, rows)
+    batch = {k: torch.as_tensor(np.array(v), device=dev)
+             for k, v in vb._asdict().items()}
+    g = torch.Generator(dev).manual_seed(0)
+    hw = cfg.bev_hw
+    batch["objectness"] = (torch.rand((cfg.n_batch, hw, hw), generator=g,
+                                      device=dev) < 0.05).float()
+    batch["boxes"] = torch.randn((cfg.n_batch, hw, hw, cfg.box_dim),
+                                 generator=g, device=dev)
+    return batch
+
+
+_SECOND_SMALL = dict(channels=(32, 32, 64), blocks=1, bev_hw=64, head_ch=32)
+
+
+def test_second_forward_kernel_vs_plain_on_card(cuda):
+    """A small SECOND forward: kernel 1 once a stage, kernel 2 at every
+    Subm3 and output-stationary Gconv3, and ``cls`` / ``box`` within 1e-3
+    of the plain versions' max."""
+    from repro_torch.core.spconv import SparseTensor
+    from repro_torch.models import second
+    cfg = second.SECONDConfig(**_SECOND_SMALL)
+    model = second.SECOND(cfg, device=cuda)
+    b = _second_batch(cuda, cfg, 8192)
+    st = SparseTensor(b["coords"], b["batch"], b["valid"], b["feats"])
+    k1, k2 = oct_kernel.launches, sg_kernel.launches
+    got = model(st, impl="kernel")
+    torch.cuda.synchronize()
+    assert oct_kernel.launches - k1 == len(cfg.channels)
+    assert sg_kernel.launches - k2 == len(cfg.channels) * cfg.blocks \
+        + len(cfg.channels) - 1
+    want = model(st, impl="ref")
+    assert sg_kernel.launches - k2 == len(cfg.channels) * cfg.blocks \
+        + len(cfg.channels) - 1
+    for g, w in zip(got, want):
+        scale = w.abs().max().item()
+        assert scale > 0 and (g - w).abs().max().item() <= 1e-3 * scale
+
+
+def test_detection_loss_grads_kernel_vs_plain_on_card(cuda, monkeypatch):
+    """One ``detection_loss`` step of a small SECOND through the kernels
+    against the plain versions: the loss within 1e-4 relative and each
+    gradient within 1e-3 of its own max |g|, with the plain run's ReLU
+    masks (sparse and RPN) pinned to the kernel run's: a pre-activation
+    within rounding of zero can take the other side of a ReLU between the
+    two runs and move a weight gradient by more than rounding. The flips
+    of a free plain run stay below 1e-4 of the ReLU outputs. The conv
+    biases (zero in exact arithmetic ahead of a training BatchNorm) stay
+    below 1e-5 of the model's largest |g| on both sides."""
+    from repro_torch.core import spconv
+    from repro_torch.models import second
+    cfg = second.SECONDConfig(**_SECOND_SMALL)
+    model = second.SECOND(cfg, device=cuda)
+    batch = _second_batch(cuda, cfg, 8192)
+    sparse_relu, dense_relu = spconv.relu, second.rpn_relu
+    masks = []
+
+    def recording():
+        def sparse(st):
+            out = sparse_relu(st)
+            masks.append(out.feats != 0)
+            return out
+
+        def dense(x):
+            out = dense_relu(x)
+            masks.append(out != 0)
+            return out
+
+        monkeypatch.setattr(spconv, "relu", sparse)
+        monkeypatch.setattr(second, "rpn_relu", dense)
+
+    recording()
+    before = sg_kernel.launches
+    lk, _, gk = second.loss_and_grads(model, batch, impl="kernel")
+    n_layers = len(cfg.channels) * cfg.blocks + len(cfg.channels) - 1
+    assert sg_kernel.launches - before == n_layers
+    k_masks = list(masks)
+    masks.clear()
+    lu, _, _ = second.loss_and_grads(model, batch, impl="ref")
+    flips = sum(int((a != b).sum()) for a, b in zip(k_masks, masks))
+    assert len(masks) == len(k_masks) == len(cfg.channels) * (
+        1 + cfg.blocks) + 2
+    assert flips <= 1e-4 * sum(m.numel() for m in k_masks)
+    pins = iter(k_masks)
+    monkeypatch.setattr(spconv, "relu", lambda st: st.replace_feats(
+        torch.where(next(pins), st.feats, 0.0)))
+    monkeypatch.setattr(second, "rpn_relu",
+                        lambda x: torch.where(next(pins), x, 0.0))
+    _, _, gr = second.loss_and_grads(model, batch, impl="ref")
+    assert sg_kernel.launches - before == n_layers
+    assert torch.isfinite(lk) and abs(float(lk - lu)) <= 1e-4 * abs(
+        float(lu))
+    gmax = max(float(g.abs().max()) for g in gr.values())
+    for k in gr:
+        if k.endswith((".conv.b", ".mean", ".var")):
+            assert max(float(gk[k].abs().max()),
+                       float(gr[k].abs().max())) <= 1e-5 * gmax, k
+        else:
+            scale = float(gr[k].abs().max())
+            assert scale > 0 and float((gk[k] - gr[k]).abs().max()) \
+                <= 1e-3 * scale, k

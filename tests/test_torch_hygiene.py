@@ -46,7 +46,8 @@ def test_port_never_imports_jax_or_repro():
     files = _port_files()
     assert len(files) > 15 and files[0].exists()
     for mod in ("optim/adamw.py", "checkpoint/checkpoint.py",
-                "runtime/fault.py", "launch/train.py"):
+                "runtime/fault.py", "launch/train.py", "models/second.py",
+                "runtime/guard.py"):
         assert PKG / mod in files, mod
     bad = {str(p.relative_to(REPO)): sorted(_imported_roots(p)
                                             & {"jax", "jaxlib", "repro"})
@@ -120,6 +121,18 @@ def test_training_entry_points_raise_without_a_card(monkeypatch, tmp_path):
     res = train.run_spconv_demo(1, ckpt_dir=str(tmp_path), device="cpu")
     assert res["recoveries"] == 0 and len(res["losses"]) == 1
     assert any(p.name.startswith("step-") for p in tmp_path.iterdir())
+
+
+def test_second_raises_without_a_card(monkeypatch):
+    from repro_torch.models import second
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = second.SECONDConfig(channels=(4, 4, 8), blocks=1, bev_hw=8,
+                              head_ch=8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        second.SECOND(cfg)
+    # the explicit CPU request builds
+    model = second.SECOND(cfg, device="cpu")
+    assert model.rpn["conv1"].shape == (8, 16, 3, 3)
 
 
 def _octent_args():
