@@ -50,6 +50,15 @@ serving path at TinyLlama-1.1B's:
   build and forward ms, one profiled forward, and one ``detection_loss``
   step held to the plain versions by the training gate, with the TF32
   control that must fail it;
+* ``stream``: a moving-sensor sequence (12 frames of a 512-voxel window
+  stepping 32, then the last frame again) through MinkUNet-large by a
+  delta session (dirty rows searched by kernel 1 in row-list mode) and a
+  scratch session, bit-equal at every level of every frame and at the
+  logits; every kmap equals the plain search, the logits the plain
+  forward; row-list launches on every steady frame, 25 kernel-2 launches
+  a frame, under half the scratch rows searched, none on the repeated
+  frame; kernel 1's row-list launch against its plain version and a full
+  launch; one profiled delta frame;
 * ``flash_attention``: the kernel (bf16 on the tensor cores, float32 on
   the CUDA cores) against its plain version at six attention shapes of
   the repo's configs (TinyLlama's served prefill, in bf16 and float32, a
@@ -136,6 +145,14 @@ TOL_TRAIN_FLIPS = (1e-4, 1e-5)  # flipped ReLU outputs: share of a layer's
 # rounding noise, held below this share of the model's largest |g|
 TOL_TRAIN_ZERO = 1e-5
 TRAIN_STEPS = 3
+# phase stream: a moving sensor over MinkUNet-large, 12 frames of a
+# 512-voxel window stepping 32 voxels (6.25 % turnover), then the last
+# frame again
+STREAM_FRAMES, STREAM_WINDOW, STREAM_STEP = 12, 512, 32
+STREAM_DEPTH, STREAM_DENSITY = 256, 0.35
+SMOKE_RATIO_GATE = 0.5         # delta / scratch rows searched, steady frames
+STREAM_CHECK_FRAME = 6         # kernel 1's row-list launch held and timed
+STREAM_PROFILE_FRAME = 7       # the delta frame under torch.profiler
 LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN = "tinyllama-1.1b", 4, 512, 32
 #: (name, b, hq, hkv, sq, skv, d, causal, window, dtype)
 FLASH_SHAPES = [
@@ -1147,14 +1164,15 @@ def _counts():
     from repro_torch.kernels.spconv_gemm import kernel as sg_kernel
     return (oct_kernel.launches, sg_kernel.launches,
             sg_kernel.epilogue_launches, planlib.MAPSEARCH_CALLS[0],
-            sg_kernel.reduce_launches, sg_kernel.plan_launches)
+            sg_kernel.reduce_launches, sg_kernel.plan_launches,
+            oct_kernel.row_launches)
 
 
 def _reset_counts():
     from repro_torch.core import plan as planlib
     from repro_torch.kernels.octent import kernel as oct_kernel
     from repro_torch.kernels.spconv_gemm import kernel as sg_kernel
-    oct_kernel.launches = 0
+    oct_kernel.launches = oct_kernel.row_launches = 0
     sg_kernel.launches = sg_kernel.epilogue_launches = 0
     sg_kernel.reduce_launches = sg_kernel.plan_launches = 0
     planlib.MAPSEARCH_CALLS[0] = 0
@@ -1879,6 +1897,236 @@ def phase_second(dev):
             "octent_ms": k1_ms, "gemm_ms": k2_tot["ms"]}
 
 
+def _profile_rows(prof):
+    """(name, device ms, calls) of each device op under ``prof``, longest
+    first."""
+    import torch
+    return sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA),
+                  key=lambda r: -r[1])
+
+
+def _row_list_shape(dev, st, prev_kmap, rows, kw):
+    """Kernel 1 in row-list mode at one steady frame's level 0 (the new
+    frame's canonical rows and spliced table, the previous kmap, the dirty
+    rows): bit-equal to its plain version and to the session's kmap; its
+    ms, plain ms and bytes bound beside a full launch on the same table."""
+    import torch
+    from repro_torch.core import morton
+    from repro_torch.kernels.octent import kernel as oct_kernel
+    from repro_torch.kernels.octent.ref import octent_query_ref
+    offs = torch.as_tensor(morton.subm3_offsets(), device=dev)
+    qt = st.table
+    args = (st.coords, st.batch, st.valid, offs, qt.ublocks, qt.tkey,
+            qt.tval, qt.n_blocks)
+    got = oct_kernel.octent_query(*args, **kw, rows=rows, prev=prev_kmap)
+    want = octent_query_ref(*args, **kw, rows=rows, prev=prev_kmap)
+    full = oct_kernel.octent_query(*args, **kw)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want) and torch.equal(got, st.kmap)
+          and torch.equal(full, st.kmap),
+          "stream: kernel 1's row-list launch differs from its plain "
+          "version or the session's kmap")
+    ms = time_ms(lambda: oct_kernel.octent_query(
+        *args, **kw, rows=rows, prev=prev_kmap), 50)
+    plain_ms = time_ms(lambda: octent_query_ref(
+        *args, **kw, rows=rows, prev=prev_kmap), 5)
+    full_ms = time_ms(lambda: oct_kernel.octent_query(*args, **kw), 50)
+    # bytes the function needs: the row list, each listed valid row's
+    # coords, batch and flag, the live directory and table entries, the
+    # offsets and n_blocks, the unlisted rows of the previous kmap read
+    # and the whole kmap written
+    n, k = st.coords.shape[0], offs.shape[0]
+    q = rows.shape[0]
+    listed = rows[rows >= 0].long()
+    n_listed = listed.numel()
+    n_valid = int(st.valid[listed].sum())
+    max_blocks = qt.ublocks.numel()
+    live_blocks = min(int(qt.n_blocks), max_blocks)
+    n_table = int((qt.tkey < max_blocks * morton.TABLE_SIZE).sum())
+    table_bytes = 4 * live_blocks + 8 * n_table + k * 3 * 4 + 4
+    nbytes = (4 * q + n_listed + 16 * n_valid + table_bytes
+              + (n - n_listed) * k * 4 + n * k * 4)
+    full_bytes = (n + 16 * int(st.valid.sum()) + table_bytes + n * k * 4)
+    return {"rows": n, "q": q, "dirty_rows": n_listed, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": nbytes / PEAK_BYTES_S * 1e3,
+            "bytes": nbytes, "full_ms": full_ms,
+            "full_bound_ms": full_bytes / PEAK_BYTES_S * 1e3}
+
+
+def phase_stream(dev, cfg):
+    """The streaming path: a moving-sensor sequence (STREAM_FRAMES frames,
+    then the last one again) through MinkUNet-large (seeded weights) on
+    BUCKET-row frames, by a delta session and a scratch session (delta
+    path off, content keys off), each with its own pinned store. The
+    delta session is the main path: its launches are counted frame by
+    frame (kernel 1, its row-list launches, kernel 2), the scratch
+    session's are not. Every frame, at every level, the two sessions'
+    canonical arrays, kmaps and tables are equal, and so are their
+    logits; every level's kmap equals the plain search over its table;
+    the logits match a plain-version forward (``impl="ref"``) over the
+    same plans within TOL_LOGITS of its max. Kernel 1 runs in row-list
+    mode on every steady frame and kernel 2 25 times a frame; the steady
+    frames search under SMOKE_RATIO_GATE of the scratch rows and the
+    repeated frame no query row. Kernel 1's row-list launch at one steady
+    frame's level 0 is held to its plain version and timed beside a full
+    launch; one delta frame is profiled; peak device memory."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import plan as planlib
+    from repro_torch.core import stream
+    from repro_torch.data import pointcloud
+    from repro_torch.kernels.octent import ops as oct_ops
+    from repro_torch.runtime import feature_cache
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    frames = pointcloud.moving_sensor_sequence(
+        np.random.default_rng(SEED), STREAM_FRAMES, BUCKET,
+        window=STREAM_WINDOW, step=STREAM_STEP, depth=STREAM_DEPTH,
+        density=STREAM_DENSITY)
+    frames.append(frames[-1])               # the empty delta
+    model = _seeded_model(cfg, dev)
+    sessions = {
+        "delta": stream.StreamSession(
+            cfg, BUCKET, enabled=True, device=dev,
+            cache=planlib.PlanCache(pinned=feature_cache.PinnedStore())),
+        "scratch": stream.StreamSession(
+            cfg, BUCKET, enabled=False, device=dev,
+            cache=planlib.PlanCache(content=False,
+                                    pinned=feature_cache.PinnedStore()))}
+    d_sess, s_sess = sessions["delta"], sessions["scratch"]
+    n_layers = 1 + len(cfg.enc) + len(cfg.dec) \
+        + cfg.blocks * (len(cfg.enc) + len(cfg.dec))
+    kw = dict(grid_bits=cfg.grid_bits, batch_bits=cfg.batch_bits)
+
+    def run(sess, f):
+        before, q0, c0 = sess.stats(), oct_ops.QUERY_ROWS[0], _counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        delta = sess.advance(f.coords, f.batch, f.valid)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        logits = sess.forward(model, f.feats[:, :cfg.in_ch])
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        c = [a - b for a, b in zip(_counts(), c0)]
+        inc = {k: v - before[k] for k, v in sess.stats().items()}
+        return delta, logits, {
+            "advance_ms": (t1 - t0) * 1e3, "forward_ms": (t2 - t1) * 1e3,
+            "levels": [inc["delta_levels"], inc["full_levels"],
+                       inc["content_hit_levels"]],
+            "rows_searched": inc["rows_searched"],
+            "rows_scratch": inc["rows_scratch"],
+            "query_rows": oct_ops.QUERY_ROWS[0] - q0,
+            "launches": {"octent_query": c[0], "octent_row_list": c[6],
+                         "spconv_gemm_fused": c[1]}}
+
+    _reset_counts()
+    main_launches = {"octent_query": 0, "octent_row_list": 0,
+                     "spconv_gemm_fused": 0}
+    per_frame, steady, row_list, prof_rec = [], [0, 0], None, None
+    for t, f in enumerate(frames):
+        prev0 = d_sess.states[0]
+        if t == STREAM_PROFILE_FRAME:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                delta, logits, rec = run(d_sess, f)
+            rows = _profile_rows(prof)
+            busy = sum(r[1] for r in rows)
+            wall = rec["advance_ms"] + rec["forward_ms"]
+            prof_rec = {"frame": t, "wall_ms": wall, "device_busy_ms": busy,
+                        "idle_share": 1 - busy / wall,
+                        "device_ops": sum(r[2] for r in rows),
+                        "top10": [{"name": n[:80], "device_ms": ms,
+                                   "calls": c} for n, ms, c in rows[:10]]}
+        else:
+            delta, logits, rec = run(d_sess, f)
+        for key in main_launches:
+            main_launches[key] += rec["launches"][key]
+        _, s_logits, s_rec = run(s_sess, f)
+        # the two sessions, level by level, and the plain search
+        for r in range(d_sess.levels):
+            a, b = d_sess.states[r], s_sess.states[r]
+            for name, x, y in [("coords", a.coords, b.coords),
+                               ("batch", a.batch, b.batch),
+                               ("valid", a.valid, b.valid),
+                               ("kmap", a.kmap, b.kmap)] + [
+                    (f"table.{n}", x, y) for n, x, y in zip(
+                        oct_ops.QueryTable._fields, a.table, b.table)]:
+                check(torch.equal(x, y), f"stream: frame {t} level {r} "
+                      f"{name} differs between delta and scratch")
+            plain, _ = oct_ops.build_kmap(a.coords, a.batch, a.valid,
+                                          max_blocks=d_sess.mb[r], **kw,
+                                          impl="ref", table=a.table)
+            check(torch.equal(plain, a.kmap), f"stream: frame {t} level "
+                  f"{r} kmap differs from the plain search")
+        check(torch.equal(logits, s_logits),
+              f"stream: frame {t} logits differ between delta and scratch")
+        ref = d_sess.forward(model, f.feats[:, :cfg.in_ch], impl="ref")
+        scale = ref.abs().max().item()
+        err = (logits - ref).abs().max().item()
+        check(np.isfinite(err) and err <= TOL_LOGITS * scale,
+              f"stream: frame {t} logits vs plain {err} (max {scale})")
+        check(rec["launches"]["spconv_gemm_fused"] == n_layers,
+              f"stream: frame {t} launched kernel 2 "
+              f"{rec['launches']['spconv_gemm_fused']} times")
+        if t == STREAM_CHECK_FRAME:
+            n_dirty = int(delta.n_dirty_rows)
+            row_list = _row_list_shape(
+                dev, d_sess.states[0], prev0.kmap, stream.pack_dirty_rows(
+                    delta.dirty_rows, stream.row_budget(n_dirty, BUCKET)),
+                kw)
+        if 0 < t < len(frames) - 1:
+            check(rec["launches"]["octent_row_list"] > 0,
+                  f"stream: steady frame {t} ran no row-list launch")
+            steady[0] += rec["rows_searched"]
+            steady[1] += s_rec["rows_searched"]
+        line = {"frame": t, "voxels": int(f.valid.sum()),
+                "dirty_rows": int(delta.n_dirty_rows),
+                "logits_vs_plain": err / scale, "delta": rec,
+                "scratch": {k: s_rec[k] for k in (
+                    "advance_ms", "forward_ms", "levels", "rows_searched")}}
+        emit(phase="stream.frame", **line)
+        per_frame.append(line)
+    last = per_frame[-1]["delta"]
+    check(last["query_rows"] == 0 and last["launches"]["octent_query"] == 0,
+          f"stream: the repeated frame searched {last['query_rows']} rows")
+    ratio = steady[0] / steady[1]
+    check(ratio < SMOKE_RATIO_GATE,
+          f"stream: steady frames searched {ratio} of the scratch rows")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    stats = {name: s.stats() for name, s in sessions.items()}
+    pinned = {name: s.cache.pinned.stats() for name, s in sessions.items()}
+    for s in sessions.values():
+        s.close()
+
+    def mean(sess, key):            # steady frames, the profiled one out
+        return float(np.mean([fr[sess][key] for fr in per_frame[1:-1]
+                              if fr["frame"] != STREAM_PROFILE_FRAME]))
+    emit(phase="stream", config=cfg.name, bucket=BUCKET,
+         frames=len(frames), window=STREAM_WINDOW, step=STREAM_STEP,
+         depth=STREAM_DEPTH, density=STREAM_DENSITY,
+         steady_search_ratio=ratio, ratio_gate=SMOKE_RATIO_GATE,
+         launches=main_launches, launches_per_frame={
+             "spconv_gemm_fused": n_layers},
+         steady_means={"delta_advance_ms": mean("delta", "advance_ms"),
+                       "delta_forward_ms": mean("delta", "forward_ms"),
+                       "scratch_advance_ms": mean("scratch", "advance_ms"),
+                       "scratch_forward_ms": mean("scratch", "forward_ms")},
+         row_list=row_list, profile=prof_rec, stats=stats, pinned=pinned,
+         tolerance=f"{TOL_LOGITS} * max|plain logit|",
+         peak_mem_gb=peak_gb, seconds=time.perf_counter() - t_phase)
+    del sessions, d_sess, s_sess, model
+    torch.cuda.empty_cache()
+    return {"octent_query": main_launches["octent_query"],
+            "octent_row_list": main_launches["octent_row_list"],
+            "spconv_gemm_fused": main_launches["spconv_gemm_fused"],
+            "row_list": row_list}
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch is not beside this script; run "
@@ -1927,6 +2175,12 @@ def main() -> int:
                                                     sec["spconv_gemm_fused"])
     k1["second_ms_per_forward"] = sec["octent_ms"]
     k2["second_ms_per_forward"] = sec["gemm_ms"]
+    strm = phase_stream(dev, cfg)
+    k1["stream_launches"] = strm["octent_query"]
+    k1["stream_update_launches"] = strm["octent_row_list"]
+    k1["stream_update"] = {key: strm["row_list"][key] for key in (
+        "q", "rows", "ms", "plain_ms", "bound_ms", "full_ms")}
+    k2["stream_launches"] = strm["spconv_gemm_fused"]
     flash = phase_flash(dev)
     lm_cfg, lm_params, fa_launches = phase_lm_serve(dev)
     phase_lm_reference(dev, lm_cfg, lm_params)

@@ -27,12 +27,21 @@ INVALID = torch.iinfo(torch.int32).max
 _I32 = torch.int32
 
 
+def set_drop(base: torch.Tensor, idx: torch.Tensor, src) -> torch.Tensor:
+    """``base.at[idx].set(src, mode='drop')`` for ``idx >= 0``: a copy of
+    ``base`` with one more row, which every index past the end writes and
+    which is sliced off. Where the kept indices are unique, the scatter is
+    deterministic on the card too."""
+    n = base.shape[0]
+    out = torch.cat([base, base.new_zeros((1,) + base.shape[1:])])
+    out[idx.clamp(max=n).long()] = src
+    return out[:n]
+
+
 def _scatter_drop(size: int, idx: torch.Tensor, src, fill, dtype):
-    """``full(size, fill).at[idx].set(src, mode='drop')`` for indices in
-    [0, size]: index ``size`` is an extra drop row that is sliced off."""
-    out = torch.full((size + 1,), fill, dtype=dtype, device=idx.device)
-    out[idx.long()] = src
-    return out[:size]
+    """``full(size, fill).at[idx].set(src, mode='drop')``."""
+    return set_drop(torch.full((size,), fill, dtype=dtype,
+                               device=idx.device), idx, src)
 
 
 def sorted_unique(codes: torch.Tensor, size: int):

@@ -24,6 +24,13 @@ Cache keys come in two forms, as in the reference:
 
 ``MAPSEARCH_CALLS`` counts actual map searches, so callers can check that
 a forward searches 2E+1 times, and a replayed cloud zero times.
+
+The pinned tier: a content-keyed Subm3 build pins its stage-1
+:class:`~repro_torch.kernels.octent.ops.QueryTable` in the cache's
+:class:`~repro_torch.runtime.feature_cache.PinnedStore`, so a rebuild after
+the plan's eviction, or a streaming frame's level, skips the table build.
+A :class:`SubmWarmStart` lets a streaming session patch the previous
+frame's kmap and table instead of searching (``DELTA_PATCHES``).
 """
 from __future__ import annotations
 
@@ -38,8 +45,12 @@ from repro_torch.core import mapsearch, rulebook, sparsity
 from repro_torch.core.mapsearch import StridedMaps
 from repro_torch.kernels.octent import ops as oct_ops
 from repro_torch.kernels.spconv_gemm import ops as sg_ops
+from repro_torch.runtime import feature_cache
 
 MAPSEARCH_CALLS = [0]
+
+#: Subm3 plans built by a warm start's patch instead of a search
+DELTA_PATCHES = [0]
 
 
 def mapsearch_call_count() -> int:
@@ -201,17 +212,27 @@ class PlanCache:
 
     Args:
       capacity: canonical entries kept (FIFO eviction).
+      content: key identity misses by content (False: identity keys
+        only, and no pinned tables).
       verify: on every content hit, compare the key tensors element-wise
         with an anchored alias's; a mismatch counts as a ``collision`` and
-        rebuilds instead of serving a stale plan.
+        rebuilds instead of serving a stale plan. Pinned tables are then
+        anchored and verified too.
+      pinned: the :class:`~repro_torch.runtime.feature_cache.PinnedStore`
+        of the pinned tier (None: the process-wide store).
 
     Counters: ``hits`` (total), ``id_hits``, ``content_hits``, ``misses``,
-    ``collisions`` (see :meth:`stats`).
+    ``collisions``, and the pinned store's (see :meth:`stats`).
     """
 
-    def __init__(self, capacity: int = 64, *, verify: bool = False):
+    def __init__(self, capacity: int = 64, *, content: bool = True,
+                 verify: bool = False,
+                 pinned: feature_cache.PinnedStore | None = None):
         self.capacity = capacity
+        self.content = content
         self.verify = verify
+        self.pinned = pinned if pinned is not None \
+            else feature_cache.default_store()
         self._entries: OrderedDict = OrderedDict()  # canonical key -> _Entry
         self._by_id: dict = {}                      # identity key -> canonical
         self.hits = 0
@@ -226,7 +247,8 @@ class PlanCache:
     def stats(self) -> dict:
         return {"entries": len(self), "hits": self.hits,
                 "id_hits": self.id_hits, "content_hits": self.content_hits,
-                "misses": self.misses, "collisions": self.collisions}
+                "misses": self.misses, "collisions": self.collisions,
+                "pinned": self.pinned.stats()}
 
     def _evict_to_capacity(self) -> None:
         while len(self._entries) >= self.capacity:
@@ -250,11 +272,13 @@ class PlanCache:
                    for a, b in zip(anchored, arrays))
 
     def lookup(self, arrays, statics, build, content_key=None):
-        """Memoized plan for ``(arrays, statics)``; ``build()`` on a miss.
+        """Memoized plan for ``(arrays, statics)``; ``build(fp)`` on a miss.
 
-        On an identity miss the content key is ``content_key()`` if given
-        (a key the caller derives for tensors whose content it knows),
-        else :func:`content_fingerprint` of ``arrays`` (one host sync)."""
+        On an identity miss the content key ``fp`` is ``content_key()`` if
+        given (a key the caller derives for tensors whose content it
+        knows), else :func:`content_fingerprint` of ``arrays`` (one host
+        sync); None with ``content=False``. The builder gets the same
+        ``fp``, so that it can key its pinned structures by it."""
         statics = tuple(statics)
         idkey = (tuple(id(a) for a in arrays), statics)
         canonical = self._by_id.get(idkey)
@@ -263,8 +287,11 @@ class PlanCache:
             self.id_hits += 1
             return self._entries[canonical].plan
 
-        fp = content_key() if content_key is not None \
-            else content_fingerprint(arrays)
+        if not self.content:
+            fp = None
+        else:
+            fp = content_key() if content_key is not None \
+                else content_fingerprint(arrays)
         if fp is not None:
             ckey = (fp, statics)
             entry = self._entries.get(ckey)
@@ -284,7 +311,7 @@ class PlanCache:
             ckey = idkey                           # identity-only entry
 
         self.misses += 1
-        plan = build()
+        plan = build(fp)
         self._evict_to_capacity()
         self._entries[ckey] = _Entry(plan, OrderedDict())
         self._alias(ckey, idkey, arrays)
@@ -294,7 +321,7 @@ class PlanCache:
 def _maybe_cached(cache: PlanCache | None, arrays, statics, build,
                   content_key=None):
     if cache is None:
-        return build()
+        return build(None)
     return cache.lookup(arrays, statics, build, content_key)
 
 
@@ -326,27 +353,74 @@ def _require_out_capacity(overflow: torch.Tensor, n_true: torch.Tensor,
             needed=needed, capacity=budget)
 
 
+class SubmWarmStart(NamedTuple):
+    """Warm start of :func:`subm3_plan` from the previous frame.
+
+    ``patch()`` gives ``(kmap, table)`` for the new frame's coordinates by
+    updating the previous frame's structures (``core.stream``: the table
+    splice and the dirty rows' re-search), bit-equal to a build from
+    scratch over the same tensors. It runs only on a cache miss: a frame
+    whose content repeats hits, and is neither searched nor patched.
+    """
+
+    patch: object   # () -> (kmap (N, 27) int32, octent ops.QueryTable)
+
+
 def subm3_plan(coords, batch, valid, *, max_blocks: int, grid_bits: int = 7,
                batch_bits: int = 4, bm: int = 128, bo: int | None = None,
                search_impl: str | None = None,
                cache: PlanCache | None = None,
-               content_key=None) -> ConvPlan:
+               content_key=None,
+               warm: SubmWarmStart | None = None) -> ConvPlan:
     """Submanifold 3x3x3 plan by OCTENT search: outputs == inputs, 27 taps.
 
     ``search_impl``: None / ``"kernel"`` (the CUDA query kernel on a card)
     or ``"ref"`` (its plain version). Raises :class:`CapacityOverflow` when
     the scene occupies more than ``max_blocks`` blocks. ``content_key``
     stands in for the key tensors' fingerprint (:meth:`PlanCache.lookup`).
+
+    With a content-keyed ``cache``, the stage-1 table is pinned in
+    ``cache.pinned`` under ``("qtable", fingerprint, max_blocks,
+    grid_bits, batch_bits)``: a build that finds it there runs the query
+    only, and still counts one map search. ``warm`` (consulted on a cache
+    miss only, and not part of the key: its plan is bit-equal to the
+    scratch plan) builds the plan from ``warm.patch()`` instead, counted
+    in ``DELTA_PATCHES``, not as a search.
     """
     simpl = search_impl or "kernel"
     statics = ("subm3", max_blocks, simpl, grid_bits, batch_bits, bm, bo)
+    store = cache.pinned if cache is not None else None
 
-    def build():
-        MAPSEARCH_CALLS[0] += 1
-        kmap, n_blocks = oct_ops.build_kmap(
-            coords, batch, valid, max_blocks=max_blocks, grid_bits=grid_bits,
-            batch_bits=batch_bits, impl=simpl)
-        _require_block_capacity(n_blocks, max_blocks)
+    def build(fp):
+        # anchors cost device memory against the store's budget, so only
+        # verifying caches keep them
+        verify = cache is not None and cache.verify
+        anchor = (coords, batch, valid) if verify else None
+        table = pin_key = None
+        if fp is not None and store is not None:
+            # the reference's key also holds the mesh fingerprint; the
+            # port has no mesh until the sharded search is ported
+            pin_key = ("qtable", fp, max_blocks, grid_bits, batch_bits)
+            table = store.get(pin_key, anchor=anchor, verify=verify)
+        if warm is not None:
+            DELTA_PATCHES[0] += 1
+            kmap, table = warm.patch()
+            _require_block_capacity(table.n_blocks, max_blocks)
+            if pin_key is not None:
+                store.put(pin_key, table, anchor=anchor)
+        else:
+            MAPSEARCH_CALLS[0] += 1
+            if table is None:
+                table = oct_ops.build_query_table(
+                    coords, batch, valid, max_blocks=max_blocks,
+                    grid_bits=grid_bits, batch_bits=batch_bits)
+                if pin_key is not None:
+                    store.put(pin_key, table, anchor=anchor)
+            kmap, n_blocks = oct_ops.build_kmap(
+                coords, batch, valid, max_blocks=max_blocks,
+                grid_bits=grid_bits, batch_bits=batch_bits, impl=simpl,
+                table=table)
+            _require_block_capacity(n_blocks, max_blocks)
         tiles = sg_ops.build_tap_tiles(kmap, bm=bm, bo=bo)
         return ConvPlan("subm3", kmap, tiles, coords.shape[0], 27,
                         None, None, None, None)
@@ -364,7 +438,7 @@ def gconv2_plan(coords, batch, valid, *, grid_bits: int = 7,
     paired Tconv2 reuses."""
     statics = ("gconv2", grid_bits, batch_bits, bm, bo)
 
-    def build():
+    def build(_fp):
         MAPSEARCH_CALLS[0] += 1
         maps = mapsearch.build_maps_gconv2(coords, batch, valid,
                                            grid_bits=grid_bits,
@@ -394,7 +468,7 @@ def gconv3_plan(coords, batch, valid, *, grid_bits: int = 7,
     budget = out_budget if out_budget is not None else coords.shape[0]
     statics = ("gconv3", grid_bits, batch_bits, budget, bm, bo, with_tiles)
 
-    def build():
+    def build(_fp):
         MAPSEARCH_CALLS[0] += 1
         maps = mapsearch.build_maps_gconv3(coords, batch, valid,
                                            grid_bits=grid_bits,
@@ -419,7 +493,7 @@ def tconv2_plan(gconv2_maps: StridedMaps, target_coords, target_batch,
     never counts as a map search)."""
     statics = ("tconv2", bm, bo)
 
-    def build():
+    def build(_fp):
         maps = mapsearch.transpose_maps(gconv2_maps, target_coords,
                                         target_batch, target_valid)
         n = target_valid.shape[0]

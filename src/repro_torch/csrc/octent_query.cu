@@ -37,6 +37,13 @@
 //    `griddepcontrol.wait` guards the first read of the index. It is
 //    instantiated for Subm3's 27 offsets, so that a thread finds its (row,
 //    offset) with a multiply and a shift, and for any count.
+//  * Row-list mode (a streaming frame's dirty rows): the table and the
+//    coordinate arrays stay the table's own N rows, and a -1-padded list
+//    `rows` (Q,) names the rows to search. The thread of (q, offset) takes
+//    row rows[q], reads that row's rank on the near path and writes
+//    out[rows[q] * K + offset] into a copy of the previous kmap, so the
+//    scatter is part of the query; a -1 entry writes nothing. The index
+//    pass still reads the whole table and its scratch is sized by N.
 // A first redesign staged each CTA's neighbour segments in shared memory
 // (runs of 128 table rows, a shared-memory hash of neighbour blocks); it
 // was slower than the first form at every resolution but res 0: its
@@ -205,6 +212,8 @@ __global__ void __launch_bounds__(kIndexThreads) octent_index_kernel(
 
 // K > 0 fixes the offset count at compile time (Subm3's 27), so that the
 // thread's (row, offset) comes from a multiply and a shift; K = 0 takes k.
+// rows == nullptr searches every row i < n into out[i * k + t]; otherwise
+// thread (q, t) searches row rows[q] of the n, for q < n_rows.
 template <int K>
 __global__ void __launch_bounds__(kThreads) octent_query_kernel(
     const int* __restrict__ coords, const int* __restrict__ batch,
@@ -214,17 +223,22 @@ __global__ void __launch_bounds__(kThreads) octent_query_kernel(
     const int* __restrict__ n_blocks_ptr,
     const int* __restrict__ tkey, const int* __restrict__ tval,
     const int* seg, const int* rowrank, const int* nbr, int grid_bits,
-    int* __restrict__ out) {
+    const int* __restrict__ rows, int n_rows, int* __restrict__ out) {
   const int k = K > 0 ? K : k_any;
   extern __shared__ int s_off[];          // (k, 3)
   for (int i = threadIdx.x; i < 3 * k; i += kThreads) s_off[i] = offsets[i];
   __syncthreads();
 
-  // n * k < 2^31 (the wrapper checks it): 32-bit index arithmetic
+  // n * k and n_rows * k < 2^31 (the wrapper checks both): 32-bit index
+  // arithmetic
   const unsigned gid = blockIdx.x * kThreads + threadIdx.x;
-  if (gid >= (unsigned)(n * k)) return;
-  const int i = (int)(gid / (unsigned)k);
-  const int t = (int)(gid - (unsigned)i * k);
+  if (gid >= (unsigned)((rows ? n_rows : n) * k)) return;
+  const int j = (int)(gid / (unsigned)k);
+  const int t = (int)(gid - (unsigned)j * k);
+  const int i = rows ? __ldg(rows + j) : j;
+  // a -1 pad writes nothing (and a row outside the table is dropped)
+  if ((unsigned)i >= (unsigned)n) return;
+  const unsigned o = (unsigned)i * k + t;
   const int limit = (1 << grid_bits) * kBlockSize;
 
   // the prologue, before the index is ready: the query, its banked-table
@@ -253,7 +267,7 @@ __global__ void __launch_bounds__(kThreads) octent_query_kernel(
   }
   // invalid rows and out-of-grid queries are answered without the index
   if (!pending) {
-    out[gid] = -1;
+    out[o] = -1;
     return;
   }
   asm volatile("griddepcontrol.wait;" ::: "memory");   // the index is written
@@ -269,7 +283,7 @@ __global__ void __launch_bounds__(kThreads) octent_query_kernel(
                    block_key(qx >> kBlockBits, qy >> kBlockBits,
                              qz >> kBlockBits, b, grid_bits));
   }
-  out[gid] = r >= 0 ? segment_lookup(tkey, tval, seg, r, local) : -1;
+  out[o] = r >= 0 ? segment_lookup(tkey, tval, seg, r, local) : -1;
 }
 
 }  // namespace
@@ -286,17 +300,21 @@ extern "C" int octent_query_scratch(int n, int max_blocks) {
 // Resolve all k offset queries of n voxels into out (n, k) int32, -1 = miss.
 // Every pointer is a device pointer; n_blocks_ptr points at one int32 (the
 // true occupied-block count, clamped to max_blocks here); scratch holds
-// octent_query_scratch(n, max_blocks) int32. Launches the index pass, then
-// the query kernel as its programmatic dependent. Returns the CUDA error
-// code of the launches (0 on success).
+// octent_query_scratch(n, max_blocks) int32. With rows != nullptr only the
+// rows listed in rows (n_rows int32, -1 padded) are searched, each into its
+// own row of out, which keeps every other entry. Launches the index pass,
+// then the query kernel as its programmatic dependent. Returns the CUDA
+// error code of the launches (0 on success).
 extern "C" int octent_query_launch(
     const void* coords, const void* batch, const void* valid, int n,
     const void* offsets, int k, const void* ublocks, int max_blocks,
     const void* n_blocks_ptr, const void* tkey, const void* tval, int n_t,
-    int grid_bits, void* scratch, void* out, void* stream) {
-  const long long total = (long long)n * k;
+    int grid_bits, void* scratch, const void* rows, int n_rows, void* out,
+    void* stream) {
+  const long long total = (long long)(rows ? n_rows : n) * k;
   if (total <= 0) return (int)cudaGetLastError();
-  if (total >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  if (total >= (1LL << 31) || (long long)n * k >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   int* seg = (int*)scratch;
   int* rowrank = seg + max_blocks + 1;
@@ -322,7 +340,8 @@ extern "C" int octent_query_launch(
       (const unsigned char*)valid, n, (const int*)offsets, k,
       (const int*)ublocks, max_blocks, (const int*)n_blocks_ptr,
       (const int*)tkey, (const int*)tval, (const int*)seg,
-      (const int*)rowrank, (const int*)nbr, grid_bits, (int*)out);
+      (const int*)rowrank, (const int*)nbr, grid_bits, (const int*)rows,
+      n_rows, (int*)out);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -6,6 +6,8 @@ datasets, which are licence-gated:
     the coarse-vertical / fine-horizontal voxel distribution of
     SemanticKITTI-style scans.
   * :func:`indoor_scene` — RGB-D style: uniformly sampled room surfaces.
+  * :func:`moving_sensor_sequence` — a temporal frame sequence: a sensor
+    window translating over a static world (the streaming workload).
 
 Voxelization is the paper's COO sparse-tensor form (eq. 1) with per-voxel
 mean features, padded to a static budget. Same generators and the same
@@ -130,6 +132,58 @@ def voxelize(points: np.ndarray, voxel_size, origin, max_voxels: int,
         sel = np.linspace(0, n_vox - 1, max_voxels).astype(np.int64)
         coords, feats, labels = coords[sel], feats[sel], labels[sel]
     return coords, feats, labels
+
+
+def moving_sensor_sequence(rng: np.random.Generator, n_frames: int,
+                           max_voxels: int, *, window: int = 128,
+                           step: int = 8, depth: int = 32,
+                           density: float = 0.35,
+                           feat_ch: int = 4) -> list[VoxelBatch]:
+    """Frames of a sensor window translating over a static world.
+
+    A world occupancy (a ground sheet at ``density`` plus boxes, ``depth``
+    voxels deep in y, long enough in x for the whole drive) is sampled
+    once; frame t holds the world voxels with ``t * step <= x < t * step +
+    window``, in world coordinates, so voxels enter and leave only at the
+    window's edges: a turnover of about ``step / window`` a frame.
+    Features are a per-voxel hash, so a repeated frame is bit-equal.
+
+    Returns ``n_frames`` :class:`VoxelBatch` es padded to ``max_voxels``
+    (batch 0); a frame over the budget keeps its lowest-key voxels.
+    """
+    extent = step * (n_frames - 1) + window if n_frames > 0 else window
+    occ = np.zeros((extent, depth, 8), bool)
+    occ[:, :, 0] = rng.random((extent, depth)) < density
+    for _ in range(int(rng.integers(12, 24))):
+        x0 = int(rng.integers(0, max(extent - 8, 1)))
+        y0 = int(rng.integers(0, max(depth - 8, 1)))
+        w, l, h = rng.integers(2, 8, 3)
+        occ[x0:x0 + w, y0:y0 + l, 1:1 + min(int(h), 7)] = True
+    wx, wy, wz = np.nonzero(occ)
+    world = np.stack([wx, wy, wz], axis=1).astype(np.int32)
+    world = world[np.lexsort((world[:, 2], world[:, 1], world[:, 0]))]
+    frames = []
+    for t in range(n_frames):
+        lo = t * step
+        vis = world[(world[:, 0] >= lo) & (world[:, 0] < lo + window)]
+        vis = vis[:max_voxels]
+        n = vis.shape[0]
+        coords = np.zeros((max_voxels, 3), np.int32)
+        bidx = np.zeros((max_voxels,), np.int32)
+        valid = np.zeros((max_voxels,), bool)
+        feats = np.zeros((max_voxels, feat_ch), np.float32)
+        labels = np.zeros((max_voxels,), np.int32)
+        coords[:n] = vis
+        valid[:n] = True
+        # int32 products wrap, as the reference's do
+        h = (vis[:, 0] * 73856093 ^ vis[:, 1] * 19349663
+             ^ vis[:, 2] * 83492791).astype(np.int64)
+        for c in range(feat_ch):
+            feats[:n, c] = (((h >> c) & 0xFF).astype(np.float32) / 255.0
+                            - 0.5)
+        labels[:n] = (vis[:, 2] > 0).astype(np.int32)
+        frames.append(VoxelBatch(coords, bidx, valid, feats, labels))
+    return frames
 
 
 def make_batch(rng: np.random.Generator, kind: str, batch_size: int,

@@ -4,7 +4,8 @@
 compacted banked table; :func:`build_kmap` runs the full search through the
 CUDA query kernel (kernel.py) or, with ``impl="ref"``, its plain version.
 Both give the same kmap bit for bit, and both match the host hash oracle
-``core.mapsearch.build_kmap_hash``.
+``core.mapsearch.build_kmap_hash``. ``build_kmap(update=)`` searches only
+a streaming frame's dirty rows, against the frame's spliced table.
 """
 from __future__ import annotations
 
@@ -17,8 +18,20 @@ from repro_torch.kernels.octent.kernel import LANE, octent_query
 from repro_torch.kernels.octent.ref import octent_query_ref
 
 #: stage-2 query rows submitted since the last reset: a full
-#: :func:`build_kmap` adds its N voxel rows
+#: :func:`build_kmap` adds its N voxel rows, an ``update=`` call its Q
+#: listed rows (padding included), as the reference counts them
 QUERY_ROWS = [0]
+
+
+class KmapUpdate(NamedTuple):
+    """Re-search request of :func:`build_kmap`: ``kmap`` is the previous
+    (N, K) kmap over the same canonical rows, ``rows`` the -1-padded (Q,)
+    int32 rows to search again (``core.stream`` lists the rows whose
+    neighbourhood touches a changed block). Every other row is kept bit
+    for bit."""
+
+    kmap: torch.Tensor   # (N, K) int32
+    rows: torch.Tensor   # (Q,) int32, -1 padded
 
 
 class QueryTable(NamedTuple):
@@ -73,7 +86,8 @@ def build_query_table(coords: torch.Tensor, batch: torch.Tensor,
 def build_kmap(coords: torch.Tensor, batch: torch.Tensor,
                valid: torch.Tensor, *, max_blocks: int, grid_bits: int = 7,
                batch_bits: int = 4, impl: str | None = None,
-               table: QueryTable | None = None
+               table: QueryTable | None = None,
+               update: KmapUpdate | None = None
                ) -> tuple[torch.Tensor, torch.Tensor]:
     """Submanifold OCTENT map search: stage 1 + stage 2.
 
@@ -83,14 +97,26 @@ def build_kmap(coords: torch.Tensor, batch: torch.Tensor,
     :class:`QueryTable` for this exact coordinate set, so only the query
     runs. The queries are the 27 Subm3 taps.
 
+    ``update`` (a :class:`KmapUpdate`, which needs ``table``: the table of
+    the new frame, never built here) searches only ``update.rows``, in the
+    kernel's row-list mode, into a copy of ``update.kmap``. A listed row
+    that is not valid (an evicted slot) comes back all -1, as from a
+    build from scratch.
+
     Returns ``(kmap (N, K) int32 with -1 misses, n_blocks)``; n_blocks is
     the true occupied-block count for the caller's overflow check.
     """
     impl = impl or "kernel"
     if impl not in ("kernel", "ref"):
         raise ValueError(f"unknown search impl {impl!r}")
+    if update is not None and table is None:
+        raise ValueError(
+            "update= re-searches dirty rows against a delta-updated "
+            "QueryTable and never builds one itself: pass the table= the "
+            "stream spliced for this frame (core/stream.py does)")
     offsets = torch.as_tensor(morton.subm3_offsets(), device=coords.device)
-    QUERY_ROWS[0] += coords.shape[0]
+    QUERY_ROWS[0] += (update.rows.shape[0] if update is not None
+                      else coords.shape[0])
     qt = table if table is not None else build_query_table(
         coords, batch, valid, max_blocks=max_blocks, grid_bits=grid_bits,
         batch_bits=batch_bits)
@@ -98,5 +124,7 @@ def build_kmap(coords: torch.Tensor, batch: torch.Tensor,
     kmap = fn(coords.contiguous(), batch.contiguous(), valid.contiguous(),
               offsets, qt.ublocks, qt.tkey,
               qt.tval, qt.n_blocks, grid_bits=grid_bits,
-              batch_bits=batch_bits)
+              batch_bits=batch_bits,
+              rows=None if update is None else update.rows,
+              prev=None if update is None else update.kmap)
     return kmap, qt.n_blocks

@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import morton
+from repro_torch.core.mapsearch import set_drop
 
 
 def encode_queries(coords: torch.Tensor, batch: torch.Tensor,
@@ -37,8 +38,24 @@ def octent_query_ref(coords: torch.Tensor, batch: torch.Tensor,
                      valid: torch.Tensor, offsets: torch.Tensor,
                      ublocks: torch.Tensor, tkey: torch.Tensor,
                      tval: torch.Tensor, n_blocks: torch.Tensor, *,
-                     grid_bits: int = 7, batch_bits: int = 4) -> torch.Tensor:
-    """Resolve all K offset queries per voxel. Returns kmap (N, K) int32."""
+                     grid_bits: int = 7, batch_bits: int = 4,
+                     rows: torch.Tensor | None = None,
+                     prev: torch.Tensor | None = None) -> torch.Tensor:
+    """Resolve all K offset queries per voxel. Returns kmap (N, K) int32.
+
+    Row-list mode (``rows`` (Q,) -1 padded, ``prev`` (N, K)): gather the
+    listed rows, search them, and scatter the result into a copy of
+    ``prev`` through a drop row (index N, cut off), so that a -1 entry is
+    dropped.
+    """
+    if rows is not None:
+        n = coords.shape[0]
+        live = rows >= 0
+        sel = torch.where(live, rows, 0).long()
+        sub = octent_query_ref(coords[sel], batch[sel], valid[sel] & live,
+                               offsets, ublocks, tkey, tval, n_blocks,
+                               grid_bits=grid_bits, batch_bits=batch_bits)
+        return set_drop(prev, torch.where(live, rows, n), sub)
     del batch_bits   # part of the key contract; the query needs no bound
     max_blocks = ublocks.shape[0]
     inb, bkey, bank, row = encode_queries(coords, batch, valid, offsets,

@@ -1,0 +1,166 @@
+"""The pinned tier: small, geometry-only search structures kept on device.
+
+SpOctA's caching is non-uniform: the small, high-reuse mapping structures
+stay resident while the bulk feature stream does not. For the plan layer
+that means the OCTENT stage-1 :class:`~repro_torch.kernels.octent.ops.
+QueryTable` (the block directory and the compacted table, a few hundred
+KiB at a 65,536-row bucket) outlives the count-bounded
+:class:`~repro_torch.core.plan.PlanCache`: a plan rebuilt after eviction,
+or a streaming frame's level, fetches its table instead of rebuilding it.
+
+"Pinned" means a strong reference to a tensor on its device: holding it
+keeps the buffer alive, dropping the last reference frees it. The
+:class:`PinnedStore` is that reference, bounded in bytes, keyed by content
+and evicting in insertion order; :func:`default_store` is one store shared
+by every PlanCache that brings none.
+"""
+from __future__ import annotations
+
+from collections import OrderedDict
+
+import torch
+
+
+def nbytes(tree) -> int:
+    """Bytes of every tensor leaf of ``tree`` (tuples, lists, dicts and
+    NamedTuples are walked; None and non-tensor leaves count 0)."""
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    if isinstance(tree, dict):
+        return sum(nbytes(v) for v in tree.values())
+    if isinstance(tree, (tuple, list)):
+        return sum(nbytes(v) for v in tree)
+    return 0
+
+
+def _anchors_match(anchored, arrays) -> bool | None:
+    """Element-wise compare an anchored tensor tuple with ``arrays``; None
+    when the entry was pinned without an anchor (unverifiable)."""
+    if anchored is None:
+        return None
+    return all(torch.equal(a, torch.as_tensor(b, device=a.device))
+               for a, b in zip(anchored, arrays))
+
+
+class PinnedStore:
+    """Byte-bounded, content-keyed store of pinned device tensors.
+
+    One entry per key (``core.plan.subm3_plan`` uses ``("qtable",
+    fingerprint, max_blocks, grid_bits, batch_bits)``); the value is any
+    tree of tensors. When ``put`` would exceed ``capacity_bytes``, entries
+    go in insertion order; a value larger than the whole budget is not
+    stored.
+
+    ``put`` takes the key's source tensors as an ``anchor`` and ``get(...,
+    verify=True)`` compares them element-wise before serving: a mismatch
+    is a fingerprint collision (counted, the entry dropped, None
+    returned), and an anchorless entry is dropped for a verifying reader
+    too. Anchors count against the budget, since the store's reference
+    may be all that keeps them alive.
+
+    Refcounted holds: a streaming session refetches its per-level tables
+    every frame, so byte pressure must not evict them mid-sequence.
+    :meth:`acquire` marks a key as held (before or after its first
+    ``put``); eviction skips held entries and, when everything resident is
+    held, admits over budget (counted in ``evictions_skipped``);
+    :meth:`release` returns the entry to insertion-order eviction.
+    """
+
+    def __init__(self, capacity_bytes: int = 32 * 2 ** 20):
+        self.capacity_bytes = capacity_bytes
+        # key -> (value, bytes, anchor tensors | None)
+        self._entries: OrderedDict = OrderedDict()
+        self._refs: dict = {}                # key -> holds
+        self.hits = 0
+        self.misses = 0
+        self.evictions = 0
+        self.evictions_skipped = 0
+        self.collisions = 0
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    def __contains__(self, key) -> bool:
+        return key in self._entries
+
+    def resident_bytes(self) -> int:
+        """Bytes the store pins: values and their anchors."""
+        return sum(e[1] for e in self._entries.values())
+
+    def get(self, key, anchor=None, verify: bool = False):
+        """The pinned value of ``key``, or None (a hit or a miss)."""
+        entry = self._entries.get(key)
+        if entry is None:
+            self.misses += 1
+            return None
+        if verify and anchor is not None:
+            ok = _anchors_match(entry[2], anchor)
+            if ok is not True:
+                if ok is False:
+                    self.collisions += 1
+                    from repro_torch.runtime import guard
+                    guard.health().note("pinned.collision")
+                del self._entries[key]    # collision or unverifiable:
+                self.misses += 1          # the caller rebuilds
+                return None
+        self.hits += 1
+        return entry[0]
+
+    def put(self, key, value, anchor=None) -> None:
+        """Pin ``value`` under ``key``, evicting in insertion order to fit.
+        A key already present keeps its value and moves to the back."""
+        size = nbytes(value) + nbytes(anchor)
+        if size > self.capacity_bytes:
+            return
+        if key in self._entries:
+            self._entries.move_to_end(key)
+            return
+        while self._entries and \
+                self.resident_bytes() + size > self.capacity_bytes:
+            victim = next((k for k in self._entries
+                           if self._refs.get(k, 0) == 0), None)
+            if victim is None:
+                # every resident entry is held: admit over budget rather
+                # than drop a table a stream will refetch
+                self.evictions_skipped += 1
+                break
+            del self._entries[victim]
+            self.evictions += 1
+        self._entries[key] = (value, size,
+                              tuple(anchor) if anchor is not None else None)
+
+    def acquire(self, key) -> None:
+        """Hold ``key``: eviction skips it until every holder releases."""
+        self._refs[key] = self._refs.get(key, 0) + 1
+
+    def release(self, key) -> None:
+        """Drop one hold on ``key`` (a no-op on an unheld key)."""
+        c = self._refs.get(key, 0) - 1
+        if c <= 0:
+            self._refs.pop(key, None)
+        else:
+            self._refs[key] = c
+
+    def refcount(self, key) -> int:
+        """Holds on ``key`` (0 when unheld)."""
+        return self._refs.get(key, 0)
+
+    def clear(self) -> None:
+        self._entries.clear()
+
+    def stats(self) -> dict:
+        return {"entries": len(self),
+                "resident_bytes": self.resident_bytes(),
+                "hits": self.hits, "misses": self.misses,
+                "evictions": self.evictions,
+                "evictions_skipped": self.evictions_skipped,
+                "held": len(self._refs), "collisions": self.collisions}
+
+
+_DEFAULT_STORE = PinnedStore()
+
+
+def default_store() -> PinnedStore:
+    """The process-wide store of every PlanCache that brings none, so that
+    short-lived caches share one resident copy of each search structure."""
+    return _DEFAULT_STORE

@@ -47,7 +47,10 @@ to a row count that is not a multiple of 128) and with fewer, its plan
 bit-equal to the CPU's and its output and gradients to the plain
 version's; a small SECOND's forward (1e-3 of the plain max) and its
 ``detection_loss`` gradients (the plain run's ReLU masks pinned to the
-kernel run's) are held to the plain versions.
+kernel run's) are held to the plain versions. Kernel 1's row-list mode is
+held to its plain version on a spliced streaming table (an empty list,
+one row, 200 rows, evicted slots, -1 pads), and a TINY stream's delta and
+scratch sessions agree bit for bit on the card.
 """
 from __future__ import annotations
 
@@ -969,3 +972,119 @@ def test_detection_loss_grads_kernel_vs_plain_on_card(cuda, monkeypatch):
             scale = float(gr[k].abs().max())
             assert scale > 0 and float((gk[k] - gr[k]).abs().max()) \
                 <= 1e-3 * scale, k
+
+
+def _spliced_level(dev, n=4096):
+    """Two frames of a small moving sensor through the delta path on the
+    card: the second frame's canonical rows, its spliced table, the first
+    frame's kmap and the delta. The second frame also loses every 7th
+    row, so that more slots are evicted than the inserts refill."""
+    from repro_torch.core import stream
+    from repro_torch.data.pointcloud import moving_sensor_sequence
+    frames = moving_sensor_sequence(np.random.default_rng(3), 2, n,
+                                    window=96, step=8, depth=48,
+                                    density=0.35)
+    frames[1].valid[::7] = False
+    st = stream.empty_state(n, max_blocks=n, device=dev)
+    for f in frames:
+        prev = st
+        c, b, v = _dev(dev, f.coords, f.batch, f.valid)
+        delta, nc, nb, nv = stream.diff_frame(st, c, b, v, max_blocks=n)
+        table = stream.apply_table_delta(st.table, delta, st.coords,
+                                         st.batch, nc, nb, max_blocks=n)
+        kmap, _ = oct_ops.build_kmap(nc, nb, nv, max_blocks=n, impl="ref",
+                                     table=table)
+        st = stream.FrameState(nc, nb, nv, table, kmap)
+    assert int(delta.n_evicted) > 0 and int(delta.n_inserted) > 0
+    return st, prev.kmap, delta
+
+
+def test_octent_row_list_kernel_vs_plain(cuda):
+    """Kernel 1's row-list mode on a spliced table, against its plain
+    version bit for bit and against a full search: Q = 0 (no launch, a
+    copy of prev), Q = 1, Q = 200 (not a multiple of 128), the dirty rows
+    with -1 pads (evicted slots among them, which come back all -1); and
+    a full-mode launch in the same test."""
+    from repro_torch.core import stream
+    st, prev, delta = _spliced_level(cuda)
+    offs = torch.as_tensor(morton.subm3_offsets(), device=cuda)
+    qt = st.table
+    args = (st.coords, st.batch, st.valid, offs, qt.ublocks, qt.tkey,
+            qt.tval, qt.n_blocks)
+    before, rows_before = oct_kernel.launches, oct_kernel.row_launches
+    full = oct_kernel.octent_query(*args)
+    torch.cuda.synchronize()
+    assert oct_kernel.launches == before + 1
+    assert oct_kernel.row_launches == rows_before
+    assert torch.equal(full, octent_query_ref(*args))
+    n = st.coords.shape[0]
+    dirty = torch.nonzero(delta.dirty_rows).flatten().to(torch.int32)
+    evicted = torch.nonzero(delta.evicted & ~st.valid).flatten().to(
+        torch.int32)
+    assert evicted.numel() > 0
+    rng = np.random.default_rng(7)
+    some = torch.as_tensor(np.sort(rng.choice(n, 200, replace=False)),
+                           dtype=torch.int32, device=cuda)
+    pad = stream.pack_dirty_rows(delta.dirty_rows,
+                                 stream.row_budget(dirty.numel(), n))
+    assert pad.shape[0] % 128 == 0 and bool((pad == -1).any())
+    cases = {"q0": dirty[:0], "q1": dirty[:1], "q200": some,
+             "dirty_padded": pad,
+             "evicted_and_pads": torch.cat([
+                 evicted, pad[-3:], dirty[st.valid[dirty.long()]][:5]])}
+    for name, rows in cases.items():
+        launches = oct_kernel.launches
+        got = oct_kernel.octent_query(*args, rows=rows, prev=prev)
+        torch.cuda.synchronize()
+        want = octent_query_ref(*args, rows=rows, prev=prev)
+        assert torch.equal(got, want), name
+        assert oct_kernel.launches == launches + (rows.numel() > 0), name
+        listed = rows[rows >= 0].long()
+        keep = torch.ones(n, dtype=torch.bool, device=cuda)
+        keep[listed] = False
+        assert torch.equal(got[listed], full[listed]), name
+        assert torch.equal(got[keep], prev[keep]), name
+    assert oct_kernel.row_launches == rows_before + 4
+    # the padded dirty rows turn the previous kmap into the full search
+    assert torch.equal(oct_kernel.octent_query(*args, rows=pad, prev=prev),
+                       full)
+
+
+def test_stream_delta_vs_scratch_on_card(cuda):
+    """A 4-frame TINY moving-sensor stream on the card: the delta session
+    (kernel 1 in row-list mode on the dirty rows) and the scratch session
+    agree bit for bit at every level and at the logits."""
+    from repro_torch.core import plan as planlib, stream
+    from repro_torch.data.pointcloud import moving_sensor_sequence
+    from repro_torch.models import minkunet
+    from repro_torch.runtime import feature_cache
+    cfg = minkunet.MinkUNetConfig(name="tiny", in_ch=3, classes=4, stem=8,
+                                  enc=(8, 8), dec=(8, 8), blocks=1,
+                                  grid_bits=5, batch_bits=2)
+    n = 2048
+    model = minkunet.MinkUNet(cfg, device=cuda)
+    frames = moving_sensor_sequence(np.random.default_rng(5), 4, n,
+                                    window=128, step=8, depth=32,
+                                    density=0.3)
+    d = stream.StreamSession(
+        cfg, n, enabled=True, device=cuda,
+        cache=planlib.PlanCache(pinned=feature_cache.PinnedStore()))
+    s = stream.StreamSession(
+        cfg, n, enabled=False, device=cuda,
+        cache=planlib.PlanCache(content=False,
+                                pinned=feature_cache.PinnedStore()))
+    row_launches = oct_kernel.row_launches
+    for t, f in enumerate(frames):
+        d.advance(f.coords, f.batch, f.valid)
+        s.advance(f.coords, f.batch, f.valid)
+        for r in range(d.levels):
+            a, b = d.states[r], s.states[r]
+            for x, y in [(a.coords, b.coords), (a.valid, b.valid),
+                         (a.kmap, b.kmap), *zip(a.table, b.table)]:
+                assert torch.equal(x, y), (t, r)
+        feats = f.feats[:, :cfg.in_ch]
+        assert torch.equal(d.forward(model, feats), s.forward(model, feats))
+    assert oct_kernel.row_launches > row_launches
+    assert d.stats()["rows_searched"] < s.stats()["rows_searched"]
+    d.close()
+    s.close()

@@ -47,7 +47,8 @@ def test_port_never_imports_jax_or_repro():
     assert len(files) > 15 and files[0].exists()
     for mod in ("optim/adamw.py", "checkpoint/checkpoint.py",
                 "runtime/fault.py", "launch/train.py", "models/second.py",
-                "runtime/guard.py"):
+                "runtime/guard.py", "core/stream.py", "core/validate.py",
+                "runtime/feature_cache.py", "launch/spconv_stream.py"):
         assert PKG / mod in files, mod
     bad = {str(p.relative_to(REPO)): sorted(_imported_roots(p)
                                             & {"jax", "jaxlib", "repro"})
@@ -133,6 +134,21 @@ def test_second_raises_without_a_card(monkeypatch):
     # the explicit CPU request builds
     model = second.SECOND(cfg, device="cpu")
     assert model.rpn["conv1"].shape == (8, 16, 3, 3)
+
+
+def test_stream_raises_without_a_card(monkeypatch):
+    from repro_torch.core import stream
+    from repro_torch.launch import spconv_stream
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = spconv_stream.CONFIGS["tiny"]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        stream.StreamSession(cfg, 128)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        spconv_stream.run_stream(cfg, 1, 128, log=None)
+    # the explicit CPU request runs
+    res = spconv_stream.run_stream(cfg, 2, 128, window=16, depth=8,
+                                   device="cpu", log=None)
+    assert res["frames"] == 2
 
 
 def _octent_args():
