@@ -59,6 +59,41 @@ serving path at TinyLlama-1.1B's:
   a frame, under half the scratch rows searched, none on the repeated
   frame; kernel 1's row-list launch against its plain version and a full
   launch; one profiled delta frame;
+* ``chaos``: the serve replay of ``benchmarks/serve_replay.py`` on the
+  card: the four scenes of ``serve``, each again in fresh buffers, a
+  NaN-coordinate and an oversize cloud (rejected by the strict policy),
+  two requests past their deadline (shed) and a victim of a persistent
+  ``admit`` fault, replayed clean and under a fault plan with a one-shot
+  fault at each of ``search``, ``gemm``, ``plan``, ``fingerprint`` and
+  ``batch`` (the fallback chain off, the port's default): every clean
+  request completes in both with the same sha256 digest, equal to phase
+  ``serve``'s, the victim alone is isolated, the result ledger equals the
+  ``serve.*`` / ``admit.*`` health deltas, the faulted health delta is
+  the clean one plus exactly the faults and their retries, and a fresh
+  geometry launches kernel 1 five and kernel 2 25 times, a repeat kernel
+  1 never. Then the degradation ladder (persistent ``plan`` faults climb
+  it to level 2, where a request is flagged and still served by the
+  kernels at the halved batch, bit-equal, since the plain versions never
+  stand in for a kernel on the card, then to level 3, which sheds;
+  healthy ticks walk it back to 0) and the empty fallback chain of the
+  card (``REPRO_GUARD_FALLBACK=1``: a persistent ``gemm`` fault on the
+  stem quarantines the kernel and isolates the request, the quarantine's
+  second call makes the next request's first try raise and its retry
+  launch the kernel, bit-equal, and no plain version is served; unset,
+  the same fault isolates the request), each health delta held
+  exactly;
+* ``restart``: the serving side of ``benchmarks/restart_replay.py``:
+  ``--worker-serve`` processes of this script serve the four scenes
+  with a persist dir (an explicit byte budget): an uninterrupted one (its
+  digests equal phase ``serve``'s; snapshot bytes and write ms per
+  request, latency beside phase ``serve``'s), a warm one over its
+  directory (no map search, no kernel-1 launch), one SIGKILLed by the
+  ``kill`` site at its first tick and one in the middle of a snapshot
+  write (a torn temporary file left), each restarted (``recover`` queues
+  the journaled requests again; the same digests), and a warm one after
+  one plan snapshot was truncated and another bit-flipped (both dropped
+  and counted, the same digests); each process's time to its first
+  result, cold and warm;
 * ``flash_attention``: the kernel (bf16 on the tensor cores, float32 on
   the CUDA cores) against its plain version at six attention shapes of
   the repo's configs (TinyLlama's served prefill, in bf16 and float32, a
@@ -74,10 +109,11 @@ serving path at TinyLlama-1.1B's:
   teacher-forced prefill.
 
 Each path runs with its launch counts set to 0 just before and read just
-after. The bound of kernels 2-4 is float32-accurate work at the 3xTF32
-tensor-core rate (495 / 3 TFLOP/s) or bytes at HBM's rate, whichever is
-longer; ``bound_ms_f32_cores`` beside it is the bound at the CUDA cores'
-67 TFLOP/s. Output is one JSON object per line; the last line is
+after (phase ``restart`` reads its workers' counts). The bound of kernels
+2-4 is float32-accurate work at the 3xTF32 tensor-core rate (495 / 3
+TFLOP/s) or bytes at HBM's rate, whichever is longer;
+``bound_ms_f32_cores`` beside it is the bound at the CUDA cores' 67
+TFLOP/s. Output is one JSON object per line; the last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
 exits non-zero and prints no last line. It also exits non-zero when no
 CUDA device is visible or when ``src/repro_torch`` is not beside it.
@@ -151,6 +187,12 @@ TRAIN_STEPS = 3
 STREAM_FRAMES, STREAM_WINDOW, STREAM_STEP = 12, 512, 32
 STREAM_DEPTH, STREAM_DENSITY = 256, 0.35
 SMOKE_RATIO_GATE = 0.5         # delta / scratch rows searched, steady frames
+# phases chaos and restart
+CHAOS_DEADLINE_S = 600.0       # generous: the replay is about faults
+CHAOS_COOLDOWN = 2             # REPRO_GUARD_COOLDOWN of the fallback
+                               # check, whose counts assume 2
+PERSIST_BUDGET = 16 * 2 ** 30  # REPRO_PERSIST_MAX_BYTES of the workers
+RESTART_TIMEOUT_S = 600        # each worker process
 STREAM_CHECK_FRAME = 6         # kernel 1's row-list launch held and timed
 STREAM_PROFILE_FRAME = 7       # the delta frame under torch.profiler
 LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN = "tinyllama-1.1b", 4, 512, 32
@@ -1178,6 +1220,12 @@ def _reset_counts():
     planlib.MAPSEARCH_CALLS[0] = 0
 
 
+def _n_layers(cfg) -> int:
+    """Kernel-2 layers of one MinkUNet forward."""
+    return 1 + len(cfg.enc) + len(cfg.dec) \
+        + cfg.blocks * (len(cfg.enc) + len(cfg.dec))
+
+
 def phase_serve(dev, cfg, scenes, warm):
     """The main path: ServeEngine over MinkUNet-large, one request per
     tick, then one request with the fused epilogue. Returns the launch
@@ -1193,8 +1241,7 @@ def phase_serve(dev, cfg, scenes, warm):
     for eng in engines:                    # CUDA/cuBLAS init, not measured
         eng.submit("warmup", *warm)
         eng.step()
-    n_layers = 1 + len(cfg.enc) + len(cfg.dec) \
-        + cfg.blocks * (len(cfg.enc) + len(cfg.dec))
+    n_layers = _n_layers(cfg)
     n_subm = 1 + cfg.blocks * (len(cfg.enc) + len(cfg.dec))
     want_per_req = (len(cfg.enc) + 1, n_layers, 2 * len(cfg.enc) + 1)
     _reset_counts()
@@ -1630,10 +1677,11 @@ def phase_second(dev):
                 v.clear()
             guard._CAPACITY_HINTS.clear()
             _reset_counts()
-            guard.REPLANS[0] = 0
+            h0 = guard.health().get("replan.overflow")
             ms, out = sync_ms(lambda: model(s, impl=impl))
             return {"ms": ms, "out": out, "counts": _counts(),
-                    "replans": guard.REPLANS[0], "tried": list(tried),
+                    "replans": guard.health().get("replan.overflow") - h0,
+                    "tried": list(tried),
                     "plans": {k: unique(v) for k, v in built.items()}}
 
         res, ref = first(None), first("ref")
@@ -2127,6 +2175,591 @@ def phase_stream(dev, cfg):
             "row_list": row_list}
 
 
+# ---------------------------------------------------------------------------
+# Phase chaos: the serve replay under injected faults, the ladder, fallback
+# ---------------------------------------------------------------------------
+
+def _oversize_cloud(n: int):
+    """``n`` distinct valid voxels in a 64 x 64 x k block: more than a
+    BUCKET-row bucket admits."""
+    lin = np.arange(n)
+    coords = np.stack([lin % 64, (lin // 64) % 64, lin // 4096],
+                      -1).astype(np.int32)
+    return (coords, np.zeros(n, np.int32), np.ones(n, bool),
+            np.zeros((n, 4), np.float32))
+
+
+def _chaos_mix(scenes, victim):
+    """The replay's submissions ``(rid, arrays, deadline_s)``, as
+    ``benchmarks/serve_replay.py`` builds its mix: the scenes, then each
+    again in fresh buffers (content hits), a cloud with NaN coordinates
+    and an oversize one (the strict policy rejects both), two requests
+    already past their deadline (shed at dequeue), and a fresh geometry
+    last: the victim of a persistent ``admit`` fault."""
+    def arrays(sc):
+        return tuple(np.array(a) for a in (sc.coords, sc.batch, sc.valid,
+                                            sc.feats))
+    subs = [(rid, arrays(sc), CHAOS_DEADLINE_S) for rid, sc in scenes]
+    subs += [(rid + "-again", arrays(sc), CHAOS_DEADLINE_S)
+             for rid, sc in scenes]
+    c, b, v, f = arrays(scenes[0][1])
+    cf = c.astype(np.float32)
+    cf[:3] = np.nan
+    subs.append(("bad-nan", (cf, b, v, f), CHAOS_DEADLINE_S))
+    subs.append(("bad-oversize", _oversize_cloud(BUCKET + 4096),
+                 CHAOS_DEADLINE_S))
+    subs += [(f"late-{i}", arrays(scenes[2][1]), -1.0) for i in range(2)]
+    subs.append(("victim", arrays(victim), CHAOS_DEADLINE_S))
+    return subs
+
+
+def _replay(dev, model, subs, plan):
+    """One engine lifecycle over ``subs`` with ``plan`` installed (its
+    counts of site calls per tick recorded), one request a tick. Returns
+    the results by rid, the engine's stats, the health delta, each
+    completed request's launches ``(kernel 1, kernel 2)`` and searches,
+    and the site calls each tick's request made, by rid."""
+    from repro_torch.launch.spconv_serve import ServeEngine
+    from repro_torch.runtime import admission, fault, guard
+    cfg = model.cfg
+    eng = ServeEngine(model, device=dev, max_batch=1,
+                      queue=admission.AdmissionQueue(
+                          capacity=64, buckets=(BUCKET,),
+                          grid_bits=cfg.grid_bits,
+                          batch_bits=cfg.batch_bits))
+    h0 = guard.health().snapshot()
+    launches, calls = {}, {}
+    with fault.inject(plan):
+        for rid, arrs, dl in subs:
+            eng.submit(rid, *arrs, deadline_s=dl)
+        while len(eng.queue):
+            before, c0 = _counts(), dict(plan.calls)
+            tick = eng.step()
+            d = [a - b for a, b in zip(_counts(), before)]
+            for r in tick:
+                if r.status == "completed":
+                    launches[r.rid] = (d[0], d[1], d[3])
+                    calls[r.rid] = c0
+    out = {"results": {r.rid: r for r in eng.results},
+           "stats": eng.stats(), "health": guard.health().delta(h0),
+           "launches": launches, "calls_before": calls}
+    del eng
+    return out
+
+
+def _ledger_errors(rep) -> list:
+    """The engine's result ledger against its ``serve.*`` and ``admit.*``
+    health deltas (``benchmarks/serve_replay.py``'s accounting)."""
+    from repro_torch.runtime import admission
+    s, h, bad = rep["stats"], rep["health"], []
+    for status in ("completed", "shed", "rejected", "isolated", "degraded"):
+        if s[status] != h.get(f"serve.{status}", 0):
+            bad.append(f"{status}={s[status]} != serve.{status}="
+                       f"{h.get(f'serve.{status}', 0)}")
+    # admitted: completed, or shed after admission
+    admitted = sum(r.status == "completed" or (
+        r.status == "shed" and r.reason != admission.SHED_QUEUE_FULL)
+        for r in rep["results"].values())
+    if h.get("admit.ok", 0) != admitted:
+        bad.append(f"admit.ok={h.get('admit.ok', 0)} != {admitted}")
+    return bad
+
+
+def _no_validate(delta: dict) -> dict:
+    return {k: v for k, v in delta.items() if not k.startswith("validate.")}
+
+
+def _chaos_schedule(clean, rids):
+    """One fault at each serving site, each recovered by the engine's
+    retry: ``batch`` on the first tick, ``fingerprint`` on the first
+    request's level-1 coordinates (a level that a repeat reaches by
+    identity, so the corrupt key costs nothing later), ``plan`` on the
+    second request's first plan build, ``search`` on the third request's
+    first search, ``gemm`` on the fourth request's first layer, and
+    ``admit``: a transient on the first submission and a persistent pair
+    on the victim's (the last). Indices come from the clean replay's site
+    calls before each request; no fault precedes the first request's
+    level 1 but the batch site's, which fingerprints nothing, and a
+    repeat fingerprints level 0 alone, so the first request's level 1
+    starts at its calls before plus a repeat's."""
+    before = clean["calls_before"]
+    n_subs = len(clean["results"])
+
+    def fp(rid):
+        return before[rid].get("fingerprint", 0)
+
+    level0 = fp(rids[1] + "-again") - fp(rids[0] + "-again")
+    return {"batch": [0], "fingerprint": [fp(rids[0]) + level0],
+            "plan": [before[rids[1]].get("plan", 0)],
+            "search": [before[rids[2]].get("search", 0)],
+            "gemm": [before[rids[3]].get("gemm", 0)],
+            "admit": [0, n_subs, n_subs + 1]}
+
+
+def phase_chaos(dev, cfg, scenes, victim, serve_digests):
+    """The serve replay under faults (``benchmarks/serve_replay.py``'s
+    gate), then the degradation ladder and the fallback chain, each with
+    its health counters held exactly. Returns the launches of kernels 1
+    and 2 over the phase."""
+    import os
+    import torch
+    from repro_torch.runtime import admission, fault, guard
+    from repro_torch.launch.spconv_serve import ServeEngine
+    t_phase = time.perf_counter()
+    model = _seeded_model(cfg, dev)
+    rids = [rid for rid, _ in scenes]
+    subs = _chaos_mix(scenes, victim)
+    n_layers = _n_layers(cfg)
+    # (kernel-1, kernel-2) launches of a fresh geometry and of a repeat
+    fresh, repeat = (len(cfg.enc) + 1, n_layers), (0, n_layers)
+    _reset_counts()
+    clean = _replay(dev, model, subs, fault.FaultPlan())
+    schedule = _chaos_schedule(clean, rids)
+    faulted = _replay(dev, model, subs, fault.FaultPlan(schedule=schedule))
+
+    for name, rep in (("clean", clean), ("faulted", faulted)):
+        res = rep["results"]
+        for rid, _, _ in subs:
+            want = {"bad-nan": ("rejected", admission.REJECT_INVALID),
+                    "bad-oversize": ("rejected", admission.REJECT_OVERSIZE),
+                    "late-0": ("shed", admission.SHED_DEADLINE),
+                    "late-1": ("shed", admission.SHED_DEADLINE),
+                    "victim": ("completed", None) if name == "clean" else
+                    ("isolated", admission.ISOLATED_FAULT)}.get(
+                        rid, ("completed", None))
+            got = (res[rid].status, res[rid].reason)
+            check(got == want, f"chaos {name}: {rid} {got}, want {want}")
+            check(not res[rid].degraded, f"chaos {name}: {rid} degraded "
+                  f"without a cause")
+        bad = _ledger_errors(rep)
+        check(not bad, f"chaos {name}: ledger != health: {bad}")
+        for rid in rids + [r + "-again" for r in rids]:
+            check(res[rid].digest == clean["results"][rid].digest,
+                  f"chaos {name}: {rid} digest differs from the clean "
+                  f"replay")
+            if dev.type == "cuda":
+                got = rep["launches"][rid][:2]
+                want = repeat if rid.endswith("-again") else fresh
+                check(got == want, f"chaos {name}: {rid} launched (kernel "
+                      f"1, kernel 2) {got}, want {want}")
+    for rid, _ in scenes:
+        check(clean["results"][rid].digest == serve_digests[rid],
+              f"chaos: {rid} digest differs from phase serve's")
+    # every serving site fired, and nothing else moved
+    h_clean, h_fault = _no_validate(clean["health"]), \
+        _no_validate(faulted["health"])
+    want = dict(h_clean)
+    for k, n in (("admit.ok", -1), ("serve.completed", -1),
+                 ("serve.isolated", 1), ("admit.isolated_fault", 1),
+                 ("admit.retry", 2), ("fault.admit", 3), ("fault.batch", 1),
+                 ("serve.batch_retry", 1), ("fault.plan", 1),
+                 ("fault.search", 1), ("serve.build_retry", 2),
+                 ("fault.gemm", 1), ("serve.exec_retry", 1),
+                 ("fault.fingerprint", 1)):
+        want[k] = want.get(k, 0) + n
+    check(h_fault == want, f"chaos faulted health {h_fault}, want {want}")
+    check(set(h_fault) >= {f"fault.{s}" for s in fault.SERVE_FAULT_SITES},
+          "chaos: a serving fault site never fired")
+
+    # -- the ladder: persistent plan faults climb it, healthy ticks descend
+    first_rid, first = scenes[0]
+    clean_digest = clean["results"][first_rid].digest
+    eng = ServeEngine(model, device=dev, max_batch=1, recover_after=2,
+                      queue=admission.AdmissionQueue(
+                          buckets=(BUCKET,), grid_bits=cfg.grid_bits,
+                          batch_bits=cfg.batch_bits))
+
+    def serve(rid, sc):
+        before = _counts()
+        eng.submit(rid, *(np.array(a) for a in (sc.coords, sc.batch,
+                                                 sc.valid, sc.feats)),
+                   deadline_s=CHAOS_DEADLINE_S)
+        (res,) = eng.step()
+        d = [a - b for a, b in zip(_counts(), before)]
+        return res, (d[0], d[1])
+
+    h0 = guard.health().snapshot()
+    res, _ = serve(first_rid, first)
+    check(res.digest == clean_digest,
+          "ladder: the first request differs from the clean replay")
+    levels, ladder = [], {}
+    with fault.inject(fault.FaultPlan(rate=1.0, sites=("plan",))):
+        for rid, sc in scenes[1:3]:
+            res, _ = serve(rid, sc)
+            check(res.status == "isolated", f"ladder: {rid} {res.status}")
+            levels.append(eng.level)
+        # level 2 keeps the kernels on the card: flagged, bit-equal
+        res, ln = serve(first_rid + "-level2", first)
+        check(res.status == "completed" and res.degraded and
+              eng.level == 2, f"ladder: level-2 request {res.status} "
+              f"degraded={res.degraded} level={eng.level}")
+        check((ln == repeat or dev.type != "cuda")
+              and res.digest == clean_digest,
+              f"ladder: level-2 request launched (kernel 1, kernel 2) "
+              f"{ln}, want {repeat}, bit-equal to the clean replay")
+        ladder["level2"] = {"launches": ln, "bit_equal": True}
+        res, _ = serve(scenes[3][0], scenes[3][1])
+        check(res.status == "isolated" and eng.level == 3,
+              f"ladder: {res.status} at level {eng.level}, want 3")
+        levels.append(eng.level)
+        res, ln = serve(first_rid + "-level3", first)
+        check(res.status == "shed" and res.reason == admission.SHED_OVERLOAD
+              and ln == (0, 0), f"ladder: level 3 served {res.status}")
+    for _ in range(5):
+        eng.step()
+        levels.append(eng.level)
+    check(levels == [1, 2, 3, 2, 2, 1, 1, 0],
+          f"ladder: levels {levels}")
+    res, ln = serve(first_rid + "-level0", first)
+    check(res.status == "completed" and not res.degraded
+          and res.digest == clean_digest,
+          "ladder: back at level 0 the logits differ from the clean replay")
+    if dev.type == "cuda":
+        check(ln == repeat, f"ladder: level-0 request launched {ln}")
+    want = {"admit.ok": 7, "fault.plan": 6, "serve.isolated": 3,
+            "serve.completed": 3, "serve.degraded": 1, "serve.shed": 1,
+            "admit.shed.overload": 1, "serve.degrade.enter": 3,
+            "serve.degrade.level1": 1, "serve.degrade.level2": 1,
+            "serve.degrade.level3": 1, "serve.degrade.exit": 3}
+    got = _no_validate(guard.health().delta(h0))
+    check(got == want, f"ladder: health {got}, want {want}")
+    ladder["levels"] = levels
+    ladder["health"] = got
+
+    # -- the fallback chain: empty on the card, flag or no flag, so a
+    # persistent kernel fault never serves the plain version
+    fb = {}
+    env = {k: os.environ.get(k) for k in ("REPRO_GUARD_FALLBACK",
+                                          "REPRO_GUARD_COOLDOWN")}
+    try:
+        os.environ["REPRO_GUARD_FALLBACK"] = "1"
+        os.environ["REPRO_GUARD_COOLDOWN"] = str(CHAOS_COOLDOWN)
+        h0 = guard.health().snapshot()
+        # two failed tries quarantine the stem's kernel for two calls: the
+        # engine's retry of this request takes the first and raises, and
+        # the next request's first try the second, its retry the kernel
+        with fault.inject(fault.FaultPlan(schedule={"gemm": [0, 1]})):
+            res, ln = serve(first_rid + "-fallback", first)
+        check(res.status == "isolated" and ln == (0, 0),
+              f"fallback on: {res.status}, launches {ln}, want isolated "
+              f"and (0, 0)")
+        for i in range(2):
+            res, ln = serve(f"{first_rid}-cooldown-{i}", first)
+            check(res.status == "completed" and res.digest == clean_digest
+                  and (ln == repeat or dev.type != "cuda"),
+                  f"cooldown {i}: {res.status}, launches {ln}, bit-equal "
+                  f"{res.digest == clean_digest}")
+        got = _no_validate(guard.health().delta(h0))
+        want = {"admit.ok": 3, "fault.gemm": 2, "fallback.error.gemm": 2,
+                "quarantine.enter.gemm": 1,
+                "quarantine.skip.gemm": CHAOS_COOLDOWN,
+                "serve.isolated": 1, "serve.exec_retry": 1,
+                "serve.completed": 2, "serve.degraded": 2,
+                "serve.degrade.enter": 1, "serve.degrade.level1": 1,
+                "serve.degrade.exit": 1}
+        check(got == want, f"fallback on: health {got}, want {want}")
+        fb["on"] = got
+        del os.environ["REPRO_GUARD_FALLBACK"]
+        h0 = guard.health().snapshot()
+        with fault.inject(fault.FaultPlan(schedule={"gemm": [0, 1]})):
+            res, ln = serve(first_rid + "-nofallback", first)
+        got = _no_validate(guard.health().delta(h0))
+        want = {"admit.ok": 1, "fault.gemm": 2, "serve.isolated": 1,
+                "serve.degrade.enter": 1, "serve.degrade.level1": 1}
+        check(res.status == "isolated" and got == want and ln == (0, 0),
+              f"fallback off: {res.status}, health {got}, launches {ln}")
+        fb["off"] = got
+    finally:
+        for k, v in env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    counts = _counts()
+    del eng, model
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    emit(phase="chaos", config=cfg.name, bucket=BUCKET,
+         requests=len(subs), schedule=schedule,
+         clean={"stats": {k: v for k, v in clean["stats"].items()
+                          if k != "cache"},
+                "health": _no_validate(clean["health"]),
+                "launches": clean["launches"]},
+         faulted={"stats": {k: v for k, v in faulted["stats"].items()
+                            if k != "cache"},
+                  "health": _no_validate(faulted["health"]),
+                  "launches": faulted["launches"]},
+         ladder=ladder, fallback=fb,
+         seconds=time.perf_counter() - t_phase)
+    return {"octent_query": counts[0], "spconv_gemm_fused": counts[1]}
+
+
+# ---------------------------------------------------------------------------
+# Phase restart: SIGKILL a persisted serving worker, restart it
+# ---------------------------------------------------------------------------
+
+def _serve_scenes():
+    """The four scenes of phase serve, made from their seeds."""
+    from repro_torch.data import pointcloud
+    lidar = [pointcloud.make_batch(np.random.default_rng(SEED + i), "lidar",
+                                   1, BUCKET, voxel_size=LIDAR_VOXEL)
+             for i in range(2)]
+    indoor = [pointcloud.make_batch(np.random.default_rng(SEED + 10 + i),
+                                    "indoor", 1, BUCKET) for i in range(2)]
+    return [("lidar-0", lidar[0]), ("lidar-1", lidar[1]),
+            ("indoor-0", indoor[0]), ("indoor-1", indoor[1])]
+
+
+def worker_serve(argv) -> int:
+    """``chip_smoke.py --worker-serve``: one serving process over a
+    persist dir, the body that phase restart SIGKILLs. It builds the
+    seeded MinkUNet-large, queues the journaled requests again
+    (``recover``), then (unless ``--restart-only``) serves the four scenes
+    of phase serve: one at a time (submit, then a tick), or with
+    ``--kill-at K`` all submitted first and drained, the ticks under a
+    fault plan whose ``kill`` site fires at call K. Submissions run
+    outside the plan, so both modes make the same kill-site calls, and
+    the uninterrupted one records the call index at each tick's start.
+    Writes its results as JSON to ``--out``."""
+    import argparse
+    t_start = time.time()
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--worker-serve", action="store_true")
+    ap.add_argument("--persist-dir", required=True)
+    ap.add_argument("--out", required=True)
+    ap.add_argument("--kill-at", type=int, default=-1)
+    ap.add_argument("--restart-only", action="store_true")
+    args = ap.parse_args(argv)
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.core import plan as planlib
+    from repro_torch.launch.spconv_serve import ServeEngine
+    from repro_torch.models import minkunet
+    from repro_torch.runtime import admission, fault, guard
+    dev = torch.device("cuda", 0)
+    cfg = minkunet.LARGE
+    model = _seeded_model(cfg, dev)
+    eng = ServeEngine(model, device=dev, max_batch=1,
+                      persist_dir=args.persist_dir,
+                      queue=admission.AdmissionQueue(
+                          buckets=(BUCKET,), grid_bits=cfg.grid_bits,
+                          batch_bits=cfg.batch_bits))
+    h0 = guard.health().snapshot()
+    recovery = eng.recover()
+    planlib.reset_mapsearch_counter()
+    _reset_counts()
+    done_at, tick_ms, tick_kill_calls = {}, {}, []
+    plan = fault.FaultPlan(schedule={fault.KILL_SITE: [args.kill_at]}
+                           if args.kill_at >= 0 else None)
+
+    def tick():
+        tick_kill_calls.append(plan.calls.get(fault.KILL_SITE, 0))
+        t0 = time.perf_counter()
+        with fault.inject(plan):
+            for r in eng.step():
+                if r.status == "completed":
+                    done_at[r.rid] = time.time()
+                    tick_ms[r.rid] = (time.perf_counter() - t0) * 1e3
+
+    scenes = [] if args.restart_only else _serve_scenes()
+    for rid, sc in scenes:
+        eng.submit(rid, sc.coords, sc.batch, sc.valid, sc.feats,
+                   deadline_s=CHAOS_DEADLINE_S)
+        if args.kill_at < 0:
+            tick()
+    while len(eng.queue):
+        tick()
+    counts = _counts()
+    s = eng.stats()
+    out = {"completed": {r.rid: r.digest for r in eng.results
+                         if r.status == "completed"},
+           "statuses": {r.rid: [r.status, r.reason] for r in eng.results},
+           "latency_ms": {r.rid: r.latency_s * 1e3 for r in eng.results
+                          if r.status == "completed"},
+           "tick_ms": tick_ms, "done_at": done_at, "t_start": t_start,
+           "tick_kill_calls": tick_kill_calls,
+           "recovery": recovery, "searches": planlib.mapsearch_call_count(),
+           "octent_query": counts[0], "spconv_gemm_fused": counts[1],
+           "persist": s["persist"], "journal": s["journal"],
+           "journal_entries": len(eng.journal),
+           "health": guard.health().delta(h0)}
+    with open(args.out, "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def _spawn_worker(persist_dir, out, *, kill_at=-1, restart_only=False):
+    """Run one ``--worker-serve`` process to its end (at most
+    RESTART_TIMEOUT_S); returns ``(returncode, spawn wall time, stderr
+    tail, its JSON or None)``."""
+    import os
+    import subprocess
+    cmd = [sys.executable, str(Path(__file__).resolve()), "--worker-serve",
+           "--persist-dir", persist_dir, "--out", out]
+    if kill_at >= 0:
+        cmd += ["--kill-at", str(kill_at)]
+    if restart_only:
+        cmd.append("--restart-only")
+    env = dict(os.environ, REPRO_PERSIST_MAX_BYTES=str(PERSIST_BUDGET))
+    t0 = time.time()
+    proc = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                          timeout=RESTART_TIMEOUT_S)
+    res = None
+    if proc.returncode == 0:
+        with open(out) as f:
+            res = json.load(f)
+    return proc.returncode, t0, proc.stderr[-3000:], res
+
+
+def _snap_entries(snap_dir, kind):
+    """Paths of the snapshot entries whose key starts with ``kind``."""
+    from repro_torch.runtime import persist
+    return [path for key, path in persist.SnapshotStore(snap_dir).entries()
+            if key[0] == kind]
+
+
+def phase_restart(dev, cfg, serve_latency_ms, serve_digests):
+    """The kill-and-restart gate of ``benchmarks/restart_replay.py``'s
+    serving side, on the card: an uninterrupted persisted worker (the
+    digests to match, its bytes and write time per request, its latency
+    against phase serve's without persistence), a warm worker over its
+    directory (no map search, no kernel-1 launch), a worker SIGKILLed at
+    its first tick and one in the middle of a snapshot write, each
+    restarted over its directory (``recover`` queues the journaled
+    requests again and they complete with the same digests), and a warm
+    worker after one plan snapshot was truncated and another bit-flipped
+    (both dropped and counted, the same digests). Returns the launches of
+    kernels 1 and 2 over its workers."""
+    import os
+    import shutil
+    import signal
+    import tempfile
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip-smoke-restart-")
+    launches = [0, 0]
+    rec = {}
+
+    def run(tag, persist_dir, **kw):
+        rc, t0, err, res = _spawn_worker(
+            persist_dir, os.path.join(root, f"{tag}.json"), **kw)
+        if res is not None:
+            launches[0] += res["octent_query"]
+            launches[1] += res["spconv_gemm_fused"]
+        return rc, t0, err, res
+
+    def first_result_s(t0, res):
+        return min(res["done_at"].values()) - t0
+
+    try:
+        warm_dir = os.path.join(root, "warm")
+        rc, t0, err, cold = run("cold", warm_dir)
+        check(rc == 0, f"restart: the uninterrupted worker failed rc={rc}:"
+              f"\n{err}")
+        ref = cold["completed"]
+        check(sorted(ref) == sorted(serve_digests) and all(
+            ref[k] == serve_digests[k] for k in ref),
+            "restart: persisted digests differ from phase serve's")
+        n = len(ref)
+        per_fresh = cold["octent_query"] // n, cold["spconv_gemm_fused"] // n
+        n_layers = _n_layers(cfg)
+        check((per_fresh == (len(cfg.enc) + 1, n_layers)
+               or dev.type != "cuda")
+              and cold["searches"] == n * (2 * len(cfg.enc) + 1),
+              f"restart: cold worker launches {per_fresh}, searches "
+              f"{cold['searches']}")
+        rec["cold"] = {
+            "first_result_s": first_result_s(t0, cold),
+            "bytes_per_request": cold["persist"]["bytes_written"] / n,
+            "write_ms_per_request": cold["persist"]["write_ms"] / n,
+            "journal_bytes_per_request":
+                cold["journal"]["bytes_written"] / n,
+            "journal_write_ms_per_request":
+                cold["journal"]["write_ms"] / n,
+            "latency_ms": cold["latency_ms"], "tick_ms": cold["tick_ms"],
+            "serve_latency_ms": serve_latency_ms,
+            "snap_entries": cold["persist"]["entries"],
+            "snap_bytes": cold["persist"]["resident_bytes"]}
+
+        rc, t0, err, warm = run("warm", warm_dir)
+        check(rc == 0, f"restart: the warm worker failed rc={rc}:\n{err}")
+        check(warm["completed"] == ref, "restart: warm digests differ")
+        check(warm["searches"] == 0 and warm["octent_query"] == 0,
+              f"restart: warm worker searched {warm['searches']} times, "
+              f"kernel 1 launched {warm['octent_query']} times")
+        rec["warm"] = {"first_result_s": first_result_s(t0, warm),
+                       "latency_ms": warm["latency_ms"],
+                       "tick_ms": warm["tick_ms"],
+                       "persist_hits": warm["persist"]["hits"]}
+
+        # the kill-site calls between two ticks' starts are the snapshot
+        # writes of one request: the second request's middle write
+        at = cold["tick_kill_calls"]
+        check(len(at) == n and at[2] - at[1] >= 2,
+              f"restart: kill-site calls at the ticks {at}")
+        kills = {"mid_tick": at[0], "mid_snapshot": (at[1] + at[2]) // 2}
+        for tag, k in kills.items():
+            pdir = os.path.join(root, tag)
+            rc, _, err, _ = run(f"{tag}-killed", pdir, kill_at=k)
+            check(rc == -signal.SIGKILL, f"restart {tag}: worker rc={rc}, "
+                  f"want SIGKILL:\n{err}")
+            snap = os.path.join(pdir, "snap")
+            torn = [x for x in os.listdir(snap) if x.startswith(".tmp-")] \
+                if os.path.isdir(snap) else []
+            check(bool(torn) == (tag == "mid_snapshot"),
+                  f"restart {tag}: torn temporary files {torn}")
+            journaled = len(os.listdir(os.path.join(pdir, "journal")))
+            rc, t0, err, res = run(f"{tag}-restarted", pdir,
+                                   restart_only=True)
+            check(rc == 0, f"restart {tag}: restart failed rc={rc}:\n{err}")
+            check(res["recovery"] == {"recovered": journaled, "shed": 0}
+                  and journaled > 0, f"restart {tag}: recovery "
+                  f"{res['recovery']} of {journaled} journaled")
+            check(all(ref[k] == v for k, v in res["completed"].items())
+                  and len(res["completed"]) == journaled,
+                  f"restart {tag}: recovered digests differ")
+            check(res["journal_entries"] == 0,
+                  f"restart {tag}: journal not empty")
+            rec[tag] = {"kill_at": k, "torn_files": len(torn),
+                        "journaled": journaled,
+                        "recovered": sorted(res["completed"]),
+                        "first_result_s": first_result_s(t0, res),
+                        "searches": res["searches"],
+                        "persist_hits": res["persist"]["hits"]}
+            shutil.rmtree(pdir, ignore_errors=True)
+
+        plans = _snap_entries(os.path.join(warm_dir, "snap"), "plan")
+        with open(plans[0], "rb") as f:
+            blob = f.read()
+        with open(plans[0], "wb") as f:
+            f.write(blob[:len(blob) // 2])
+        with open(plans[1], "rb") as f:
+            body = bytearray(f.read())
+        body[-max(4, len(body) // 8)] ^= 0x40
+        with open(plans[1], "wb") as f:
+            f.write(bytes(body))
+        rc, t0, err, res = run("corrupt", warm_dir)
+        check(rc == 0, f"restart corrupt: worker failed rc={rc}:\n{err}")
+        check(res["completed"] == ref, "restart corrupt: digests differ")
+        check(res["persist"]["dropped"] == 2 and
+              res["health"].get("persist.dropped") == 2,
+              f"restart corrupt: dropped {res['persist']['dropped']}, "
+              f"health {res['health'].get('persist.dropped')}, want 2")
+        rec["corrupt"] = {"dropped": res["persist"]["dropped"],
+                          "searches": res["searches"],
+                          "octent_query": res["octent_query"]}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit(phase="restart", config=cfg.name, bucket=BUCKET,
+         budget_bytes=PERSIST_BUDGET, launches=launches, **rec,
+         seconds=time.perf_counter() - t_phase)
+    return {"octent_query": launches[0], "spconv_gemm_fused": launches[1]}
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch is not beside this script; run "
@@ -2146,27 +2779,26 @@ def main() -> int:
 
     t0 = time.perf_counter()
     phase_device()
-    lidar = [pointcloud.make_batch(np.random.default_rng(SEED + i), "lidar",
-                                   1, BUCKET, voxel_size=LIDAR_VOXEL)
-             for i in range(2)]
-    indoor = [pointcloud.make_batch(np.random.default_rng(SEED + 10 + i),
-                                    "indoor", 1, BUCKET) for i in range(2)]
+    scenes = _serve_scenes()
+    lidar0 = scenes[0][1]
     warm = pointcloud.make_batch(np.random.default_rng(SEED + 99), "lidar",
                                  1, BUCKET, voxel_size=LIDAR_VOXEL)
-    k1 = phase_octent(dev, lidar[0], cfg)
-    k2 = phase_gemm(dev, lidar[0], cfg)
-    scenes = [("lidar-0", lidar[0]), ("lidar-1", lidar[1]),
-              ("indoor-0", indoor[0]), ("indoor-1", indoor[1])]
+    k1 = phase_octent(dev, lidar0, cfg)
+    k2 = phase_gemm(dev, lidar0, cfg)
     model, results, counts = phase_serve(
         dev, cfg, scenes, (warm.coords, warm.batch, warm.valid, warm.feats))
     phase_reference(dev, cfg, model, results)
+    serve_digests = {rid: res.digest for rid, _, res in results
+                     if not rid.startswith("fused-")}
+    serve_latency_ms = {rid: res.latency_s * 1e3 for rid, _, res in results
+                        if not rid.startswith("fused-")}
     k1["launches"], k2["launches"] = counts[0], counts[1]
     k2["epilogue_launches"], k2["split_reduce_launches"] = counts[2], counts[4]
     k2["plan_launches"] = counts[5]
     check(counts[4] > 0, "the split-sum kernel never ran on the served path")
-    k3 = phase_materialized(dev, lidar[0], cfg)
-    k4 = phase_masked(dev, lidar[0], cfg)
-    phase_scan(dev, cfg, lidar[0], model)
+    k3 = phase_materialized(dev, lidar0, cfg)
+    k4 = phase_masked(dev, lidar0, cfg)
+    phase_scan(dev, cfg, lidar0, model)
     del model, results
     k1["train_launches"], k2["train_launches"], k2["train_ms_per_step"] = \
         phase_train(dev, cfg)
@@ -2181,6 +2813,12 @@ def main() -> int:
     k1["stream_update"] = {key: strm["row_list"][key] for key in (
         "q", "rows", "ms", "plain_ms", "bound_ms", "full_ms")}
     k2["stream_launches"] = strm["spconv_gemm_fused"]
+    chaos = phase_chaos(dev, cfg, scenes, warm, serve_digests)
+    k1["chaos_launches"] = chaos["octent_query"]
+    k2["chaos_launches"] = chaos["spconv_gemm_fused"]
+    restart = phase_restart(dev, cfg, serve_latency_ms, serve_digests)
+    k1["restart_launches"] = restart["octent_query"]
+    k2["restart_launches"] = restart["spconv_gemm_fused"]
     flash = phase_flash(dev)
     lm_cfg, lm_params, fa_launches = phase_lm_serve(dev)
     phase_lm_reference(dev, lm_cfg, lm_params)
@@ -2207,4 +2845,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if "--worker-serve" in sys.argv[1:]:
+        if not (ROOT / "src" / "repro_torch").is_dir():
+            sys.exit(2)
+        sys.exit(worker_serve(sys.argv[1:]))
     sys.exit(main())

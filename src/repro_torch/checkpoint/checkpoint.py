@@ -9,7 +9,9 @@ checkpoint the reference wrote restores here:
   sha256, written to a temporary directory (every file fsynced) and then
   renamed into place, so a crash mid-save never corrupts the newest
   checkpoint. ``blocking=False`` copies to the host, then writes on a
-  thread. The newest ``keep`` steps are retained.
+  thread. The newest ``keep`` steps are retained. The fault plan's
+  ``checkpoint`` site fires before any file I/O and its ``kill`` site
+  between the temporary write and the rename (``runtime/fault.py``).
 * :func:`verify` recomputes the digest; :func:`latest_step` returns the
   newest step that passes, skipping a truncated or bit-flipped one, and
   :func:`restore` refuses corrupt input.
@@ -77,7 +79,13 @@ def _step_dir(directory: str, step: int) -> str:
 def save(directory: str, step: int, tree, *, keep: int = 3,
          blocking: bool = True) -> threading.Thread | None:
     """Write checkpoint ``step``; returns the writer thread if not
-    ``blocking`` (the copy to the host happens before this returns)."""
+    ``blocking`` (the copy to the host happens before this returns).
+
+    Raises before any file I/O when a fault plan targets the
+    ``checkpoint`` site; the atomic rename keeps the previous checkpoint
+    intact either way."""
+    from repro_torch.runtime import fault    # deferred: fault imports this
+    fault.check("checkpoint")
     host = [x.detach().cpu().numpy() if isinstance(x, torch.Tensor)
             else np.asarray(x) for x in tree_leaves(tree)]
     treedef = _describe(tree)
@@ -102,7 +110,8 @@ def save(directory: str, step: int, tree, *, keep: int = 3,
             f.flush()
             os.fsync(f.fileno())
         _fsync_file(tmp)
-        shutil.rmtree(final, ignore_errors=True)
+        fault.check("kill")          # mid-checkpoint SIGKILL point: the
+        shutil.rmtree(final, ignore_errors=True)     # tmp dir is complete
         os.rename(tmp, final)                        # atomic commit
         _fsync_file(directory)
         _gc(directory, keep)

@@ -31,6 +31,13 @@ The pinned tier: a content-keyed Subm3 build pins its stage-1
 the plan's eviction, or a streaming frame's level, skips the table build.
 A :class:`SubmWarmStart` lets a streaming session patch the previous
 frame's kmap and table instead of searching (``DELTA_PATCHES``).
+
+Durability: with a :class:`~repro_torch.runtime.persist.SnapshotStore`
+(``PlanCache(persist=)``) content-keyed plans write through to disk and a
+content miss reads through before building, so a restarted process
+serves a geometry it has seen with no search. The plan builders check the
+``plan`` fault site, and the fingerprint the ``fingerprint`` site
+(``runtime/fault.py``).
 """
 from __future__ import annotations
 
@@ -43,9 +50,10 @@ import torch
 
 from repro_torch.core import mapsearch, rulebook, sparsity
 from repro_torch.core.mapsearch import StridedMaps
+from repro_torch.core.validate import CapacityOverflow  # noqa: F401
 from repro_torch.kernels.octent import ops as oct_ops
 from repro_torch.kernels.spconv_gemm import ops as sg_ops
-from repro_torch.runtime import feature_cache
+from repro_torch.runtime import fault, feature_cache
 
 MAPSEARCH_CALLS = [0]
 
@@ -134,14 +142,17 @@ def content_fingerprint(arrays) -> tuple | None:
     """Fingerprints of a tuple of key tensors (numpy arrays are taken as
     CPU tensors), one :func:`array_fingerprint` tuple each; None if any is
     a float tensor. The words of all of them come to the host in one
-    copy."""
+    copy. Each tensor's words pass the ``fingerprint`` fault site, which
+    zeroes them when it fires: a content-key collision, which a verifying
+    cache detects and rebuilds."""
     arrays = [a if isinstance(a, torch.Tensor) else torch.as_tensor(
         np.asarray(a)) for a in arrays]
     flats = [_as_words(a) for a in arrays]
     if any(f is None for f in flats):
         return None
-    words = _fp_words(flats).cpu().tolist()
-    return tuple((tuple(a.shape), str(a.dtype).removeprefix("torch."), *w)
+    words = _fp_words(flats).cpu().numpy()
+    return tuple((tuple(a.shape), str(a.dtype).removeprefix("torch."),
+                  *(int(x) for x in fault.mangle("fingerprint", w)))
                  for a, w in zip(arrays, words))
 
 
@@ -153,20 +164,6 @@ def array_fingerprint(a) -> tuple | None:
     NaN and -0.0)."""
     fp = content_fingerprint((a,))
     return None if fp is None else fp[0]
-
-
-class CapacityOverflow(RuntimeError):
-    """A static capacity is smaller than the scene needs: the octree
-    directory (``what="block_table"``) or the Gconv3 output budget
-    (``"candidates"``). The search would silently drop voxels or output
-    sites, so it raises instead; ``needed`` and ``capacity`` drive the
-    escalation of ``runtime.guard.with_replan``."""
-
-    def __init__(self, what: str, msg: str, *, needed: int, capacity: int):
-        super().__init__(msg)
-        self.what = what
-        self.needed = needed
-        self.capacity = capacity
 
 
 class ConvPlan(NamedTuple):
@@ -189,12 +186,33 @@ class ConvPlan(NamedTuple):
     maps: StridedMaps | None
 
 
+def _snapshot_of(plan: ConvPlan) -> tuple:
+    """What a snapshot keeps of a plan: the search results (the plan
+    without its tile streams) and the ``(bm, bo)`` its tiles were built at
+    (None: built without tiles). The tiles hold several times the kmap's
+    bytes and :func:`_plan_from` rebuilds them from it, bit for bit."""
+    t = plan.tiles
+    return plan._replace(tiles=None), None if t is None else (t.bm, t.bo)
+
+
+def _plan_from(snap: tuple) -> ConvPlan:
+    """The plan of a :func:`_snapshot_of` tuple, its tiles rebuilt on the
+    kmap's device."""
+    plan, tiles_at = snap
+    if tiles_at is None:
+        return plan
+    bm, bo = tiles_at
+    return plan._replace(tiles=sg_ops.build_tap_tiles(plan.kmap, bm=bm,
+                                                      bo=bo))
+
+
 class _Entry(NamedTuple):
     """One canonical cache entry: the plan and the anchored key tensors of
     every identity alias pointing at it."""
 
     plan: ConvPlan
     aliases: OrderedDict        # identity key -> anchored tensor tuple
+    fingerprint: tuple | None   # content key words, None: identity only
 
 
 #: identity aliases kept per canonical entry before the oldest is dropped
@@ -220,24 +238,35 @@ class PlanCache:
         anchored and verified too.
       pinned: the :class:`~repro_torch.runtime.feature_cache.PinnedStore`
         of the pinned tier (None: the process-wide store).
+      persist: a :class:`~repro_torch.runtime.persist.SnapshotStore` that
+        makes the content tier durable: a content miss reads through to
+        disk before building (a verified plan on disk costs no map
+        search), and every content-keyed build writes through. A snapshot
+        holds the plan without its tile streams, which a read rebuilds
+        from the kmap. Identity entries are never persisted: an id means
+        nothing in another process.
 
-    Counters: ``hits`` (total), ``id_hits``, ``content_hits``, ``misses``,
-    ``collisions``, and the pinned store's (see :meth:`stats`).
+    Counters: ``hits`` (total), ``id_hits``, ``content_hits``,
+    ``persist_hits``, ``misses``, ``collisions``, and the pinned store's
+    (see :meth:`stats`).
     """
 
     def __init__(self, capacity: int = 64, *, content: bool = True,
                  verify: bool = False,
-                 pinned: feature_cache.PinnedStore | None = None):
+                 pinned: feature_cache.PinnedStore | None = None,
+                 persist=None):
         self.capacity = capacity
         self.content = content
         self.verify = verify
         self.pinned = pinned if pinned is not None \
             else feature_cache.default_store()
+        self.persist = persist
         self._entries: OrderedDict = OrderedDict()  # canonical key -> _Entry
         self._by_id: dict = {}                      # identity key -> canonical
         self.hits = 0
         self.id_hits = 0
         self.content_hits = 0
+        self.persist_hits = 0
         self.misses = 0
         self.collisions = 0
 
@@ -247,8 +276,47 @@ class PlanCache:
     def stats(self) -> dict:
         return {"entries": len(self), "hits": self.hits,
                 "id_hits": self.id_hits, "content_hits": self.content_hits,
+                "persist_hits": self.persist_hits,
                 "misses": self.misses, "collisions": self.collisions,
                 "pinned": self.pinned.stats()}
+
+    def save(self, persist=None) -> int:
+        """Write every content-keyed entry to the snapshot store (``persist``
+        or the cache's own); returns the number committed."""
+        store = persist if persist is not None else self.persist
+        if store is None:
+            return 0
+        n = 0
+        for ckey, entry in self._entries.items():
+            if entry.fingerprint is None:
+                continue
+            fp, statics = ckey
+            if store.put(("plan", fp, statics), _snapshot_of(entry.plan)):
+                n += 1
+        return n
+
+    def load(self, persist=None) -> int:
+        """Read every verified plan of the snapshot store into the content
+        tier, its tensors on the store's device; returns the number
+        loaded. Corrupt or stale files are dropped by the store
+        (``persist.dropped``). A loaded plan has no identity alias yet:
+        its first lookup hits by content, with no map search."""
+        store = persist if persist is not None else self.persist
+        if store is None:
+            return 0
+        n = 0
+        for key, value in store.items():
+            if not (isinstance(key, tuple) and len(key) == 3
+                    and key[0] == "plan"):
+                continue
+            ckey = (key[1], key[2])
+            if ckey in self._entries:
+                continue
+            self._evict_to_capacity()
+            self._entries[ckey] = _Entry(_plan_from(value), OrderedDict(),
+                                         key[1])
+            n += 1
+        return n
 
     def _evict_to_capacity(self) -> None:
         while len(self._entries) >= self.capacity:
@@ -267,7 +335,13 @@ class PlanCache:
             self._by_id.pop(old, None)
 
     @staticmethod
-    def _same(anchored, arrays) -> bool:
+    def _verify_hit(entry: _Entry, arrays) -> bool | None:
+        """Compare ``arrays`` element-wise with the entry's newest anchored
+        alias; None when it has none (a plan read from disk), and the
+        caller then rebuilds rather than serve it unverified."""
+        if not entry.aliases:
+            return None
+        anchored = next(reversed(entry.aliases.values()))
         return all(torch.equal(torch.as_tensor(a), torch.as_tensor(b))
                    for a, b in zip(anchored, arrays))
 
@@ -296,24 +370,39 @@ class PlanCache:
             ckey = (fp, statics)
             entry = self._entries.get(ckey)
             if entry is not None:
-                # the newest alias is always anchored
-                if not self.verify or self._same(
-                        next(reversed(entry.aliases.values())), arrays):
+                ok = self._verify_hit(entry, arrays) if self.verify \
+                    else True
+                if ok:
                     self.hits += 1
                     self.content_hits += 1
                     self._alias(ckey, idkey, arrays)
                     return entry.plan
-                self.collisions += 1
-                self._entries.pop(ckey)            # latest wins
+                if ok is False:
+                    self.collisions += 1
+                # a collision, or unverifiable: rebuild, the latest wins
+                self._entries.pop(ckey)
                 for ik in entry.aliases:
                     self._by_id.pop(ik, None)
         else:
             ckey = idkey                           # identity-only entry
 
-        self.misses += 1
-        plan = build(fp)
+        snap = None
+        if fp is not None and self.persist is not None:
+            # durable read-through: a verified plan on disk costs no search
+            snap = self.persist.get(("plan", fp, statics),
+                                    device=getattr(arrays[0], "device",
+                                                   None))
+        if snap is not None:
+            self.hits += 1
+            self.persist_hits += 1
+            plan = _plan_from(snap)
+        else:
+            self.misses += 1
+            plan = build(fp)
+            if fp is not None and self.persist is not None:
+                self.persist.put(("plan", fp, statics), _snapshot_of(plan))
         self._evict_to_capacity()
-        self._entries[ckey] = _Entry(plan, OrderedDict())
+        self._entries[ckey] = _Entry(plan, OrderedDict(), fp)
         self._alias(ckey, idkey, arrays)
         return plan
 
@@ -392,6 +481,7 @@ def subm3_plan(coords, batch, valid, *, max_blocks: int, grid_bits: int = 7,
     store = cache.pinned if cache is not None else None
 
     def build(fp):
+        fault.check("plan")
         # anchors cost device memory against the store's budget, so only
         # verifying caches keep them
         verify = cache is not None and cache.verify
@@ -401,7 +491,8 @@ def subm3_plan(coords, batch, valid, *, max_blocks: int, grid_bits: int = 7,
             # the reference's key also holds the mesh fingerprint; the
             # port has no mesh until the sharded search is ported
             pin_key = ("qtable", fp, max_blocks, grid_bits, batch_bits)
-            table = store.get(pin_key, anchor=anchor, verify=verify)
+            table = store.get(pin_key, anchor=anchor, verify=verify,
+                              device=coords.device)
         if warm is not None:
             DELTA_PATCHES[0] += 1
             kmap, table = warm.patch()
@@ -439,6 +530,7 @@ def gconv2_plan(coords, batch, valid, *, grid_bits: int = 7,
     statics = ("gconv2", grid_bits, batch_bits, bm, bo)
 
     def build(_fp):
+        fault.check("plan")
         MAPSEARCH_CALLS[0] += 1
         maps = mapsearch.build_maps_gconv2(coords, batch, valid,
                                            grid_bits=grid_bits,
@@ -469,6 +561,7 @@ def gconv3_plan(coords, batch, valid, *, grid_bits: int = 7,
     statics = ("gconv3", grid_bits, batch_bits, budget, bm, bo, with_tiles)
 
     def build(_fp):
+        fault.check("plan")
         MAPSEARCH_CALLS[0] += 1
         maps = mapsearch.build_maps_gconv3(coords, batch, valid,
                                            grid_bits=grid_bits,

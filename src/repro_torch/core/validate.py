@@ -30,8 +30,8 @@ invalidated, and a clean cloud comes back as the **original objects**.
 
 The sanitizer runs on the host, in numpy, before a frame moves to the
 device. It takes numpy arrays or CPU tensors and returns the same kind.
-A capacity overflow is not a cloud fault: it is
-:class:`repro_torch.core.plan.CapacityOverflow`.
+A capacity overflow is not a cloud fault: it is :class:`CapacityOverflow`
+(also ``repro_torch.core.plan.CapacityOverflow``).
 """
 from __future__ import annotations
 
@@ -55,6 +55,20 @@ class CloudValidationError(ValueError):
     def __init__(self, kind: str, msg: str):
         super().__init__(f"[{kind}] {msg}")
         self.kind = kind
+
+
+class CapacityOverflow(RuntimeError):
+    """A static capacity is smaller than the scene needs: the octree
+    directory (``what="block_table"``) or the Gconv3 output budget
+    (``"candidates"``). The search would silently drop voxels or output
+    sites, so it raises instead; ``needed`` and ``capacity`` drive the
+    escalation of ``runtime.guard.with_replan``."""
+
+    def __init__(self, what: str, msg: str, *, needed: int, capacity: int):
+        super().__init__(msg)
+        self.what = what
+        self.needed = needed
+        self.capacity = capacity
 
 
 @dataclasses.dataclass(frozen=True)

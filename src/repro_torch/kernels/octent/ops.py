@@ -5,7 +5,10 @@ compacted banked table; :func:`build_kmap` runs the full search through the
 CUDA query kernel (kernel.py) or, with ``impl="ref"``, its plain version.
 Both give the same kmap bit for bit, and both match the host hash oracle
 ``core.mapsearch.build_kmap_hash``. ``build_kmap(update=)`` searches only
-a streaming frame's dirty rows, against the frame's spliced table.
+a streaming frame's dirty rows, against the frame's spliced table. The
+query runs through ``runtime.guard.dispatch`` at the ``search`` fault
+site; it falls back to the plain version only under
+``REPRO_GUARD_FALLBACK=1`` and only on the CPU.
 """
 from __future__ import annotations
 
@@ -16,6 +19,8 @@ import torch
 from repro_torch.core import mapsearch, morton
 from repro_torch.kernels.octent.kernel import LANE, octent_query
 from repro_torch.kernels.octent.ref import octent_query_ref
+from repro_torch.runtime import fault as _fault
+from repro_torch.runtime import guard as _guard
 
 #: stage-2 query rows submitted since the last reset: a full
 #: :func:`build_kmap` adds its N voxel rows, an ``update=`` call its Q
@@ -117,14 +122,25 @@ def build_kmap(coords: torch.Tensor, batch: torch.Tensor,
     offsets = torch.as_tensor(morton.subm3_offsets(), device=coords.device)
     QUERY_ROWS[0] += (update.rows.shape[0] if update is not None
                       else coords.shape[0])
-    qt = table if table is not None else build_query_table(
-        coords, batch, valid, max_blocks=max_blocks, grid_bits=grid_bits,
-        batch_bits=batch_bits)
-    fn = octent_query if impl == "kernel" else octent_query_ref
-    kmap = fn(coords.contiguous(), batch.contiguous(), valid.contiguous(),
-              offsets, qt.ublocks, qt.tkey,
-              qt.tval, qt.n_blocks, grid_bits=grid_bits,
-              batch_bits=batch_bits,
-              rows=None if update is None else update.rows,
-              prev=None if update is None else update.kmap)
-    return kmap, qt.n_blocks
+
+    def _run(one: str):
+        _fault.check("search")
+        # a prebuilt table serves any impl: it depends on geometry only
+        qt = table if table is not None else build_query_table(
+            coords, batch, valid, max_blocks=max_blocks, grid_bits=grid_bits,
+            batch_bits=batch_bits)
+        fn = octent_query if one == "kernel" else octent_query_ref
+        kmap = fn(coords.contiguous(), batch.contiguous(), valid.contiguous(),
+                  offsets, qt.ublocks, qt.tkey,
+                  qt.tval, qt.n_blocks, grid_bits=grid_bits,
+                  batch_bits=batch_bits,
+                  rows=None if update is None else update.rows,
+                  prev=None if update is None else update.kmap)
+        return kmap, qt.n_blocks
+
+    return _guard.dispatch(
+        "search", impl, _guard.fallback_chain("search", impl, coords.device),
+        _run,
+        key=(coords.shape[0], offsets.shape[0], max_blocks, grid_bits,
+             batch_bits, update.rows.shape[0] if update is not None
+             else None))

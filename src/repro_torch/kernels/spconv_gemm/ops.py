@@ -39,6 +39,8 @@ from repro_torch.kernels.spconv_gemm.kernel import (BN, KC, spconv_gemm,
 from repro_torch.kernels.spconv_gemm.ref import (epilogue_math,
                                                  spconv_gemm_fused_ref,
                                                  spconv_gemm_fused_ref_vjp)
+from repro_torch.runtime import fault as _fault
+from repro_torch.runtime import guard as _guard
 
 #: gather-run metadata granularity (slots per group), as in the reference
 GRP = 8
@@ -350,6 +352,10 @@ def apply_tiles(feats: torch.Tensor, weights: torch.Tensor, tiles: TapTiles,
     plain math over the geometry liveness (:class:`_FusedExec`), so SPAC
     stays forward-only.
 
+    The call goes through ``runtime.guard.dispatch`` at the ``gemm`` fault
+    site; it falls back to the plain version only under
+    ``REPRO_GUARD_FALLBACK=1`` and only on the CPU.
+
     Returns the (n_out, Cout) output (+ bias); with ``epilogue`` it returns
     ``(out, ActSparsity)`` for the next layer, and ``bias`` must be None.
     """
@@ -360,9 +366,16 @@ def apply_tiles(feats: torch.Tensor, weights: torch.Tensor, tiles: TapTiles,
         raise ValueError("bias and epilogue together would apply the bias "
                          "twice: fold it into the epilogue shift "
                          "(spconv.fold_bn_inference)")
-    res = _FusedExec.apply(feats, weights, tiles, n_out,
-                           dict(row_nz=row_nz, act=act, epilogue=epilogue,
-                                bk=bk), impl)
+    opts = dict(row_nz=row_nz, act=act, epilogue=epilogue, bk=bk)
+
+    def _run(one: str):
+        _fault.check("gemm")
+        return _FusedExec.apply(feats, weights, tiles, n_out, opts, one)
+
+    res = _guard.dispatch("gemm", impl,
+                          _guard.fallback_chain("gemm", impl, feats.device),
+                          _run, key=(tuple(feats.shape), weights.shape[-1],
+                                     tiles.bm, tiles.bo))
     c_out = weights.shape[-1]
     if epilogue is not None:
         out, nz = res

@@ -9,7 +9,12 @@ tensors (with ``replay=True`` the same scene every step), builds its plans
 through one :class:`~repro_torch.core.plan.PlanCache`, whose content keys
 make the replayed cloud hit, so the whole run searches ``2 * len(enc) + 1``
 times however many steps it takes, and runs the step under a
-:class:`~repro_torch.runtime.fault.TrainRunner` with a zero skip budget.
+:class:`~repro_torch.runtime.fault.TrainRunner` with a zero skip budget,
+so that an injected :class:`~repro_torch.runtime.fault.FaultPlan`
+(``faults=``) must be survived by retry and replay alone. With
+``persist_dir`` the plan cache and the pinned tier write through to a
+:class:`~repro_torch.runtime.persist.SnapshotStore`, and a restarted run
+over the same directory searches no geometry it has seen.
 
 CLI (the demo's tiny config on the CPU; ``--full-config`` trains
 MinkUNet-large, on the card by default):
@@ -24,6 +29,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import hashlib
+import os
 import tempfile
 import time
 import weakref
@@ -36,6 +42,8 @@ from repro_torch.core import plan as planlib
 from repro_torch.device import resolve_device
 from repro_torch.models import minkunet
 from repro_torch.optim import adamw
+from repro_torch.runtime import fault as faultlib
+from repro_torch.runtime import feature_cache, guard, persist
 from repro_torch.runtime.fault import RunnerConfig, TrainRunner
 
 #: the reference demo's model
@@ -136,6 +144,8 @@ def run_spconv_demo(steps: int = 2, *, voxels: int = 128,
                     verify_cache: bool = False,
                     max_retries_per_step: int = 2, resume: bool = False,
                     total_steps: int | None = None,
+                    faults: faultlib.FaultPlan | None = None,
+                    persist_dir: str | None = None,
                     device: str | torch.device | None = None) -> dict:
     """Train MinkUNet for ``steps`` steps with cross-step plan caching.
 
@@ -149,14 +159,21 @@ def run_spconv_demo(steps: int = 2, *, voxels: int = 128,
     and ``total_steps`` pins the learning-rate horizon, so a run stopped
     and resumed reaches the state of the uninterrupted run (bit for bit on
     the CPU; on the card the plain backward's ``index_add_`` sums in
-    atomics, in no fixed order).
+    atomics, in no fixed order). ``faults`` is a
+    :class:`~repro_torch.runtime.fault.FaultPlan` installed for the run
+    (the ``kill`` site also fires at the start of each step);
+    ``persist_dir`` backs the plan cache and its pinned tier with a
+    snapshot store under ``<persist_dir>/snap``, so a run over a warm
+    directory makes no map search.
 
     Returns ``losses``, ``mapsearch_calls``, ``searches_per_cloud`` (the
     flat count a replayed run must show), ``plan_sets`` (distinct plan
     sets used), the cache's ``stats()``, ``state_digest``, the runner's
     ``recoveries`` / ``skipped_batches`` / ``ckpt_failures``,
     ``resumed_from``, per-step ``timings`` (plan build, forward, backward,
-    optimizer ms) and ``save_ms`` (each checkpoint save).
+    optimizer ms), ``save_ms`` (each checkpoint save), the snapshot
+    store's ``persist`` stats (None without one) and the run's ``health``
+    counter delta.
     """
     from repro_torch.data import pointcloud
     dev = resolve_device(device)
@@ -168,9 +185,17 @@ def run_spconv_demo(steps: int = 2, *, voxels: int = 128,
                                 warmup_steps=1)
     params = {k: v.detach().clone() for k, v in model.state_dict().items()}
     state = (params, adamw.init(params))
+    pstore = None
+    if persist_dir:
+        pstore = persist.SnapshotStore(os.path.join(persist_dir, "snap"),
+                                       device=dev)
     if cache is None:
-        cache = planlib.PlanCache(verify=verify_cache)
+        cache = planlib.PlanCache(
+            verify=verify_cache, persist=pstore,
+            pinned=feature_cache.PinnedStore(persist=pstore)
+            if pstore is not None else None)
     planlib.reset_mapsearch_counter()
+    h0 = guard.health().snapshot()
 
     def cloud_at(step: int) -> dict:
         rng = np.random.default_rng(seed if replay else seed + step)
@@ -189,6 +214,7 @@ def run_spconv_demo(steps: int = 2, *, voxels: int = 128,
     timings: list = []
 
     def runner_step(state, batch):
+        faultlib.check(faultlib.KILL_SITE)     # mid-step SIGKILL point
         _sync(dev)
         t0 = time.perf_counter()
         plans = minkunet.build_plans(
@@ -217,7 +243,8 @@ def run_spconv_demo(steps: int = 2, *, voxels: int = 128,
         resumed_from = None
         if resume and runner.restore_latest():
             resumed_from = runner.step
-        losses = runner.run(steps)
+        with faultlib.inject(faults):
+            losses = runner.run(steps)
     return {
         "steps": steps,
         "losses": losses,
@@ -232,6 +259,8 @@ def run_spconv_demo(steps: int = 2, *, voxels: int = 128,
         "resumed_from": resumed_from,
         "timings": timings,
         "save_ms": runner.save_ms,
+        "persist": pstore.stats() if pstore is not None else None,
+        "health": guard.health().delta(h0),
     }
 
 
@@ -260,6 +289,12 @@ def main(argv=None) -> None:
                          "(default: --steps)")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
+    ap.add_argument("--persist-dir", default=None,
+                    help="snapshot store for warm restarts (default: "
+                         "REPRO_PERSIST_DIR; unset: memory only)")
+    ap.add_argument("--health-json", default=None,
+                    help="write the health counters as JSON to this path "
+                         "after the run")
     args = ap.parse_args(argv)
     if args.arch != "minkunet":
         ap.error(f"--arch {args.arch}: only minkunet training is ported")
@@ -270,16 +305,25 @@ def main(argv=None) -> None:
         cfg=minkunet.LARGE if args.full_config else None,
         impl=None if args.impl == "auto" else args.impl, seed=args.seed,
         ckpt_dir=args.ckpt_dir, resume=args.resume,
-        total_steps=args.total_steps, device=args.device)
+        total_steps=args.total_steps, device=args.device,
+        persist_dir=args.persist_dir or persist.default_dir())
+    # over a warm persist dir every plan is read from disk: zero searches
+    # is the best case, not a broken flat count
+    warm = res["persist"] is not None and res["mapsearch_calls"] == 0
     flat = res["mapsearch_calls"] == res["searches_per_cloud"]
     print(f"arch=minkunet steps={res['steps']} "
           f"first_loss={res['losses'][0]:.4f} "
           f"last_loss={res['losses'][-1]:.4f} "
           f"map_searches={res['mapsearch_calls']} "
-          f"(flat={'yes' if flat else 'NO'}) plan_sets={res['plan_sets']} "
+          f"(flat={'warm' if warm else 'yes' if flat else 'NO'}) "
+          f"plan_sets={res['plan_sets']} "
           f"content_hits={res['cache']['content_hits']} "
           f"recoveries={res['recoveries']} "
           f"digest={res['state_digest'][:12]}")
+    if args.health_json:
+        guard.dump_health_json(args.health_json, meta={
+            "arch": "minkunet", "steps": res["steps"],
+            "digest": res["state_digest"]})
 
 
 if __name__ == "__main__":

@@ -326,15 +326,34 @@ def _forward(model, st, plans, cache, impl, training):
 
 def forward_multicloud(model: MinkUNet, clouds, *, plans=None,
                        cache: planlib.PlanCache | None = None,
-                       impl: str | None = None) -> list:
+                       impl: str | None = None, forward_fn=None,
+                       on_error=None) -> list:
     """Per-voxel logits for each cloud; each keeps its own plans
-    (``plans[i]`` prebuilt, or built through one shared ``cache``)."""
+    (``plans[i]`` prebuilt, or built through one shared ``cache``).
+
+    The serving engine drives it with two hooks, as the reference's does:
+    ``forward_fn(model, st, plans_i) -> logits`` replaces the forward of
+    one cloud, and ``on_error(i, exc) -> result`` receives an exception
+    raised by cloud ``i`` (a retry, or a placeholder once the engine
+    isolated it) instead of aborting the clouds after it. None keeps the
+    raise."""
     if cache is None and plans is None:
         per_cloud = 2 * (len(model.cfg.enc) + len(model.cfg.dec)) + 2
         cache = planlib.PlanCache(capacity=max(64, per_cloud * len(clouds)))
-    return [forward(model, st, cache=cache, impl=impl,
-                    plans=plans[i] if plans is not None else None)
-            for i, st in enumerate(clouds)]
+    out = []
+    for i, st in enumerate(clouds):
+        plans_i = plans[i] if plans is not None else None
+        try:
+            if forward_fn is not None:
+                r = forward_fn(model, st, plans_i)
+            else:
+                r = forward(model, st, cache=cache, impl=impl, plans=plans_i)
+        except Exception as e:                       # noqa: BLE001
+            if on_error is None:
+                raise
+            r = on_error(i, e)
+        out.append(r)
+    return out
 
 
 def segmentation_loss(model: MinkUNet, batch: Mapping[str, torch.Tensor], *,

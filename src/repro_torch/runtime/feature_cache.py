@@ -12,7 +12,10 @@ or a streaming frame's level, fetches its table instead of rebuilding it.
 keeps the buffer alive, dropping the last reference frees it. The
 :class:`PinnedStore` is that reference, bounded in bytes, keyed by content
 and evicting in insertion order; :func:`default_store` is one store shared
-by every PlanCache that brings none.
+by every PlanCache that brings none. With a
+:class:`~repro_torch.runtime.persist.SnapshotStore` attached
+(``persist=``) the tier is durable: pins write through to disk, and a
+memory miss reads through before reporting cold.
 """
 from __future__ import annotations
 
@@ -64,15 +67,23 @@ class PinnedStore:
     ``put``); eviction skips held entries and, when everything resident is
     held, admits over budget (counted in ``evictions_skipped``);
     :meth:`release` returns the entry to insertion-order eviction.
+
+    Durability (``persist=``): a pin writes through to the snapshot store
+    under ``("pinned", key)``, and a non-verifying reader's memory miss
+    reads through (``persist_hits``) and re-pins. Anchors are not
+    persisted, so an entry read from disk is anchorless: a verifying
+    reader neither reads through nor uses such an entry, and rebuilds.
     """
 
-    def __init__(self, capacity_bytes: int = 32 * 2 ** 20):
+    def __init__(self, capacity_bytes: int = 32 * 2 ** 20, *, persist=None):
         self.capacity_bytes = capacity_bytes
+        self.persist = persist
         # key -> (value, bytes, anchor tensors | None)
         self._entries: OrderedDict = OrderedDict()
         self._refs: dict = {}                # key -> holds
         self.hits = 0
         self.misses = 0
+        self.persist_hits = 0
         self.evictions = 0
         self.evictions_skipped = 0
         self.collisions = 0
@@ -87,9 +98,17 @@ class PinnedStore:
         """Bytes the store pins: values and their anchors."""
         return sum(e[1] for e in self._entries.values())
 
-    def get(self, key, anchor=None, verify: bool = False):
-        """The pinned value of ``key``, or None (a hit or a miss)."""
+    def get(self, key, anchor=None, verify: bool = False, *, device=None):
+        """The pinned value of ``key``, or None (a hit or a miss). A value
+        read through from disk lands on ``device`` (None: the store's)."""
         entry = self._entries.get(key)
+        if entry is None and self.persist is not None and not verify:
+            value = self.persist.get(("pinned", key), device=device)
+            if value is not None:
+                self.persist_hits += 1
+                self.hits += 1
+                self.put(key, value, _writethrough=False)
+                return value
         if entry is None:
             self.misses += 1
             return None
@@ -106,9 +125,12 @@ class PinnedStore:
         self.hits += 1
         return entry[0]
 
-    def put(self, key, value, anchor=None) -> None:
+    def put(self, key, value, anchor=None, *, _writethrough=True) -> None:
         """Pin ``value`` under ``key``, evicting in insertion order to fit.
-        A key already present keeps its value and moves to the back."""
+        A key already present keeps its value and moves to the back. With a
+        snapshot store the pin writes through (anchorless);
+        ``_writethrough=False`` is the read-through path, which must not
+        echo disk back to disk."""
         size = nbytes(value) + nbytes(anchor)
         if size > self.capacity_bytes:
             return
@@ -128,6 +150,8 @@ class PinnedStore:
             self.evictions += 1
         self._entries[key] = (value, size,
                               tuple(anchor) if anchor is not None else None)
+        if self.persist is not None and _writethrough:
+            self.persist.put(("pinned", key), value)
 
     def acquire(self, key) -> None:
         """Hold ``key``: eviction skips it until every holder releases."""
@@ -148,10 +172,36 @@ class PinnedStore:
     def clear(self) -> None:
         self._entries.clear()
 
+    def save(self, persist=None) -> int:
+        """Write every pinned entry to the snapshot store (anchorless);
+        returns the number committed."""
+        store = persist if persist is not None else self.persist
+        if store is None:
+            return 0
+        return sum(bool(store.put(("pinned", key), value))
+                   for key, (value, _, _) in self._entries.items())
+
+    def load(self, persist=None) -> int:
+        """Pin every verified search structure of the snapshot store, its
+        tensors on the store's device; returns the number loaded. Corrupt or stale files are dropped by the store
+        (``persist.dropped``)."""
+        store = persist if persist is not None else self.persist
+        if store is None:
+            return 0
+        n = 0
+        for pkey, value in store.items():
+            if not (isinstance(pkey, tuple) and len(pkey) == 2
+                    and pkey[0] == "pinned") or pkey[1] in self._entries:
+                continue
+            self.put(pkey[1], value, _writethrough=False)
+            n += 1
+        return n
+
     def stats(self) -> dict:
         return {"entries": len(self),
                 "resident_bytes": self.resident_bytes(),
                 "hits": self.hits, "misses": self.misses,
+                "persist_hits": self.persist_hits,
                 "evictions": self.evictions,
                 "evictions_skipped": self.evictions_skipped,
                 "held": len(self._refs), "collisions": self.collisions}

@@ -50,7 +50,11 @@ version's; a small SECOND's forward (1e-3 of the plain max) and its
 kernel run's) are held to the plain versions. Kernel 1's row-list mode is
 held to its plain version on a spliced streaming table (an empty list,
 one row, 200 rows, evicted slots, -1 pads), and a TINY stream's delta and
-scratch sessions agree bit for bit on the card.
+scratch sessions agree bit for bit on the card. The serving engine retries
+a one-shot injected ``gemm`` fault with the kernel to the clean request's
+bits (no fallback served), a persistent ``gemm`` or ``search`` fault
+raises even with the fallback chain on, and plans persisted from the card
+decode back onto it (their tiles rebuilt) bit-equal, with no search.
 """
 from __future__ import annotations
 
@@ -1088,3 +1092,89 @@ def test_stream_delta_vs_scratch_on_card(cuda):
     assert d.stats()["rows_searched"] < s.stats()["rows_searched"]
     d.close()
     s.close()
+
+
+def test_one_shot_gemm_fault_retried_bit_equal_on_card(cuda, monkeypatch):
+    """A one-shot injected ``gemm`` fault on the card: the serving engine
+    retries the forward with the kernel, bit-equal to the clean request;
+    no fallback is served (the chain is off by default)."""
+    from repro_torch.launch import spconv_serve
+    from repro_torch.models import minkunet
+    from repro_torch.runtime import admission, fault, guard
+    monkeypatch.delenv("REPRO_GUARD_FALLBACK", raising=False)
+    cfg = minkunet.MinkUNetConfig(name="tiny", stem=8, enc=(8, 16),
+                                  dec=(16, 8), classes=4, blocks=1)
+    eng = spconv_serve.ServeEngine(
+        minkunet.MinkUNet(cfg, device=cuda), device=cuda, max_batch=1,
+        queue=admission.AdmissionQueue(buckets=(2048,)))
+    c, b, v = _cloud(np.random.default_rng(9), 2048, 40, 1500)
+    f = np.random.default_rng(10).standard_normal((2048, 4)).astype(
+        np.float32)
+    eng.submit("clean", c, b, v, f)
+    (clean,) = eng.step()
+    launches = sg_kernel.launches
+    with guard.scoped_health() as h, fault.inject(
+            fault.FaultPlan(schedule={"gemm": [2]})):
+        eng.submit("faulted", c, b, v, f)
+        (res,) = eng.step()
+        assert h.get("serve.exec_retry") == 1 and h.get("fault.gemm") == 1
+        assert not any(k.startswith("fallback.") for k in h.snapshot())
+    assert res.status == "completed" and res.digest == clean.digest
+    # the two layers before the fault ran twice
+    assert sg_kernel.launches - launches == 9 + 2
+
+
+@pytest.mark.parametrize("site", ["gemm", "search"])
+def test_persistent_fault_on_card_never_serves_the_plain_version(
+        cuda, monkeypatch, site):
+    """With the fallback chain on, a persistent injected fault on the
+    card's tensors is retried with the kernel and then raises: the chain
+    is empty there, so the plain version serves nothing."""
+    from repro_torch.runtime import fault, guard
+    monkeypatch.setenv("REPRO_GUARD_FALLBACK", "1")
+    c, b, v = _dev(cuda, *_cloud(np.random.default_rng(12), 512, 16, 400))
+    kmap, _ = oct_ops.build_kmap(c, b, v, max_blocks=512)
+    tiles = sg_ops.build_tap_tiles(kmap, bm=128)
+    f = torch.randn(512, 8, device=cuda)
+    w = torch.randn(27, 8, 16, device=cuda)
+
+    def run():
+        if site == "gemm":
+            return sg_ops.apply_tiles(f, w, tiles, n_out=512)
+        return oct_ops.build_kmap(c, b, v, max_blocks=512)[0]
+
+    with guard.scoped_health() as h, fault.inject(
+            fault.FaultPlan(schedule={site: [0, 1]})):
+        with pytest.raises(fault.InjectedFault):
+            run()
+        assert h.snapshot() == {f"fault.{site}": 2,
+                                f"fallback.error.{site}": 2,
+                                f"quarantine.enter.{site}": 1}
+
+
+def test_plan_cache_snapshot_decodes_onto_the_card(cuda, tmp_path):
+    """Plans built on the card, persisted, and read by a fresh cache land
+    on the card bit-equal, with no search."""
+    from repro_torch.core import plan as planlib
+    from repro_torch.models import minkunet
+    from repro_torch.runtime import feature_cache, persist
+    cfg = minkunet.MinkUNetConfig(name="tiny", stem=8, enc=(8, 16),
+                                  dec=(16, 8), classes=4, blocks=1)
+    c, b, v = _dev(cuda, *_cloud(np.random.default_rng(11), 2048, 40, 1400))
+
+    def cache():
+        st = persist.SnapshotStore(str(tmp_path), device=cuda)
+        return planlib.PlanCache(
+            persist=st, pinned=feature_cache.PinnedStore(persist=st))
+
+    p1 = minkunet.build_plans(c, b, v, cfg, cache=cache(), device=cuda)
+    searches, launches = planlib.MAPSEARCH_CALLS[0], oct_kernel.launches
+    p2 = minkunet.build_plans(c.clone(), b.clone(), v.clone(), cfg,
+                              cache=cache(), device=cuda)
+    assert planlib.MAPSEARCH_CALLS[0] == searches
+    assert oct_kernel.launches == launches
+    for x, y in zip(p1.subm, p2.subm):
+        assert y.kmap.is_cuda and torch.equal(x.kmap, y.kmap)
+        # the snapshot holds no tiles: the read rebuilds them, bit-equal
+        for t, u in zip(x.tiles, y.tiles):
+            assert t == u if isinstance(t, int) else torch.equal(t, u)

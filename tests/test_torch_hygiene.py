@@ -5,7 +5,8 @@
 * ``import repro_torch`` and every module in it work with no ``nvcc`` and
   no card: kernels are built at first launch, never at import.
 * Entry points called without ``device="cpu"`` on a host with no card
-  raise; there is no silent CPU run.
+  raise; there is no silent CPU run (the serving CLI, its persist dir
+  and the ``--worker-serve`` mode of ``chip_smoke.py`` included).
 * The kernel wrappers raise on a wrong dtype, shape or a non-contiguous
   input (the flash-attention wrapper also on an unsupported head dim,
   Sq > Skv and Hq % Hkv != 0).
@@ -48,7 +49,9 @@ def test_port_never_imports_jax_or_repro():
     for mod in ("optim/adamw.py", "checkpoint/checkpoint.py",
                 "runtime/fault.py", "launch/train.py", "models/second.py",
                 "runtime/guard.py", "core/stream.py", "core/validate.py",
-                "runtime/feature_cache.py", "launch/spconv_stream.py"):
+                "runtime/feature_cache.py", "launch/spconv_stream.py",
+                "runtime/persist.py", "runtime/admission.py",
+                "launch/spconv_serve.py"):
         assert PKG / mod in files, mod
     bad = {str(p.relative_to(REPO)): sorted(_imported_roots(p)
                                             & {"jax", "jaxlib", "repro"})
@@ -280,3 +283,26 @@ def test_flash_wrapper_rejects_misaligned_base(dtype):
         with pytest.raises(ValueError, match="16-byte boundary"):
             flash_attention(*args)
     assert flash_attention(view(16), k, k).shape == (1, 2, 8, 64)
+
+
+def test_serving_cli_and_persistence_raise_without_a_card(monkeypatch,
+                                                          tmp_path):
+    from repro_torch.launch import spconv_serve
+    from repro_torch.runtime import persist
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        spconv_serve.main(["--requests", "1", "--persist-dir",
+                           str(tmp_path / "p"), "--health-json",
+                           str(tmp_path / "h.json")])
+    assert not (tmp_path / "h.json").exists()
+    assert persist.open_default() is None       # no persist dir by default
+    # the worker mode of chip_smoke.py refuses to start without a card
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=str(REPO / "src"))
+    r = subprocess.run([sys.executable, str(REPO / "chip_smoke.py"),
+                        "--worker-serve", "--persist-dir",
+                        str(tmp_path / "w"), "--out",
+                        str(tmp_path / "w.json")],
+                       env=env, capture_output=True, text=True, timeout=300)
+    assert r.returncode != 0 and not (tmp_path / "w.json").exists()
+    assert "no CUDA device" in r.stderr

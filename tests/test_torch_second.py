@@ -237,11 +237,17 @@ def test_replan_off_and_retries_spent_raise(monkeypatch):
         raise planlib.CapacityOverflow("candidates", "overflow",
                                        needed=10 * cap, capacity=cap)
 
-    before = guard.REPLANS[0]
-    for retries in (0, 2):
-        with pytest.raises(planlib.CapacityOverflow):
-            guard.with_replan(always, 8, retries=retries)
-    assert guard.REPLANS[0] - before == 2
+    def jalways(cap):
+        raise jvalidate.CapacityOverflow("candidates", "overflow",
+                                         needed=10 * cap, capacity=cap)
+
+    with guard.scoped_health() as h, jguard.scoped_health() as jh:
+        for retries in (0, 2):
+            with pytest.raises(planlib.CapacityOverflow):
+                guard.with_replan(always, 8, retries=retries)
+            with pytest.raises(jvalidate.CapacityOverflow):
+                jguard.with_replan(jalways, 8, retries=retries)
+        assert h.snapshot() == jh.snapshot() == {"replan.overflow": 2}
 
 
 # ---------------------------------------------------------------------------

@@ -467,8 +467,7 @@ def test_pinned_refcount_blocks_eviction():
     """An acquired key survives byte pressure; everything held admits over
     budget; a release returns the key to insertion-order eviction. The
     same operations on the reference's store give the same results and
-    the same stats (the port has no snapshot store, so no
-    ``persist_hits``)."""
+    the same stats."""
     arr = np.arange(2048, dtype=np.int32)
     stores = (feature_cache.PinnedStore(capacity_bytes=2 * arr.nbytes),
               jfc.PinnedStore(capacity_bytes=2 * arr.nbytes))
@@ -495,8 +494,7 @@ def test_pinned_refcount_blocks_eviction():
     # "d" evicts the released "a" and then "c" to fit the budget
     assert got == jgot == [True, True, True, True, 0, 1, True, True, 0, 2,
                            2 * arr.nbytes]
-    assert set(jst) - set(st) == {"persist_hits"}
-    assert st == {k: jst[k] for k in st}
+    assert st == jst
     assert feature_cache.nbytes(oct_ops.QueryTable(
         *(torch.zeros(4, dtype=torch.int32),) * 4)) == 64
 
