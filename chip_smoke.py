@@ -94,6 +94,24 @@ serving path at TinyLlama-1.1B's:
   one plan snapshot was truncated and another bit-flipped (both dropped
   and counted, the same digests); each process's time to its first
   result, cold and warm;
+* ``paper``: the paper's own measurements on the card. Fig. 9(a): on
+  the four workloads of ``benchmarks/common.py`` (Seg(i), Seg(o), Det(k),
+  Det(n)) and phase ``serve``'s first LiDAR scene, kernel 1 (its table
+  build included), the dense-table search (``impl="dense"``), the sorted
+  search where its key fits and the serial host hash, every kmap
+  bit-equal to the hash's, with times, peak memory and the cycle model's
+  savings beside the measured ratios. Fig. 9(b): post-ReLU features with
+  structured dead regions at Cin 16-128 on Seg(i), the MAC grains read
+  off the masks (ordered, the block grain's reduction at least 0.02) and
+  ``apply_tiles`` through kernel 2 with SPAC on and off (bit-equal where
+  both runs share a split plan). Fig. 8(a)/9(c): the delta_z = 0 share
+  of kernel 1's Seg(o) taps, the caching model's saving and a Subm3
+  plan's tier bytes at the bucket. MinkUNet-large with
+  ``map_method="sorted"`` (at a 5-bit grid, on an indoor scene) and with
+  the dense search (at its own settings, on a LiDAR scene), each bit-equal
+  to the kernel-1 forward with 25 kernel-2 launches; and the replan gate:
+  ``run_spconv_demo(max_blocks=4)`` replans and reaches the default run's
+  digest;
 * ``flash_attention``: the kernel (bf16 on the tensor cores, float32 on
   the CUDA cores) against its plain version at six attention shapes of
   the repo's configs (TinyLlama's served prefill, in bf16 and float32, a
@@ -195,6 +213,19 @@ PERSIST_BUDGET = 16 * 2 ** 30  # REPRO_PERSIST_MAX_BYTES of the workers
 RESTART_TIMEOUT_S = 600        # each worker process
 STREAM_CHECK_FRAME = 6         # kernel 1's row-list launch held and timed
 STREAM_PROFILE_FRAME = 7       # the delta frame under torch.profiler
+# phase paper: the four workloads of benchmarks/common.py (scene, rows,
+# batch; seed 0) and the hash probe factors of benchmarks/search_speedup.py
+PAPER_WORKLOADS = {"Seg(i)": ("indoor", 16384, 1),
+                   "Seg(o)": ("lidar", 16384, 1),
+                   "Det(k)": ("lidar", 8192, 1),
+                   "Det(n)": ("lidar", 12288, 1)}
+PAPER_PROBE = {"Seg(i)": 6.0, "Seg(o)": 3.4, "Det(k)": 2.6, "Det(n)": 3.0}
+PAPER_CINS = (16, 48, 96, 128)     # benchmarks/sparsity_saving.py
+MAC_REDUCTION_FLOOR = 0.02         # block grain, as sparsity_saving's gate
+MAC_GRAIN = 16                     # the paper's 16-wide MAC-array grain
+CACHE_CAPACITY = 27 * 32 * 32      # tests/test_paper_bands.py, Fig. 9(c)
+PAPER_SEARCH_ITERS = 10            # calls a search timing averages
+PAPER_GRID_BITS = 5                # the sorted key's widest grid (512)
 LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN = "tinyllama-1.1b", 4, 512, 32
 #: (name, b, hq, hkv, sq, skv, d, causal, window, dtype)
 FLASH_SHAPES = [
@@ -2498,6 +2529,418 @@ def phase_chaos(dev, cfg, scenes, victim, serve_digests):
 # Phase restart: SIGKILL a persisted serving worker, restart it
 # ---------------------------------------------------------------------------
 
+def _device_busy(fn, iters: int):
+    """Device time of one call of ``fn`` under ``torch.profiler``: the sum
+    of its device ops over ``iters`` calls, after a warm-up call, divided
+    by ``iters``; the device ops a call, and the rows of
+    ``_profile_rows``. The profile is taken again until two agree on the
+    number of device ops (a trace that lost events reads short), at most
+    three times; ``consistent`` says whether two agreed, else the fullest
+    trace is returned."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    seen = []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        rows = _profile_rows(prof)
+        rec = {"device_ms": sum(r[1] for r in rows) / iters,
+               "device_ops": sum(r[2] for r in rows) / iters, "rows": rows}
+        if seen and rec["device_ops"] == seen[-1]["device_ops"]:
+            return {**rec, "consistent": True}
+        seen.append(rec)
+    return {**max(seen, key=lambda r: r["device_ops"]), "consistent": False}
+
+
+def _paper_search(dev, name, vb, probe):
+    """Fig. 9(a) on one workload: kernel 1 (its table build included), the
+    dense table (``impl="dense"``, ``max_blocks`` the row count, as the
+    reference's benchmark sets it), the sorted search where its key fits
+    and the serial host hash (once), every kmap bit-equal to the hash's;
+    each call's time back to back (``ms``: CUDA events around calls that
+    the host may not queue as fast as the card runs them, so it is the
+    host's pace where that is slower) and its device time
+    (``device_ms``), peak memory, and the cycle model beside the measured
+    ratios."""
+    import torch
+    from repro_torch.core import cyclemodel, mapsearch, morton
+    from repro_torch.kernels.octent import ops as oct_ops
+    c, b, v = (torch.as_tensor(a, device=dev) for a in (vb.coords, vb.batch,
+                                                        vb.valid))
+    rows, n_vox = c.shape[0], int(vb.valid.sum())
+    offs = torch.as_tensor(morton.subm3_offsets(), device=dev)
+    t0 = time.perf_counter()
+    host = mapsearch.build_kmap_hash(vb.coords, vb.batch, vb.valid,
+                                     morton.subm3_offsets())
+    hash_ms = (time.perf_counter() - t0) * 1e3
+    # the narrowest grid holding the scene: the sorted key fits it or not
+    gb = max(int(vb.coords.max()) // 16, 1).bit_length()
+    runs = {"kernel": lambda: oct_ops.build_kmap(c, b, v, max_blocks=rows)[0],
+            "dense": lambda: oct_ops.build_kmap(c, b, v, max_blocks=rows,
+                                                impl="dense")[0]}
+    if mapsearch.sorted_key_fits(gb, 4):
+        runs["sorted"] = lambda: mapsearch.build_kmap_sorted(
+            c, b, v, offs, grid_bits=gb)
+    rec = {"workload": name, "rows": rows, "voxels": n_vox, "grid_bits": gb,
+           "hash_ms": hash_ms, "sorted_key_fits": "sorted" in runs}
+    kmaps = {}
+    for method, fn in runs.items():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        kmaps[method] = fn()
+        torch.cuda.synchronize()
+        check(np.array_equal(kmaps[method].cpu().numpy(), host),
+              f"{name}: the {method} kmap differs from the host hash's")
+        rec[f"{method}_peak_mb"] = (torch.cuda.max_memory_allocated()
+                                    - base) / 2 ** 20
+        rec[f"{method}_ms"] = time_ms(fn, PAPER_SEARCH_ITERS)
+        busy = _device_busy(fn, PAPER_SEARCH_ITERS)
+        for key in ("device_ms", "device_ops", "consistent"):
+            rec[f"{method}_{key}"] = busy[key]
+    rec["dense_table_mb"] = rows * morton.TABLE_SIZE * 4 / 2 ** 20
+    for method in runs:
+        if method != "kernel":
+            for key in ("ms", "device_ms"):
+                rec[f"{method}_over_kernel_{key}"] = rec[f"{method}_{key}"] \
+                    / rec[f"kernel_{key}"]
+    rec["hash_over_kernel_ms"] = hash_ms / rec["kernel_ms"]
+    rec["hash_over_kernel_device_ms"] = hash_ms / rec["kernel_device_ms"]
+    lat = cyclemodel.search_cycles(n_vox, probe_factor=probe) \
+        if probe is not None else None
+    if lat is not None:
+        rec["cycle_model"] = {"probe_factor": probe,
+                              "algo_saving": lat.serial_algo_saving,
+                              "arch_saving": lat.parallel_arch_saving,
+                              "total_speedup": lat.total_speedup}
+    emit(phase="paper.search", **rec)
+    return rec, kmaps["kernel"]
+
+
+def _kill_structure(feats, tiles, bk, stride=4):
+    """``benchmarks/sparsity_saving.py``'s dead regions: zero the rows
+    gathered by every ``stride``-th geometry-live tile (a dead spatial
+    region) and, on the next one's other rows, every Cin block but the
+    first (dead feature blocks)."""
+    feats = np.array(feats)
+    gidx = tiles.gather_idx.reshape(tiles.n_tiles, tiles.bm).cpu().numpy()
+    sval = tiles.slot_valid.reshape(tiles.n_tiles, tiles.bm).cpu().numpy()
+    live = np.flatnonzero(tiles.tile_nz.cpu().numpy())
+    kill_rows = np.unique(np.concatenate(
+        [gidx[t][sval[t]] for t in live[::stride]]))
+    feats[kill_rows] = 0.0
+    for t in live[1::stride]:
+        rows = gidx[t][sval[t]]
+        feats[rows[~np.isin(rows, kill_rows)], bk:] = 0.0
+    return feats
+
+
+def _split_counts(tiles, tile_nz, n_out, c_out, dev):
+    """Kernel 2's device-side work plan for these liveness flags:
+    ``(work, blk)`` from the planning kernel, as the wrapper makes it."""
+    from repro_torch.kernels.spconv_gemm import kernel as sg_kernel
+    n_blocks = -(-n_out // tiles.bo)
+    n_ctas, busy_min = sg_kernel.plan_shape(
+        n_blocks, -(-c_out // 128), sg_kernel.sm_count(dev),
+        sg_kernel.MAX_SPLITS)
+    return sg_kernel.split_plan(tiles.tile_ob, tile_nz, n_blocks=n_blocks,
+                                n_ctas=n_ctas, busy_min=busy_min,
+                                max_splits=sg_kernel.MAX_SPLITS)
+
+
+def _paper_spac(dev, vb, st, plan, c_in):
+    """Fig. 9(b) at one Cin on the Seg(i) plan: post-ReLU features (a
+    seeded Subm3 through kernel 2, training BatchNorm, ReLU) with the
+    benchmark's dead regions; the MAC grains read off the masks at the
+    paper's 16-wide grain and at the kernel's Cin block; ``apply_tiles``
+    through kernel 2 with SPAC on and off, timed and compared; the cycle
+    model's compute cycles beside the measured saving."""
+    import torch
+    from repro_torch.core import cyclemodel, sparsity, spconv
+    from repro_torch.kernels.spconv_gemm import ops as sg_ops
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    n, tiles = st.n_max, plan.tiles
+    x = torch.randn((n, c_in), generator=gen, device=dev)
+    st = st.replace_feats(torch.where(st.valid[:, None], x, 0.0))
+    w0 = torch.randn((27, c_in, c_in), generator=gen, device=dev) \
+        * (2.0 / (27 * c_in)) ** 0.5
+    st = spconv.subm_conv3(st, w0, None, max_blocks=n, spac=False, plan=plan)
+    ones, zeros = torch.ones(c_in, device=dev), torch.zeros(c_in, device=dev)
+    st, _ = spconv.batch_norm(st, {"scale": ones, "bias": zeros,
+                                   "mean": zeros, "var": ones},
+                              training=True)
+    f = _kill_structure(spconv.relu(st).feats.cpu().numpy(), tiles,
+                        MAC_GRAIN)
+    f[~vb.valid] = 0.0
+    f = torch.as_tensor(f, device=dev)
+    w = torch.randn((27, c_in, c_in), generator=gen, device=dev) * 0.05
+
+    row_nz = sparsity.row_nonzero(f)
+    c_out_pad = -(-c_in // 128) * 128
+
+    def grains(bk):
+        blk_nz = sparsity.row_block_nonzero(f, bk) & row_nz[:, None]
+        live_tiles = sg_ops.tile_liveness(tiles, row_nz)
+        return (int(tiles.tile_nz.sum()), int(live_tiles.sum()),
+                int(sg_ops.tile_block_liveness(tiles, blk_nz).sum()),
+                live_tiles)
+
+    geo, live, blocks, live_tiles = grains(MAC_GRAIN)
+    macs = {"macs_geo": geo * tiles.bm * c_in * c_out_pad,
+            "macs_tile": live * tiles.bm * c_in * c_out_pad,
+            "macs_block": blocks * tiles.bm * MAC_GRAIN * c_out_pad}
+    check(macs["macs_block"] <= macs["macs_tile"] <= macs["macs_geo"],
+          f"spac cin {c_in}: MAC grains out of order {macs}")
+    reduction = {"tile": 1 - macs["macs_tile"] / macs["macs_geo"],
+                 "block": 1 - macs["macs_block"] / macs["macs_geo"]}
+    check(reduction["block"] >= MAC_REDUCTION_FLOOR,
+          f"spac cin {c_in}: block-grain MAC reduction "
+          f"{reduction['block']} < {MAC_REDUCTION_FLOOR}")
+    # the kernel splits Cin only into blocks of a multiple of 32
+    kbk = 32 if c_in % 32 == 0 and c_in > 32 else sg_ops.pick_bk(c_in)
+    _, _, kblocks, _ = grains(kbk)
+
+    def on():
+        return sg_ops.apply_tiles(f, w, tiles, n_out=n, row_nz=row_nz,
+                                  bk=kbk)
+
+    def off():
+        return sg_ops.apply_tiles(f, w, tiles, n_out=n, bk=kbk)
+
+    out_on, out_off = on(), off()
+    plain = sg_ops.apply_tiles(f, w, tiles, n_out=n, bk=kbk, impl="ref")
+    torch.cuda.synchronize()
+    scale = float(plain.abs().max())
+    err_plain = float((out_on - plain).abs().max())
+    check(err_plain <= TOL_KERNEL * scale,
+          f"spac cin {c_in}: kernel vs plain {err_plain} > {TOL_KERNEL} * "
+          f"{scale}")
+    plan_on = _split_counts(tiles, live_tiles, n, c_in, dev)
+    plan_off = _split_counts(tiles, tiles.tile_nz, n, c_in, dev)
+    same_split = all(torch.equal(a, b) for a, b in zip(plan_on, plan_off))
+    err = float((out_on - out_off).abs().max())
+    if same_split:
+        check(torch.equal(out_on, out_off),
+              f"spac cin {c_in}: SPAC on and off share a split plan but "
+              f"differ by {err}")
+    else:
+        check(err <= TOL_KERNEL * scale,
+              f"spac cin {c_in}: SPAC on vs off {err} > {TOL_KERNEL} * "
+              f"{scale}")
+    on_ms, off_ms = time_ms(on, 10), time_ms(off, 10)
+    dev_ms = {}
+    for tag, fn in (("on", on), ("off", off)):
+        busy = _device_busy(fn, 10)
+        dev_ms[tag] = {"device_ms": busy["device_ms"],
+                       "device_ops": busy["device_ops"],
+                       "consistent": busy["consistent"],
+                       "fused_kernel_ms": sum(
+                           r[1] for r in busy["rows"]
+                           if "spconv_gemm_fused_kernel" in r[0]) / 10}
+    stats = sparsity.sparsity_stats(f, plan.kmap, c_in)
+    n_maps = int((plan.kmap >= 0).sum())
+    vs = float(stats.element_sparsity)
+    lat = cyclemodel.layer_latency(int(vb.valid.sum()), n_maps, c_in, c_in,
+                                   vs)
+    model_saving = 1 - cyclemodel.compute_cycles(n_maps, c_in, c_in, vs) \
+        / cyclemodel.dense_compute_cycles(n_maps, c_in, c_in)
+    rec = {"c_in": c_in, "bm": tiles.bm, "mac_grain": MAC_GRAIN,
+           "kernel_bk": kbk, "tiles_geo": geo, "tiles_live": live,
+           "blocks_live": blocks, "kernel_blocks_live": kblocks, **macs,
+           "mac_reduction": reduction, "value_sparsity": vs,
+           "row_elision": float(stats.map_elision), "n_maps": n_maps,
+           "spac_on_ms": on_ms, "spac_off_ms": off_ms,
+           "measured_saving": 1 - on_ms / off_ms, "device": dev_ms,
+           "measured_device_saving": 1 - dev_ms["on"]["device_ms"]
+           / dev_ms["off"]["device_ms"],
+           "measured_kernel_saving": 1 - dev_ms["on"]["fused_kernel_ms"]
+           / dev_ms["off"]["fused_kernel_ms"],
+           "split_blocks": {"on": int((plan_on[1][:, 1] > 1).sum()),
+                            "off": int((plan_off[1][:, 1] > 1).sum())},
+           "same_split_plan": same_split, "on_vs_off_max_abs": err,
+           "kernel_vs_plain_max_abs": err_plain, "max_abs_plain": scale,
+           "model": {"compute_saving": model_saving,
+                     "spac_saving": 1 - lat.fine_spac / lat.fine,
+                     "pipeline_gain": lat.coarse / lat.fine}}
+    emit(phase="paper.spac", **rec)
+    return rec
+
+
+def _paper_forwards(dev, cfg, indoor, lidar):
+    """MinkUNet-large through kernel 2 with ``map_method="sorted"`` (at
+    ``grid_bits`` 5, the sorted key's widest grid; the indoor scene fits
+    it) against the octree forward at the same settings, and a
+    ``search_impl="dense"`` forward at LARGE's own settings on the LiDAR
+    scene against the kernel-1 forward: every kmap and the logits
+    bit-equal, 25 kernel-2 launches a forward, kernel 1 only in the octree
+    forwards. Returns the kernel-1 and kernel-2 launches of the four
+    forwards."""
+    import torch
+    from repro_torch.core.spconv import SparseTensor
+    from repro_torch.models import minkunet
+    n_layers, n_levels = _n_layers(cfg), len(cfg.enc) + 1
+    launches, rec = [0, 0], {}
+
+    def run(tag, c, sc, **kw):
+        st = SparseTensor(*(torch.as_tensor(a, device=dev) for a in (
+            sc.coords, sc.batch, sc.valid, sc.feats)))
+        model = _seeded_model(c, dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        t0 = time.perf_counter()
+        plans = minkunet.build_plans(st.coords, st.batch, st.valid, c,
+                                     device=dev, **kw)
+        torch.cuda.synchronize()
+        plan_ms = (time.perf_counter() - t0) * 1e3
+        logits = minkunet.forward(model, st, plans=plans)
+        torch.cuda.synchronize()
+        d = _counts()
+        launches[0] += d[0]
+        launches[1] += d[1]
+        tabled = c.map_method == "octree" and kw.get("search_impl") is None
+        check((d[0], d[1], d[3]) == (n_levels if tabled else 0, n_layers,
+                                     2 * len(cfg.enc) + 1),
+              f"{tag}: (octent, gemm, searches) = {(d[0], d[1], d[3])}")
+        check(bool(torch.isfinite(logits).all()), f"{tag}: non-finite logit")
+        rec[tag] = {"voxels": int(sc.valid.sum()), "plan_ms": plan_ms,
+                    "octent_launches": d[0], "gemm_launches": d[1],
+                    "searches": d[3],
+                    "peak_mb": torch.cuda.max_memory_allocated() / 2 ** 20}
+        return plans, logits
+
+    check(int(indoor.coords.max()) < 16 << PAPER_GRID_BITS,
+          "the indoor scene leaves the sorted search's grid")
+    small = dataclasses.replace(cfg, grid_bits=PAPER_GRID_BITS)
+    pairs = [("octree_gb5", small, "sorted_gb5",
+              dataclasses.replace(small, map_method="sorted"), {}, indoor),
+             ("kernel", cfg, "dense", cfg, {"search_impl": "dense"}, lidar)]
+    for base_tag, base_cfg, tag, other_cfg, kw, sc in pairs:
+        want_plans, want = run(base_tag, base_cfg, sc)
+        plans, got = run(tag, other_cfg, sc, **kw)
+        for i, (p, q) in enumerate(zip(plans.subm, want_plans.subm)):
+            check(torch.equal(p.kmap, q.kmap),
+                  f"{tag}: the Subm3 kmap at res {i} differs from {base_tag}")
+        for kind in ("down", "up"):
+            for p, q in zip(getattr(plans, kind), getattr(want_plans, kind)):
+                check(torch.equal(p.kmap, q.kmap),
+                      f"{tag}: a {kind} kmap differs from {base_tag}")
+        check(torch.equal(got, want),
+              f"{tag}: logits differ from the {base_tag} forward by "
+              f"{float((got - want).abs().max())}")
+        del plans, want_plans, got, want
+        torch.cuda.empty_cache()
+    emit(phase="paper.forward", config=cfg.name, bucket=BUCKET,
+         logits_bit_equal=True, **rec)
+    return launches
+
+
+def _paper_replan(dev):
+    """``chaos``'s replan gate on the card: the demo at ``max_blocks=4``
+    replans every Subm3 build and reaches the default run's digest. Both
+    runs sum the plain backward in a fixed order
+    (``torch.use_deterministic_algorithms``), since ``index_add_``'s
+    atomics would make two clean runs differ too."""
+    import warnings
+    import torch
+    from repro_torch.launch import train
+    from repro_torch.runtime import guard
+    runs = {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            for tag, mb in (("clean", None), ("tight", 4)):
+                with guard.scoped_health():
+                    runs[tag] = train.run_spconv_demo(
+                        2, max_blocks=mb, seed=SEED, device=dev)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    tight, clean = runs["tight"], runs["clean"]
+    rec = {"max_blocks": 4, "clean_digest": clean["state_digest"],
+           "replan_digest": tight["state_digest"],
+           "bit_identical": tight["state_digest"] == clean["state_digest"],
+           "replan_overflow": tight["health"].get("replan.overflow", 0),
+           "replan_recovered": tight["health"].get("replan.recovered", 0),
+           "mapsearch_calls": tight["mapsearch_calls"],
+           "clean_mapsearch_calls": clean["mapsearch_calls"]}
+    emit(phase="paper.replan", **rec)
+    check(rec["bit_identical"], "replan: the max_blocks=4 demo's digest "
+          "differs from the default run's")
+    check(rec["replan_overflow"] > 0 and rec["replan_recovered"] > 0,
+          f"replan: no overflow or no recovery: {tight['health']}")
+
+
+def phase_paper(dev, cfg, scenes):
+    """The paper's own measurements on the card: Fig. 9(a) on the four
+    workloads of ``benchmarks/common.py`` and phase serve's LiDAR scene
+    (``_paper_search``), Fig. 9(b) on Seg(i) at Cin 16-128
+    (``_paper_spac``), Fig. 8(a)/9(c) from kernel 1's Seg(o) kmap and the
+    tiers of a Subm3 plan at the serving bucket, the sorted and dense
+    MinkUNet-large forwards (``_paper_forwards``) and the replan gate.
+    Returns the kernel-1 and kernel-2 launches of its forwards."""
+    import torch
+    from repro_torch.core import caching, plan as planlib, rulebook
+    from repro_torch.core.spconv import SparseTensor
+    from repro_torch.data import pointcloud
+    from repro_torch.kernels.octent import ops as oct_ops
+    from repro_torch.runtime import feature_cache
+    t0 = time.perf_counter()
+    searches, kmaps, loads = [], {}, {}
+    for name, (kind, rows, batch) in PAPER_WORKLOADS.items():
+        loads[name] = pointcloud.make_batch(np.random.default_rng(SEED), kind,
+                                            batch, rows)
+        rec, kmaps[name] = _paper_search(dev, name, loads[name],
+                                         PAPER_PROBE[name])
+        searches.append(rec)
+    by_rid = dict(scenes)
+    rec, _ = _paper_search(dev, "serve:lidar-0", by_rid["lidar-0"], None)
+    searches.append(rec)
+
+    seg_i = loads["Seg(i)"]
+    st = SparseTensor(*(torch.as_tensor(a, device=dev) for a in (
+        seg_i.coords, seg_i.batch, seg_i.valid, seg_i.feats)))
+    plan = planlib.subm3_plan(st.coords, st.batch, st.valid,
+                              max_blocks=st.n_max)
+    spac = [_paper_spac(dev, seg_i, st, plan, c_in) for c_in in PAPER_CINS]
+    del plan
+
+    counts = rulebook.tap_counts(kmaps["Seg(o)"]).cpu().numpy()
+    parts = {"center": 0, "mid": 0, "up": 0, "down": 0}
+    for t, n in enumerate(counts):
+        parts[caching.tap_partition(t)] += int(n)
+    dz0 = (parts["center"] + parts["mid"]) / max(int(counts.sum()), 1)
+    savings = {c_in: caching.saving(counts, c_in, c_in, CACHE_CAPACITY)
+               for c_in in (16, 48, 96, 128)}
+    lidar = by_rid["lidar-0"]
+    c, b, v = (torch.as_tensor(a, device=dev) for a in (
+        lidar.coords, lidar.batch, lidar.valid))
+    qt = oct_ops.build_query_table(c, b, v, max_blocks=BUCKET)
+    plan = planlib.subm3_plan(c, b, v, max_blocks=BUCKET)
+    tiers = {"plan": plan.residency,
+             "plan_and_table": feature_cache.plan_tier_bytes(plan, qt)}
+    emit(phase="paper.caching", workload="Seg(o)",
+         tap_partitions=parts, delta_z0_share=dz0,
+         paper_delta_z0_band=[0.45, 0.83], capacity_bytes=CACHE_CAPACITY,
+         saving_by_cin=savings, subm3_tiers_at_bucket=tiers, bucket=BUCKET)
+    check(0.0 < dz0 <= 1.0, f"caching: delta_z = 0 share {dz0}")
+    del plan, qt, kmaps
+    torch.cuda.empty_cache()
+
+    launches = _paper_forwards(dev, cfg, by_rid["indoor-0"], lidar)
+    _paper_replan(dev)
+    emit(phase="paper", seconds=time.perf_counter() - t0,
+         workloads=[r["workload"] for r in searches],
+         spac_cins=[r["c_in"] for r in spac])
+    return launches
+
+
 def _serve_scenes():
     """The four scenes of phase serve, made from their seeds."""
     from repro_torch.data import pointcloud
@@ -2819,6 +3262,8 @@ def main() -> int:
     restart = phase_restart(dev, cfg, serve_latency_ms, serve_digests)
     k1["restart_launches"] = restart["octent_query"]
     k2["restart_launches"] = restart["spconv_gemm_fused"]
+    k1["paper_launches"], k2["paper_launches"] = phase_paper(dev, cfg,
+                                                             scenes)
     flash = phase_flash(dev)
     lm_cfg, lm_params, fa_launches = phase_lm_serve(dev)
     phase_lm_reference(dev, lm_cfg, lm_params)

@@ -1,9 +1,18 @@
-"""Map search building blocks: unique passes, strided maps, host oracle.
+"""Map search building blocks: unique passes, strided maps, the baselines.
 
-Counterpart of ``repro.core.mapsearch`` for the serving slice. The
-reference orders its bounded keys with sort-free counting passes; a stable
-``torch.sort`` of the same keys gives the same permutation, so that is what
-runs here. Every output is int32 and bit-identical to the reference.
+Counterpart of ``repro.core.mapsearch``. The reference orders its bounded
+keys with sort-free counting passes; a stable ``torch.sort`` of the same
+keys gives the same permutation, so that is what runs here. Every output
+is int32 and bit-identical to the reference.
+
+The paper's search baselines live here beside kernel 1
+(``kernels/octent``): :func:`build_kmap_bruteforce` (the O(N^2) traverse
+of Fig. 3(a)) and :func:`build_kmap_hash` (serial host hashing, the
+GPU-engine baseline), both numpy; :func:`build_kmap_octree`, OCTENT over
+a dense ``max_blocks * 4096`` table in torch ops on the inputs' device;
+and :func:`build_kmap_sorted`, binary search over the sorted composite
+keys, with no table at all. On duplicate coordinates the dense table and
+the hash keep the last row, the sorted search and kernel 1 the first.
 
 Map representation (gather form, output stationary):
     kmap : (N_out, K) int32 — input row feeding output i through tap k
@@ -109,6 +118,138 @@ def build_kmap_hash(coords: np.ndarray, batch: np.ndarray,
                                            for c in coords[i] + offsets[t])
             kmap[i, t] = table.get(key, -1)
     return kmap
+
+
+def build_kmap_bruteforce(coords: np.ndarray, batch: np.ndarray,
+                          valid: np.ndarray,
+                          offsets: np.ndarray) -> np.ndarray:
+    """O(N^2 K) traverse (Fig. 3(a)); outputs == inputs. The first valid
+    row at the target wins."""
+    n, k = coords.shape[0], offsets.shape[0]
+    kmap = np.full((n, k), -1, dtype=np.int32)
+    for i in range(n):
+        if not valid[i]:
+            continue
+        for t in range(k):
+            target = coords[i] + offsets[t]
+            for j in range(n):
+                if valid[j] and batch[j] == batch[i] \
+                        and np.all(coords[j] == target):
+                    kmap[i, t] = j
+                    break
+    return kmap
+
+
+class BlockTable(NamedTuple):
+    """Stage 1 of OCTENT over a dense table (Fig. 5(c) lines 1-6).
+
+    ``banks`` is the (max_blocks * 4096) flattened table: block rank, then
+    bank (phi_1), then row; -1 is empty. ``ublocks`` is the sorted,
+    INVALID-padded directory of occupied block keys. ``n_blocks`` is the
+    true occupied-block count, which may exceed ``max_blocks``: the
+    caller's overflow signal.
+    """
+
+    banks: torch.Tensor     # (max_blocks * TABLE_SIZE,) int32
+    ublocks: torch.Tensor   # (max_blocks,) int32, sorted, INVALID padded
+    n_blocks: torch.Tensor  # () int32
+
+
+def build_block_table(coords: torch.Tensor, batch: torch.Tensor,
+                      valid: torch.Tensor, *, max_blocks: int,
+                      grid_bits: int = 7, batch_bits: int = 4) -> BlockTable:
+    """The dense octree table of a cloud. Where several valid rows share a
+    voxel the largest row index wins, the reference's last writer on the
+    CPU; a max-scatter makes that winner defined on the card too."""
+    n = coords.shape[0]
+    size = max_blocks * morton.TABLE_SIZE
+    bkey = torch.where(valid,
+                       morton.block_key(coords, batch, grid_bits, batch_bits),
+                       INVALID)
+    ublocks, n_blocks, rank = sorted_unique(bkey, max_blocks)
+    bank, row = morton.bank_and_row(morton.local_code(coords))
+    flat = rank * morton.TABLE_SIZE + bank * morton.BANK_ROWS + row
+    flat = torch.where(valid & (rank < max_blocks), flat, size)
+    banks = torch.full((size + 1,), -1, dtype=_I32, device=coords.device)
+    banks.scatter_reduce_(0, flat.long(),
+                          torch.arange(n, dtype=_I32, device=coords.device),
+                          reduce="amax")
+    return BlockTable(banks[:size], ublocks, n_blocks.reshape(()))
+
+
+def query_block_table(table: BlockTable, qcoords: torch.Tensor,
+                      qbatch: torch.Tensor, qvalid: torch.Tensor, *,
+                      grid_bits: int = 7, batch_bits: int = 4) -> torch.Tensor:
+    """Row index of each query coordinate (..., 3), -1 for a miss. One
+    gather answers every query against every bank; negative and
+    out-of-grid coordinates miss."""
+    max_blocks = table.ublocks.shape[0]
+    limit = (1 << grid_bits) * morton.BLOCK_SIZE
+    inb = ((qcoords >= 0) & (qcoords < limit)).all(dim=-1) & qvalid
+    qc = qcoords.clamp(0, limit - 1)
+    bkey = morton.block_key(qc, qbatch, grid_bits, batch_bits)
+    brank = torch.searchsorted(table.ublocks, bkey.contiguous(),
+                               out_int32=True).clamp(max=max_blocks - 1)
+    hit = inb & (table.ublocks[brank.long()] == bkey)
+    bank, row = morton.bank_and_row(morton.local_code(qc))
+    flat = brank * morton.TABLE_SIZE + bank * morton.BANK_ROWS + row
+    return torch.where(hit, table.banks[flat.long()], -1)
+
+
+def offset_queries(coords, batch, valid, offsets):
+    """The (N, K, 3) queries ``coords + offsets`` of every row, with the
+    row's batch and valid flag broadcast to (N, K)."""
+    q = coords[:, None, :] + offsets[None, :, :].to(coords.dtype)
+    shape = q.shape[:2]
+    return q, batch[:, None].expand(shape), valid[:, None].expand(shape)
+
+
+def build_kmap_octree(coords: torch.Tensor, batch: torch.Tensor,
+                      valid: torch.Tensor, offsets: torch.Tensor, *,
+                      max_blocks: int, grid_bits: int = 7,
+                      batch_bits: int = 4) -> torch.Tensor:
+    """OCTENT map search through a dense table (outputs == inputs): the
+    (N, K) int32 kmap, -1 for a miss. The table is freed on return."""
+    table = build_block_table(coords, batch, valid, max_blocks=max_blocks,
+                              grid_bits=grid_bits, batch_bits=batch_bits)
+    return query_block_table(
+        table, *offset_queries(coords, batch, valid, offsets),
+        grid_bits=grid_bits, batch_bits=batch_bits)
+
+
+def sorted_key_fits(grid_bits: int, batch_bits: int) -> bool:
+    """Whether the composite key (block key << 12 | phi) of
+    :func:`build_kmap_sorted` fits int32 at these widths."""
+    return 3 * grid_bits + batch_bits + morton.LOCAL_CODE_BITS <= 31
+
+
+def build_kmap_sorted(coords: torch.Tensor, batch: torch.Tensor,
+                      valid: torch.Tensor, offsets: torch.Tensor, *,
+                      grid_bits: int = 5, batch_bits: int = 4) -> torch.Tensor:
+    """Table-free search: each query's composite key (block key << 12 |
+    phi) is found by binary search in the stably sorted keys of the cloud.
+    Same output as :func:`build_kmap_octree`; the key must fit int32
+    (:func:`sorted_key_fits`: up to 512 voxels an axis at the defaults)."""
+    if not sorted_key_fits(grid_bits, batch_bits):
+        raise ValueError(
+            "the sorted search needs the composite key to fit int32; use "
+            "build_kmap_octree for large grids")
+
+    def composite(c, b, v):
+        key = morton.block_key(c, b, grid_bits, batch_bits)
+        key = (key << morton.LOCAL_CODE_BITS) | morton.local_code(c)
+        return torch.where(v, key, INVALID)
+
+    keys = composite(coords, batch, valid)
+    skeys, order = torch.sort(keys, stable=True)
+    q, qb, qv = offset_queries(coords, batch, valid, offsets)
+    limit = (1 << grid_bits) * morton.BLOCK_SIZE
+    inb = ((q >= 0) & (q < limit)).all(dim=-1) & qv
+    qk = composite(q.clamp(0, limit - 1), qb, inb)
+    pos = torch.searchsorted(skeys, qk.contiguous(), out_int32=True)
+    pos = pos.clamp(max=keys.shape[0] - 1).long()
+    hit = inb & (skeys[pos] == qk) & (qk != INVALID)
+    return torch.where(hit, order[pos].to(_I32), -1)
 
 
 class StridedMaps(NamedTuple):

@@ -36,6 +36,16 @@ def _part1by2(v: torch.Tensor, bits: int) -> torch.Tensor:
     return v
 
 
+def _compact1by2(v: torch.Tensor, bits: int) -> torch.Tensor:
+    """Inverse of :func:`_part1by2`."""
+    v = v.to(torch.int32) & 0x09249249
+    v = (v | (v >> 2)) & 0x030C30C3
+    v = (v | (v >> 4)) & 0x0300F00F
+    v = (v | (v >> 8)) & 0x030000FF
+    v = (v | (v >> 16)) & 0x000003FF
+    return v & ((1 << bits) - 1)
+
+
 def interleave_xyz(x: torch.Tensor, y: torch.Tensor, z: torch.Tensor,
                    bits: int) -> torch.Tensor:
     """Morton-encode separate x/y/z channels into an int32 code, x at bit 0."""
@@ -46,6 +56,12 @@ def interleave_xyz(x: torch.Tensor, y: torch.Tensor, z: torch.Tensor,
 def interleave3(coords: torch.Tensor, bits: int) -> torch.Tensor:
     """Morton-encode ``coords[..., (x, y, z)]``; each octal digit is {z y x}."""
     return interleave_xyz(coords[..., 0], coords[..., 1], coords[..., 2], bits)
+
+
+def deinterleave3(code: torch.Tensor, bits: int) -> torch.Tensor:
+    """Inverse of :func:`interleave3`; returns (..., 3) int32 coords."""
+    return torch.stack([_compact1by2(code >> s, bits) for s in (0, 1, 2)],
+                       dim=-1)
 
 
 def local_code(coords: torch.Tensor) -> torch.Tensor:
@@ -83,3 +99,37 @@ def subm3_offsets() -> np.ndarray:
     rng = (-1, 0, 1)
     return np.array([(dx, dy, dz) for dz in rng for dy in rng for dx in rng],
                     dtype=np.int32)
+
+
+def build_pnelut() -> tuple[np.ndarray, np.ndarray, int]:
+    """The PNELUT (Parallel Neighbor-Encoding LUT, Fig. 5(b)): for each
+    center phi_1 (8) the 27 Subm3 neighbour queries grouped by the bank
+    (the neighbour's phi_1) they hit.
+
+    Returns ``(lut, depth, max_rot)``: ``lut`` (8, 8, max_rot) int32 offset
+    indices into :func:`subm3_offsets`, [center phi_1, bank, slot], -1
+    padded; ``depth`` (8, 8) int32 valid entries per row; ``max_rot`` the
+    deepest row, the query cycles of an 8-bank Query Transmitter (8 for
+    Subm3).
+    """
+    offs = subm3_offsets()
+    groups = [[[] for _ in range(8)] for _ in range(8)]
+    for p1 in range(8):
+        cx, cy, cz = p1 & 1, (p1 >> 1) & 1, (p1 >> 2) & 1
+        for oi, (dx, dy, dz) in enumerate(offs):
+            nb = (((cx + dx) & 1) | (((cy + dy) & 1) << 1)
+                  | (((cz + dz) & 1) << 2))
+            groups[p1][nb].append(oi)
+    max_rot = max(len(g) for row in groups for g in row)
+    lut = np.full((8, 8, max_rot), -1, dtype=np.int32)
+    depth = np.zeros((8, 8), dtype=np.int32)
+    for p1 in range(8):
+        for b in range(8):
+            lut[p1, b, :len(groups[p1][b])] = groups[p1][b]
+            depth[p1, b] = len(groups[p1][b])
+    return lut, depth, max_rot
+
+
+def pnelut_query_cycles() -> int:
+    """Query cycles per voxel for Subm3 with 8 parallel banks (paper: 8)."""
+    return build_pnelut()[2]

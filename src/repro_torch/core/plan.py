@@ -48,7 +48,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.core import mapsearch, rulebook, sparsity
+from repro_torch.core import mapsearch, morton, rulebook, sparsity
 from repro_torch.core.mapsearch import StridedMaps
 from repro_torch.core.validate import CapacityOverflow  # noqa: F401
 from repro_torch.kernels.octent import ops as oct_ops
@@ -184,6 +184,14 @@ class ConvPlan(NamedTuple):
     out_batch: torch.Tensor | None
     out_valid: torch.Tensor | None
     maps: StridedMaps | None
+
+    @property
+    def residency(self) -> dict:
+        """Bytes per caching tier of this plan
+        (:func:`~repro_torch.runtime.feature_cache.plan_tier_bytes`): the
+        pinned per-tile metadata against the cached kmap and slot streams.
+        The search table is pinned apart, in the cache's store."""
+        return feature_cache.plan_tier_bytes(self)
 
 
 def _snapshot_of(plan: ConvPlan) -> tuple:
@@ -455,33 +463,60 @@ class SubmWarmStart(NamedTuple):
     patch: object   # () -> (kmap (N, 27) int32, octent ops.QueryTable)
 
 
-def subm3_plan(coords, batch, valid, *, max_blocks: int, grid_bits: int = 7,
+def subm3_plan(coords, batch, valid, *, max_blocks: int,
+               method: str = "octree", grid_bits: int = 7,
                batch_bits: int = 4, bm: int = 128, bo: int | None = None,
                search_impl: str | None = None,
                cache: PlanCache | None = None,
                content_key=None,
                warm: SubmWarmStart | None = None) -> ConvPlan:
-    """Submanifold 3x3x3 plan by OCTENT search: outputs == inputs, 27 taps.
+    """Submanifold 3x3x3 plan: outputs == inputs, 27 taps.
 
-    ``search_impl``: None / ``"kernel"`` (the CUDA query kernel on a card)
-    or ``"ref"`` (its plain version). Raises :class:`CapacityOverflow` when
-    the scene occupies more than ``max_blocks`` blocks. ``content_key``
-    stands in for the key tensors' fingerprint (:meth:`PlanCache.lookup`).
+    ``method``: ``"octree"`` searches by OCTENT through ``search_impl``:
+    None / ``"kernel"`` (the CUDA query kernel on a card), ``"ref"`` (its
+    plain version) or ``"dense"`` (the dense-table baseline,
+    ``core.mapsearch.build_block_table``); it raises
+    :class:`CapacityOverflow` when the scene occupies more than
+    ``max_blocks`` blocks. ``"sorted"`` searches the sorted composite keys
+    (``core.mapsearch.build_kmap_sorted``, no table, ``search_impl`` not
+    used) and raises ValueError where the key does not fit int32.
+    ``content_key`` stands in for the key tensors' fingerprint
+    (:meth:`PlanCache.lookup`).
 
-    With a content-keyed ``cache``, the stage-1 table is pinned in
-    ``cache.pinned`` under ``("qtable", fingerprint, max_blocks,
-    grid_bits, batch_bits)``: a build that finds it there runs the query
-    only, and still counts one map search. ``warm`` (consulted on a cache
-    miss only, and not part of the key: its plan is bit-equal to the
-    scratch plan) builds the plan from ``warm.patch()`` instead, counted
-    in ``DELTA_PATCHES``, not as a search.
+    With a content-keyed ``cache``, the stage-1 table of ``"kernel"`` and
+    ``"ref"`` is pinned in ``cache.pinned`` under ``("qtable",
+    fingerprint, max_blocks, grid_bits, batch_bits)``: a build that finds
+    it there runs the query only, and still counts one map search.
+    ``warm`` (consulted on a cache miss only, and not part of the key: its
+    plan is bit-equal to the scratch plan) builds the plan from
+    ``warm.patch()`` instead, counted in ``DELTA_PATCHES``, not as a
+    search.
     """
-    simpl = search_impl or "kernel"
-    statics = ("subm3", max_blocks, simpl, grid_bits, batch_bits, bm, bo)
-    store = cache.pinned if cache is not None else None
+    if method not in ("octree", "sorted"):
+        raise ValueError(f"unknown map search method {method!r}")
+    simpl = (search_impl or "kernel") if method == "octree" else None
+    statics = ("subm3", max_blocks, method, simpl, grid_bits, batch_bits,
+               bm, bo)
+    tabled = simpl in ("kernel", "ref")
+    store = cache.pinned if cache is not None and tabled else None
 
-    def build(fp):
-        fault.check("plan")
+    def search_sorted():
+        MAPSEARCH_CALLS[0] += 1
+        if not mapsearch.sorted_key_fits(grid_bits, batch_bits):
+            bits = 3 * grid_bits + batch_bits + morton.LOCAL_CODE_BITS
+            raise ValueError(
+                f"map search method 'sorted' needs the composite key "
+                f"(3*grid_bits + batch_bits + {morton.LOCAL_CODE_BITS}) to "
+                f"fit int32, got grid_bits={grid_bits}, "
+                f"batch_bits={batch_bits} -> {bits} bits. Pass grid_bits "
+                f"<= {(31 - batch_bits - morton.LOCAL_CODE_BITS) // 3} or "
+                f"use method='octree' for large grids.")
+        offs = torch.as_tensor(morton.subm3_offsets(), device=coords.device)
+        return mapsearch.build_kmap_sorted(coords, batch, valid, offs,
+                                           grid_bits=grid_bits,
+                                           batch_bits=batch_bits)
+
+    def search_octree(fp):
         # anchors cost device memory against the store's budget, so only
         # verifying caches keep them
         verify = cache is not None and cache.verify
@@ -493,25 +528,29 @@ def subm3_plan(coords, batch, valid, *, max_blocks: int, grid_bits: int = 7,
             pin_key = ("qtable", fp, max_blocks, grid_bits, batch_bits)
             table = store.get(pin_key, anchor=anchor, verify=verify,
                               device=coords.device)
-        if warm is not None:
+        if warm is not None and tabled:
             DELTA_PATCHES[0] += 1
             kmap, table = warm.patch()
             _require_block_capacity(table.n_blocks, max_blocks)
             if pin_key is not None:
                 store.put(pin_key, table, anchor=anchor)
-        else:
-            MAPSEARCH_CALLS[0] += 1
-            if table is None:
-                table = oct_ops.build_query_table(
-                    coords, batch, valid, max_blocks=max_blocks,
-                    grid_bits=grid_bits, batch_bits=batch_bits)
-                if pin_key is not None:
-                    store.put(pin_key, table, anchor=anchor)
-            kmap, n_blocks = oct_ops.build_kmap(
+            return kmap
+        MAPSEARCH_CALLS[0] += 1
+        if table is None and tabled:
+            table = oct_ops.build_query_table(
                 coords, batch, valid, max_blocks=max_blocks,
-                grid_bits=grid_bits, batch_bits=batch_bits, impl=simpl,
-                table=table)
-            _require_block_capacity(n_blocks, max_blocks)
+                grid_bits=grid_bits, batch_bits=batch_bits)
+            if pin_key is not None:
+                store.put(pin_key, table, anchor=anchor)
+        kmap, n_blocks = oct_ops.build_kmap(
+            coords, batch, valid, max_blocks=max_blocks, grid_bits=grid_bits,
+            batch_bits=batch_bits, impl=simpl, table=table)
+        _require_block_capacity(n_blocks, max_blocks)
+        return kmap
+
+    def build(fp):
+        fault.check("plan")
+        kmap = search_sorted() if method == "sorted" else search_octree(fp)
         tiles = sg_ops.build_tap_tiles(kmap, bm=bm, bo=bo)
         return ConvPlan("subm3", kmap, tiles, coords.shape[0], 27,
                         None, None, None, None)

@@ -13,7 +13,7 @@ from typing import Mapping, NamedTuple
 import torch
 
 from repro_torch.core import plan as planlib
-from repro_torch.core import rulebook
+from repro_torch.core import rulebook, validate
 from repro_torch.core.mapsearch import StridedMaps
 from repro_torch.core.sparsity import ActSparsity
 from repro_torch.kernels.spconv_gemm import ops as sg_ops
@@ -46,8 +46,32 @@ def mask_feats(st: SparseTensor) -> SparseTensor:
     return st.replace_feats(_zero_invalid(st.valid, st.feats))
 
 
+def make_sparse_tensor(coords, batch, valid, feats, *, grid_bits: int = 7,
+                       batch_bits: int = 4, policy=None):
+    """The ingress guard's constructor: runs
+    :func:`~repro_torch.core.validate.sanitize_cloud` over the raw stream
+    (non-finite coordinates, out-of-grid voxels, duplicates, dtype drift)
+    under ``policy`` (None: ``REPRO_GUARD_VALIDATE``), then wraps it.
+
+    Repairs only clear ``valid`` bits and cast dtypes; shapes never
+    change. Returns ``(SparseTensor, CloudReport)``, the report None when
+    the policy is ``off``; a clean cloud passes the original objects
+    through, so a plan cache's identity keys still hit.
+    """
+    pol = policy if policy is not None else guard.validate_policy()
+    if pol is not None:
+        coords, batch, valid, feats, report = validate.sanitize_cloud(
+            coords, batch, valid, feats, grid_bits=grid_bits,
+            batch_bits=batch_bits, policy=pol)
+    else:
+        report = None
+    return SparseTensor(coords=coords, batch=batch, valid=valid,
+                        feats=feats), report
+
+
 def subm_conv3(st: SparseTensor, w: torch.Tensor, b: torch.Tensor | None,
-               *, max_blocks: int, grid_bits: int = 7, batch_bits: int = 4,
+               *, max_blocks: int, method: str = "octree",
+               grid_bits: int = 7, batch_bits: int = 4,
                spac: bool = True, act: ActSparsity | None = None,
                plan: planlib.ConvPlan | None = None,
                cache: planlib.PlanCache | None = None,
@@ -61,9 +85,10 @@ def subm_conv3(st: SparseTensor, w: torch.Tensor, b: torch.Tensor | None,
     """
     if plan is None:
         plan = planlib.subm3_plan(st.coords, st.batch, st.valid,
-                                  max_blocks=max_blocks, grid_bits=grid_bits,
-                                  batch_bits=batch_bits, bm=bm, bo=bo,
-                                  search_impl=search_impl, cache=cache)
+                                  max_blocks=max_blocks, method=method,
+                                  grid_bits=grid_bits, batch_bits=batch_bits,
+                                  bm=bm, bo=bo, search_impl=search_impl,
+                                  cache=cache)
     out = planlib.execute(plan, st.feats, w, b, spac=spac, act=act,
                           impl=impl)
     return st.replace_feats(_zero_invalid(st.valid, out))

@@ -4,7 +4,10 @@
 compacted banked table; :func:`build_kmap` runs the full search through the
 CUDA query kernel (kernel.py) or, with ``impl="ref"``, its plain version.
 Both give the same kmap bit for bit, and both match the host hash oracle
-``core.mapsearch.build_kmap_hash``. ``build_kmap(update=)`` searches only
+``core.mapsearch.build_kmap_hash``. ``impl="dense"`` is the search
+baseline of a dense ``max_blocks * 4096`` table
+(``core.mapsearch.build_kmap_octree``, the reference's ``impl="xla"``); it
+runs only where a caller names it. ``build_kmap(update=)`` searches only
 a streaming frame's dirty rows, against the frame's spliced table. The
 query runs through ``runtime.guard.dispatch`` at the ``search`` fault
 site; it falls back to the plain version only under
@@ -98,7 +101,9 @@ def build_kmap(coords: torch.Tensor, batch: torch.Tensor,
 
     impl: None or ``"kernel"`` runs the query through the kernel wrapper
     (the CUDA kernel on a card, its plain version on the CPU); ``"ref"``
-    runs the plain version on any device. ``table`` is a prebuilt
+    runs the plain version on any device; ``"dense"`` builds and queries
+    a dense table (:func:`~repro_torch.core.mapsearch.build_block_table`)
+    on any device, and takes no ``table``. ``table`` is a prebuilt
     :class:`QueryTable` for this exact coordinate set, so only the query
     runs. The queries are the 27 Subm3 taps.
 
@@ -112,8 +117,11 @@ def build_kmap(coords: torch.Tensor, batch: torch.Tensor,
     the true occupied-block count for the caller's overflow check.
     """
     impl = impl or "kernel"
-    if impl not in ("kernel", "ref"):
+    if impl not in ("kernel", "ref", "dense"):
         raise ValueError(f"unknown search impl {impl!r}")
+    if impl == "dense" and table is not None:
+        raise ValueError("impl='dense' builds its own dense table; a "
+                         "prebuilt QueryTable serves 'kernel' and 'ref' only")
     if update is not None and table is None:
         raise ValueError(
             "update= re-searches dirty rows against a delta-updated "
@@ -125,6 +133,14 @@ def build_kmap(coords: torch.Tensor, batch: torch.Tensor,
 
     def _run(one: str):
         _fault.check("search")
+        if one == "dense":
+            bt = mapsearch.build_block_table(
+                coords, batch, valid, max_blocks=max_blocks,
+                grid_bits=grid_bits, batch_bits=batch_bits)
+            kmap = mapsearch.query_block_table(
+                bt, *mapsearch.offset_queries(coords, batch, valid, offsets),
+                grid_bits=grid_bits, batch_bits=batch_bits)
+            return kmap, bt.n_blocks
         # a prebuilt table serves any impl: it depends on geometry only
         qt = table if table is not None else build_query_table(
             coords, batch, valid, max_blocks=max_blocks, grid_bits=grid_bits,

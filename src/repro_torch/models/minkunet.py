@@ -28,6 +28,7 @@ from repro_torch.core import plan as planlib
 from repro_torch.core import spconv
 from repro_torch.core.spconv import SparseTensor
 from repro_torch.device import resolve_device
+from repro_torch.runtime import guard
 
 
 @dataclass(frozen=True)
@@ -41,7 +42,7 @@ class MinkUNetConfig:
     blocks: int = 1                 # Subm3 convs per stage
     grid_bits: int = 7
     batch_bits: int = 4
-    map_method: str = "octree"      # the port implements the octree engine
+    map_method: str = "octree"      # octree | sorted
     spac: bool = True               # §V-B sparsity-aware elision
     bm: int = 128                   # rulebook tile rows
     bo: int | None = None           # output-block rows (None: 512)
@@ -183,6 +184,7 @@ def _as_tensor(a, dtype, device):
 def build_plans(coords, batch, valid, cfg: MinkUNetConfig, *,
                 cache: planlib.PlanCache | None = None,
                 n_max: int | None = None, search_impl: str | None = None,
+                replan: bool | None = None,
                 device: str | torch.device | None = None) -> MinkPlans:
     """Build (or fetch from ``cache``) the full plan set of one cloud.
 
@@ -191,6 +193,15 @@ def build_plans(coords, batch, valid, cfg: MinkUNetConfig, *,
     coordinate arrays (numpy or tensors) are placed on ``device`` (None:
     the card; raises without one). ``n_max`` is the octree directory
     capacity (default: the row budget, which no scene can overflow).
+    ``cfg.map_method`` picks each Subm3 search (``subm3_plan``'s
+    ``method``), ``search_impl`` the octree engine.
+
+    ``replan`` wraps every Subm3 build in :func:`guard.with_replan`: a
+    scene that occupies more 16^3 blocks than ``n_max`` rebuilds at an
+    escalated ``max_blocks`` instead of raising, and the escalation is
+    memoized per shape class, so a replayed cloud searches no more from
+    its second build on. None resolves from ``REPRO_GUARD_REPLAN`` (on
+    unless 0).
 
     With a ``cache``, an identity miss is keyed by the content of its
     level's coordinate set, as in the reference: the set's fingerprint
@@ -202,8 +213,8 @@ def build_plans(coords, batch, valid, cfg: MinkUNetConfig, *,
     it shares with a cached cloud hits, and costs the searches that the
     reference's cache would.
     """
-    if cfg.map_method != "octree":
-        raise ValueError(f"map method {cfg.map_method!r} is not ported")
+    if replan is None:
+        replan = guard.replan_retries() > 0
     dev = resolve_device(device)
     coords = _as_tensor(coords, torch.int32, dev).contiguous()
     batch = _as_tensor(batch, torch.int32, dev).contiguous()
@@ -216,10 +227,16 @@ def build_plans(coords, batch, valid, cfg: MinkUNetConfig, *,
             (c, b, v)), gb, bb))
 
     def subm(c, b, v, key):
-        return planlib.subm3_plan(c, b, v, max_blocks=n_max, grid_bits=gb,
-                                  batch_bits=bb, bm=cfg.bm, bo=cfg.bo,
-                                  search_impl=search_impl, cache=cache,
-                                  content_key=key)
+        def build(mb):
+            return planlib.subm3_plan(c, b, v, max_blocks=mb,
+                                      method=cfg.map_method, grid_bits=gb,
+                                      batch_bits=bb, bm=cfg.bm, bo=cfg.bo,
+                                      search_impl=search_impl, cache=cache,
+                                      content_key=key)
+        if not replan:
+            return build(n_max)
+        return guard.with_replan(build, n_max,
+                                 key=("minkunet-subm3", c.shape[0], gb, bb))
 
     cur = (coords, batch, valid)
     keys = [content_key(*cur)]

@@ -46,7 +46,7 @@ class SECONDConfig:
     grid_bits: int = 7
     batch_bits: int = 4
     n_batch: int = 2
-    map_method: str = "octree"         # the port implements the octree engine
+    map_method: str = "octree"         # octree | sorted
     spac: bool = True
     bm: int = 128                      # rulebook tile rows
     bo: int | None = None              # output-block rows (None: 512)
@@ -74,8 +74,6 @@ class SECOND(nn.Module):
                  device: str | torch.device | None = None,
                  generator: torch.Generator | None = None):
         super().__init__()
-        if cfg.map_method != "octree":
-            raise ValueError(f"map method {cfg.map_method!r} is not ported")
         self.cfg = cfg
         dev = resolve_device(device)
         c_prev = cfg.in_ch
@@ -157,7 +155,8 @@ def middle_extractor(model: SECOND, st: SparseTensor, *,
         for b in range(cfg.blocks):
             blk = stage[f"block{b}"]
             st = spconv.subm_conv3(st, blk.conv.w, blk.conv.b,
-                                   max_blocks=st.n_max, spac=cfg.spac,
+                                   max_blocks=st.n_max,
+                                   method=cfg.map_method, spac=cfg.spac,
                                    search_impl=search_impl, **kw)
             st, _ = spconv.batch_norm(st, blk.bn.stats(), training=training)
             st = spconv.relu(st)

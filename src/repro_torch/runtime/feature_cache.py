@@ -16,12 +16,70 @@ by every PlanCache that brings none. With a
 :class:`~repro_torch.runtime.persist.SnapshotStore` attached
 (``persist=``) the tier is durable: pins write through to disk, and a
 memory miss reads through before reporting cold.
+
+:func:`classify` and :func:`plan_tier_bytes` are the tier policy by field
+name (``ConvPlan.residency`` reads it): the search structure and the
+per-tile metadata are pinned, the kmap and the slot streams cached with
+their plan, features, weights and biases streamed.
 """
 from __future__ import annotations
 
 from collections import OrderedDict
 
 import torch
+
+#: tier names, in decreasing residency priority
+TIER_PINNED = "pinned"
+TIER_CACHED = "cached"
+TIER_STREAM = "stream"
+
+#: the fields of the pinned and stream tiers; every other field of a plan
+#: (the kmap, the slot streams, the strided maps) is cached-tier
+_PINNED_FIELDS = frozenset({
+    # the octree search structure (kernels/octent ops.QueryTable)
+    "ublocks", "tkey", "tval", "n_blocks",
+    # per-tile metadata (kernels/spconv_gemm ops.TapTiles)
+    "tile_tap", "tile_nz", "tile_ob", "tile_first", "tile_run",
+    "grp_skip", "grp_contig",
+})
+_STREAM_FIELDS = frozenset({"feats", "weights", "bias"})
+
+
+def classify(name: str) -> str:
+    """Tier of a named plan component (a field of ConvPlan, TapTiles,
+    StridedMaps or QueryTable) or runtime operand (``feats``,
+    ``weights``, ``bias``): :data:`TIER_PINNED`, :data:`TIER_CACHED` or
+    :data:`TIER_STREAM`."""
+    if name in _PINNED_FIELDS:
+        return TIER_PINNED
+    if name in _STREAM_FIELDS:
+        return TIER_STREAM
+    return TIER_CACHED
+
+
+def plan_tier_bytes(plan, table=None) -> dict:
+    """Bytes per caching tier of one plan and, with ``table`` (its
+    :class:`~repro_torch.kernels.octent.ops.QueryTable`), its search
+    structure: ``{"pinned": int, "cached": int, "stream": int}``.
+
+    The plan's NamedTuple fields are walked, nested NamedTuples (TapTiles,
+    StridedMaps, QueryTable) one level down, and each tensor counts
+    ``numel() * element_size()`` bytes in its field's tier. The stream
+    tier is always 0: features never live on a plan.
+    """
+    out = {TIER_PINNED: 0, TIER_CACHED: 0, TIER_STREAM: 0}
+
+    def visit(name, value):
+        if hasattr(value, "_fields"):
+            for n in value._fields:
+                visit(n, getattr(value, n))
+        elif isinstance(value, torch.Tensor):
+            out[classify(name)] += value.numel() * value.element_size()
+
+    visit("plan", plan)
+    if table is not None:
+        visit("table", table)
+    return out
 
 
 def nbytes(tree) -> int:

@@ -52,7 +52,7 @@ log = logging.getLogger("repro_torch.guard")
 #: per-site fallback chains of CPU tensors: primary impl -> the plain
 #: versions it falls back to (see :func:`fallback_chain`)
 FALLBACK_CHAINS = {
-    "search": {"kernel": ("ref",), "ref": ()},
+    "search": {"kernel": ("ref",), "dense": ("ref",), "ref": ()},
     "gemm": {"kernel": ("ref",), "ref": ()},
 }
 

@@ -54,7 +54,11 @@ scratch sessions agree bit for bit on the card. The serving engine retries
 a one-shot injected ``gemm`` fault with the kernel to the clean request's
 bits (no fallback served), a persistent ``gemm`` or ``search`` fault
 raises even with the fallback chain on, and plans persisted from the card
-decode back onto it (their tiles rebuilt) bit-equal, with no search.
+decode back onto it (their tiles rebuilt) bit-equal, with no search. The
+dense-table and sorted searches on the card equal their CPU runs bit for
+bit, on clouds without and with duplicate rows (the dense table keeps the
+last, as the host hash does; the sorted search the first, as kernel 1
+does), and the dense search is never reached through the guard's chain.
 """
 from __future__ import annotations
 
@@ -1178,3 +1182,76 @@ def test_plan_cache_snapshot_decodes_onto_the_card(cuda, tmp_path):
         # the snapshot holds no tiles: the read rebuilds them, bit-equal
         for t, u in zip(x.tiles, y.tiles):
             assert t == u if isinstance(t, int) else torch.equal(t, u)
+
+
+def _dup_cloud(case):
+    """Clouds with duplicate rows: ``few``, the duplicate cloud of
+    ``tests/test_torch_octent.py`` (rows 120.. repeat rows 0..39), and
+    ``many``, 5,000 voxels each written by four rows, shuffled."""
+    rng = np.random.default_rng(5)
+    if case == "few":
+        c, b, v = _cloud(rng, 160, 12, 120, batch=2)
+        c[120:], b[120:], v[120:] = c[:40], b[:40], True
+        return c, b, v
+    c, b, v = _cloud(rng, 5000, 40, 5000, batch=2)
+    perm = rng.permutation(20000)
+    return np.tile(c, (4, 1))[perm], np.tile(b, 4)[perm], np.tile(v, 4)[perm]
+
+
+@pytest.mark.parametrize("case", ["unique", "few", "many"])
+def test_search_baselines_on_card(cuda, case):
+    """The dense-table search (``build_kmap(impl="dense")``) and the sorted
+    search on the card equal their CPU runs bit for bit. The dense table
+    keeps the last of duplicate rows (a max-scatter), as the host hash
+    does; the sorted search keeps the first, as kernel 1 does; on a cloud
+    without duplicates all four agree."""
+    if case == "unique":
+        c, b, v = _cloud(np.random.default_rng(6), 3000, 40, 2500, batch=2)
+    else:
+        c, b, v = _dup_cloud(case)
+    n, offs = c.shape[0], morton.subm3_offsets()
+    host = mapsearch.build_kmap_hash(c, b, v, offs)
+    got, want = {}, {}
+    for dev, out in ((cuda, got), (torch.device("cpu"), want)):
+        t = _dev(dev, c, b, v)
+        out["dense"], out["n_blocks"] = oct_ops.build_kmap(
+            *t, max_blocks=n, grid_bits=5, impl="dense")
+        out["sorted"] = mapsearch.build_kmap_sorted(
+            *t, torch.as_tensor(offs, device=dev))
+        out["kernel"] = oct_ops.build_kmap(*t, max_blocks=n, grid_bits=5)[0]
+    for key in got:
+        assert torch.equal(got[key].cpu(), want[key]), key
+    assert np.array_equal(got["dense"].cpu().numpy(), host)
+    assert torch.equal(got["sorted"], got["kernel"])
+    if case == "unique":
+        assert np.array_equal(got["sorted"].cpu().numpy(), host)
+    else:
+        assert not np.array_equal(got["sorted"].cpu().numpy(), host)
+
+
+def test_dense_search_is_never_a_fallback_on_card(cuda, monkeypatch):
+    """With the fallback chain on, the card's chains are empty: a
+    persistent ``search`` fault on kernel 1 raises and reaches neither the
+    dense table nor the plain version; a clean default search launches
+    kernel 1 and builds no dense table."""
+    from repro_torch.runtime import fault, guard
+    monkeypatch.setenv("REPRO_GUARD_FALLBACK", "1")
+    for impl in ("kernel", "dense", "ref"):
+        assert guard.fallback_chain("search", impl, cuda) == ()
+    assert all("dense" not in chain
+               for chain in guard.FALLBACK_CHAINS["search"].values())
+    built = []
+    table = mapsearch.build_block_table
+    monkeypatch.setattr(mapsearch, "build_block_table",
+                        lambda *a, **k: built.append(1) or table(*a, **k))
+    c, b, v = _dev(cuda, *_cloud(np.random.default_rng(13), 512, 16, 400))
+    with guard.scoped_health() as h, fault.inject(
+            fault.FaultPlan(schedule={"search": [0, 1]})):
+        with pytest.raises(fault.InjectedFault):
+            oct_ops.build_kmap(c, b, v, max_blocks=512)
+        assert not any(k.startswith("fallback.served") for k in h.snapshot())
+    launches = oct_kernel.launches
+    oct_ops.build_kmap(c, b, v, max_blocks=512)
+    assert oct_kernel.launches == launches + 1 and not built
+    oct_ops.build_kmap(c, b, v, max_blocks=512, impl="dense")
+    assert oct_kernel.launches == launches + 1 and built == [1]
