@@ -112,6 +112,23 @@ serving path at TinyLlama-1.1B's:
   to the kernel-1 forward with 25 kernel-2 launches; and the replan gate:
   ``run_spconv_demo(max_blocks=4)`` replans and reaches the default run's
   digest;
+* ``sharded``: the sharded OCTENT search under ``torch.distributed``
+  device meshes (``launch/spconv_sharded.py``'s ``spawn_ranks`` workers,
+  after the parent built the kernels): one NCCL rank on a ``(1,)`` data
+  mesh (``auto`` keeps kernel 1; the sharded search forced gives its
+  kmaps), two ranks on ``(2,)`` data and four on ``(4,)`` model and
+  ``(2, 2)`` data x model, sharing the card over gloo (which takes the
+  merges' CUDA tensors as they are). MinkUNet-large serves the four scenes of
+  ``serve`` (two on the 4-rank meshes) through ``forward_multicloud``:
+  every Subm3 kmap on every rank bit-equal to the same worker's kernel-1
+  kmap, the logits to its meshless forward (and their digests to phase
+  ``serve``'s), 9 searches and 25 kernel-2 launches a cloud; each rank
+  holds ``n_pad/S`` table slots and ``mb/S`` directory entries, every
+  query is answered once a stage by the owner of its key range, and a
+  scene planned under a 2-rank mesh misses the plan cache under the same
+  shape over the other two ranks.
+  Printed, not gated: the sharded search's ms a call, its two merges',
+  kernel 1's path in the same worker and the table bytes a rank;
 * ``flash_attention``: the kernel (bf16 on the tensor cores, float32 on
   the CUDA cores) against its plain version at six attention shapes of
   the repo's configs (TinyLlama's served prefill, in bf16 and float32, a
@@ -226,6 +243,16 @@ MAC_GRAIN = 16                     # the paper's 16-wide MAC-array grain
 CACHE_CAPACITY = 27 * 32 * 32      # tests/test_paper_bands.py, Fig. 9(c)
 PAPER_SEARCH_ITERS = 10            # calls a search timing averages
 PAPER_GRID_BITS = 5                # the sorted key's widest grid (512)
+# phase sharded: (world, backend, scenes, meshes). NCCL takes one rank a
+# card, so two and four ranks share the one card over gloo; the 4-rank
+# meshes run on 2 of the 4 scenes to keep the phase near a minute
+SHARDED_WORLDS = (
+    (1, "nccl", 4, [((1,), ("data",))]),
+    (2, "gloo", 4, [((2,), ("data",))]),
+    (4, "gloo", 2, [((4,), ("model",)), ((2, 2), ("data", "model"))]),
+)
+SHARDED_TIMEOUT_S = 300        # each world's spawn
+SHARDED_ITERS = 5              # calls a timing averages
 LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN = "tinyllama-1.1b", 4, 512, 32
 #: (name, b, hq, hkv, sq, skv, d, causal, window, dtype)
 FLASH_SHAPES = [
@@ -2941,16 +2968,236 @@ def phase_paper(dev, cfg, scenes):
     return launches
 
 
-def _serve_scenes():
-    """The four scenes of phase serve, made from their seeds."""
-    from repro_torch.data import pointcloud
-    lidar = [pointcloud.make_batch(np.random.default_rng(SEED + i), "lidar",
-                                   1, BUCKET, voxel_size=LIDAR_VOXEL)
-             for i in range(2)]
-    indoor = [pointcloud.make_batch(np.random.default_rng(SEED + 10 + i),
-                                    "indoor", 1, BUCKET) for i in range(2)]
-    return [("lidar-0", lidar[0]), ("lidar-1", lidar[1]),
-            ("indoor-0", indoor[0]), ("indoor-1", indoor[1])]
+def _serve_scenes(rows: int = BUCKET):
+    """The four scenes of phase serve at ``rows`` rows, made from SEED
+    (two LiDAR scenes at LIDAR_VOXEL, two indoor ones)."""
+    from repro_torch.launch.spconv_sharded import serve_scenes
+    return serve_scenes(rows, SEED, LIDAR_VOXEL)
+
+
+def _routing_errors(sqt, pranks, partials, kmap, coords, batch, valid,
+                    offs, grid_bits):
+    """Queries whose stages were not answered by exactly one rank, the
+    owner of ``bounds`` (stage 1) or of ``tbounds`` (stage 2)."""
+    from repro_torch.core import morton
+    from repro_torch.kernels.octent import sharded
+    from repro_torch.kernels.octent.ref import encode_queries
+    _, bkey, bank, row = encode_queries(coords, batch, valid, offs,
+                                        grid_bits=grid_bits)
+    hit, ans1, ans2 = kmap >= 0, pranks >= 0, partials >= 0
+    errs = int((ans2.sum(0) != hit).sum()) + int((ans1.sum(0) > 1).sum())
+    found = ans1.any(0)
+    own1 = sharded.owner_shard(sqt.bounds, bkey)
+    errs += int((ans1.int().argmax(0)[found] != own1[found]).sum())
+    key2 = (pranks.max(0).values * morton.TABLE_SIZE
+            + bank * morton.BANK_ROWS + row)
+    own2 = sharded.owner_shard(sqt.tbounds, key2)
+    return errs + int((ans2.int().argmax(0)[hit] != own2[hit]).sum())
+
+
+def _sharded_rank(rank, world, n_scenes, meshes, device, rows):
+    """One rank of phase sharded (``spawn_ranks`` starts ``world`` of
+    them): MinkUNet-large on ``n_scenes`` serve scenes at ``rows`` rows,
+    first meshless (kernel 1's plans, the kmaps and logits to hold), then
+    under each mesh of ``meshes``: ``forward_multicloud`` with ``auto``
+    search (sharded on a 2-way or wider mesh, kernel 1 on a 1-way one,
+    where the sharded search is also forced), the replayed plans, every
+    Subm3 kmap and the logits bit-equal, the flat searches and 25
+    kernel-2 launches a cloud, the slices each rank holds and the routing
+    of every query at the finest level of the first scene. On a 4-rank
+    world, a scene planned under a 2-rank mesh misses the cache under the
+    same shape over the other two ranks. Then, ungated, the sharded
+    search's and its merges' ms and kernel 1's path ms in this process.
+    Returns the launches of kernels 1 and 2 over the gated work."""
+    import hashlib
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import morton
+    from repro_torch.core import plan as planlib
+    from repro_torch.core.spconv import SparseTensor
+    from repro_torch.kernels.octent import ops as oct_ops
+    from repro_torch.kernels.octent import sharded
+    from repro_torch.kernels.octent.kernel import LANE
+    from repro_torch.launch.spconv_sharded import make_mesh
+    from repro_torch.models import minkunet
+    from repro_torch.runtime import sharding
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    cfg = minkunet.LARGE
+    model = _seeded_model(cfg, dev)
+    scenes = _serve_scenes(rows)[:n_scenes]
+    clouds = [SparseTensor(*(torch.as_tensor(a, device=dev) for a in (
+        sc.coords, sc.batch, sc.valid, sc.feats))) for _, sc in scenes]
+    n_cl, per_cloud, n_layers = len(clouds), 2 * len(cfg.enc) + 1, \
+        _n_layers(cfg)
+    offs = torch.as_tensor(morton.subm3_offsets(), device=dev)
+    # every mesh first: a mesh's groups are created by all ranks together
+    built = [(tuple(shape), tuple(names), make_mesh(shape, names, device))
+             for shape, names in meshes]
+    others = [make_mesh((2,), ("data",), device, ranks=r)
+              for r in ((0, 1), (2, 3))] if world == 4 else []
+    launches = [0, 0]
+
+    def segment():
+        c = _counts()
+        launches[0] += c[0]
+        launches[1] += c[1]
+        _reset_counts()
+        return c
+
+    def plans_of(cache=None, **kw):
+        return [minkunet.build_plans(st.coords, st.batch, st.valid, cfg,
+                                     cache=cache, device=dev, **kw)
+                for st in clouds]
+
+    def same_kmaps(plans, label):
+        for i, (p, q) in enumerate(zip(plans, ref_plans)):
+            for r, (a, b) in enumerate(zip(p.subm, q.subm)):
+                check(torch.equal(a.kmap, b.kmap),
+                      f"sharded {label}: scene {i} level {r} kmap differs "
+                      f"from kernel 1's on rank {rank}")
+
+    _reset_counts()
+    ref_plans = plans_of(search_impl="kernel")
+    ref_logits = minkunet.forward_multicloud(model, clouds, plans=ref_plans)
+    c = segment()
+    on_card = dev.type == "cuda"    # the plain versions launch nothing
+    check(not on_card or (c[0] == n_cl * (len(cfg.enc) + 1)
+                          and c[1] == n_cl * n_layers),
+          f"sharded: meshless launches {c[:2]}")
+    out = {"rank": rank, "rids": [rid for rid, _ in scenes], "meshes": []}
+    for shape, names, mesh in built:
+        label = "x".join(f"{a}{e}" for a, e in zip(names, shape))
+        s_n = sharding.blockkey_shards(mesh)
+        cache = planlib.PlanCache(capacity=64)
+        with sharding.set_mesh(mesh):
+            impl = oct_ops.search_impl()
+            mode = dist.get_backend(mesh.get_group(0))
+            outs = minkunet.forward_multicloud(model, clouds, cache=cache)
+            c = segment()
+            plans = plans_of(cache)
+            replay = segment()
+        check(impl == ("sharded" if s_n > 1 else "kernel"),
+              f"sharded {label}: auto resolved to {impl}")
+        check(c[3] == per_cloud * n_cl and replay[3] == 0,
+              f"sharded {label}: {c[3]} searches, {replay[3]} on replay")
+        check(not on_card or (c[1] == n_layers * n_cl and c[0] == (
+            0 if s_n > 1 else n_cl * (len(cfg.enc) + 1))),
+            f"sharded {label}: launches {c[:2]}")
+        check(all(torch.equal(a, b) for a, b in zip(outs, ref_logits)),
+              f"sharded {label}: logits differ from the meshless forward")
+        same_kmaps(plans, label)
+        rec = {"mesh": label, "impl": impl, "collective": mode,
+               "searches": c[3], "launches": list(c[:2]),
+               "digests": [hashlib.sha256(o.cpu().numpy().tobytes())
+                           .hexdigest() for o in outs]}
+        if s_n == 1:
+            with sharding.set_mesh(mesh):
+                same_kmaps(plans_of(search_impl="sharded"), label +
+                           " forced")
+            segment()
+
+        st = clouds[0]
+        n = st.coords.shape[0]
+        with sharding.set_mesh(mesh):
+            sqt = sharded.build_query_table_sharded(
+                st.coords, st.batch, st.valid, max_blocks=n)
+            km, nb, pr, pa = sharded.octent_query_sharded(
+                st.coords, st.batch, st.valid, offs, sqt,
+                return_partials=True)
+        mb = -(-n // s_n) * s_n
+        n_pad = -(-(-(-n // LANE) * LANE) // (s_n * LANE)) * s_n * LANE
+        check((sqt.ublocks.numel(), sqt.tkey.numel(), sqt.tval.numel())
+              == (mb // s_n, n_pad // s_n, n_pad // s_n),
+              f"sharded {label}: rank {rank} holds {sqt.ublocks.numel()} "
+              f"directory entries and {sqt.tkey.numel()} slots")
+        check(torch.equal(km, ref_plans[0].subm[0].kmap),
+              f"sharded {label}: the table's kmap differs")
+        errs = _routing_errors(sqt, pr, pa, km, st.coords, st.batch,
+                               st.valid, offs, cfg.grid_bits)
+        check(errs == 0, f"sharded {label}: {errs} misrouted answers")
+        rec.update(shard=sqt.shard, dir_entries=sqt.ublocks.numel(),
+                   slots=sqt.tkey.numel(), n_blocks=int(nb),
+                   bytes_per_rank=4 * (sqt.ublocks.numel()
+                                       + 2 * sqt.tkey.numel()),
+                   queries=km.numel(), hits=int((km >= 0).sum()))
+        del pr, pa
+        segment()
+        if on_card:
+            grp = sharded.shard_group(mesh, sharding.blockkey_axes(mesh))
+            t = km.clone()
+            with sharding.set_mesh(mesh):
+                rec["sharded_ms"] = time_ms(lambda: sharded.build_kmap_sharded(
+                    st.coords, st.batch, st.valid, max_blocks=n),
+                    SHARDED_ITERS)
+            rec["merges_ms"] = 2 * time_ms(
+                lambda: sharded.all_reduce_max(t, grp.group), SHARDED_ITERS)
+            rec["kernel1_ms"] = time_ms(lambda: oct_ops.build_kmap(
+                st.coords, st.batch, st.valid, max_blocks=n,
+                impl="kernel"), SHARDED_ITERS)
+            _reset_counts()
+        out["meshes"].append(rec)
+
+    if others:
+        cache = planlib.PlanCache(capacity=64)
+        st = clouds[0]
+        seen = []
+        for m in (others[0], others[1], others[0]):
+            with sharding.set_mesh(m):
+                minkunet.build_plans(st.coords, st.batch, st.valid, cfg,
+                                     cache=cache, search_impl="kernel",
+                                     device=dev)
+            seen.append((cache.misses, cache.hits, segment()[3]))
+        fps = [sharding.mesh_fingerprint(m) for m in others]
+        check(fps[0] != fps[1] and seen[1] == (2 * seen[0][0], 0,
+                                               per_cloud)
+              and seen[2] == (seen[1][0], seen[0][0], 0),
+              f"sharded: same-shape meshes over other ranks: {seen}")
+        out["other_ranks"] = {"fingerprints": fps, "misses_hits": seen}
+    out["launches"] = launches
+    return out
+
+
+def phase_sharded(serve_digests):
+    """The sharded OCTENT search under ``torch.distributed`` meshes:
+    ``spawn_ranks`` workers over :data:`SHARDED_WORLDS` (one NCCL rank;
+    two and four ranks sharing the card over gloo), each
+    :func:`_sharded_rank`, every rank's logits digests equal to phase
+    serve's for the same scenes. The parent built the kernels: the workers
+    only load them. Returns the launches of kernels 1 and 2 over the
+    workers."""
+    import os
+    import shutil
+    import tempfile
+    from repro_torch.launch.spconv_sharded import spawn_ranks
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip-smoke-sharded-")
+    launches, worlds = [0, 0], []
+    try:
+        for world, backend, n_scenes, meshes in SHARDED_WORLDS:
+            t0 = time.perf_counter()
+            ranks = spawn_ranks(
+                _sharded_rank, world, backend=backend,
+                init_file=os.path.join(root, f"rendezvous-{world}"),
+                args=(world, n_scenes, meshes, "cuda", BUCKET),
+                timeout_s=SHARDED_TIMEOUT_S)
+            for r in ranks:
+                launches[0] += r["launches"][0]
+                launches[1] += r["launches"][1]
+                want = [serve_digests[rid] for rid in r["rids"]]
+                check(all(m["digests"] == want for m in r["meshes"]),
+                      f"sharded: rank {r['rank']} served other logits than "
+                      f"phase serve")
+            worlds.append({"world": world, "backend": backend,
+                           "scenes": n_scenes,
+                           "seconds": time.perf_counter() - t0,
+                           "ranks": ranks})
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit(phase="sharded", bucket=BUCKET, launches=launches, worlds=worlds,
+         seconds=time.perf_counter() - t_phase)
+    return {"octent_query": launches[0], "spconv_gemm_fused": launches[1]}
 
 
 def worker_serve(argv) -> int:
@@ -3264,6 +3511,9 @@ def main() -> int:
     k2["restart_launches"] = restart["spconv_gemm_fused"]
     k1["paper_launches"], k2["paper_launches"] = phase_paper(dev, cfg,
                                                              scenes)
+    sharded = phase_sharded(serve_digests)
+    k1["sharded_launches"] = sharded["octent_query"]
+    k2["sharded_launches"] = sharded["spconv_gemm_fused"]
     flash = phase_flash(dev)
     lm_cfg, lm_params, fa_launches = phase_lm_serve(dev)
     phase_lm_reference(dev, lm_cfg, lm_params)

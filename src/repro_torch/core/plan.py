@@ -53,7 +53,7 @@ from repro_torch.core.mapsearch import StridedMaps
 from repro_torch.core.validate import CapacityOverflow  # noqa: F401
 from repro_torch.kernels.octent import ops as oct_ops
 from repro_torch.kernels.spconv_gemm import ops as sg_ops
-from repro_torch.runtime import fault, feature_cache
+from repro_torch.runtime import fault, feature_cache, sharding
 
 MAPSEARCH_CALLS = [0]
 
@@ -354,14 +354,16 @@ class PlanCache:
                    for a, b in zip(anchored, arrays))
 
     def lookup(self, arrays, statics, build, content_key=None):
-        """Memoized plan for ``(arrays, statics)``; ``build(fp)`` on a miss.
+        """Memoized plan for ``(arrays, statics)`` under the active mesh
+        (its :func:`~repro_torch.runtime.sharding.mesh_fingerprint` joins
+        the statics); ``build(fp)`` on a miss.
 
         On an identity miss the content key ``fp`` is ``content_key()`` if
         given (a key the caller derives for tensors whose content it
         knows), else :func:`content_fingerprint` of ``arrays`` (one host
         sync); None with ``content=False``. The builder gets the same
         ``fp``, so that it can key its pinned structures by it."""
-        statics = tuple(statics)
+        statics = tuple(statics) + sharding.mesh_fingerprint()
         idkey = (tuple(id(a) for a in arrays), statics)
         canonical = self._by_id.get(idkey)
         if canonical is not None and canonical in self._entries:
@@ -473,9 +475,13 @@ def subm3_plan(coords, batch, valid, *, max_blocks: int,
     """Submanifold 3x3x3 plan: outputs == inputs, 27 taps.
 
     ``method``: ``"octree"`` searches by OCTENT through ``search_impl``:
-    None / ``"kernel"`` (the CUDA query kernel on a card), ``"ref"`` (its
-    plain version) or ``"dense"`` (the dense-table baseline,
-    ``core.mapsearch.build_block_table``); it raises
+    ``"kernel"`` (the CUDA query kernel on a card), ``"ref"`` (its plain
+    version), ``"dense"`` (the dense-table baseline,
+    ``core.mapsearch.build_block_table``) or ``"sharded"`` (the table
+    partitioned over the active mesh, ``kernels/octent/sharded.py``);
+    None resolves through ``octent.ops.search_impl()``, which picks
+    ``"sharded"`` under a mesh that splits the block-key axes and
+    ``"kernel"`` otherwise. It raises
     :class:`CapacityOverflow` when the scene occupies more than
     ``max_blocks`` blocks. ``"sorted"`` searches the sorted composite keys
     (``core.mapsearch.build_kmap_sorted``, no table, ``search_impl`` not
@@ -485,8 +491,9 @@ def subm3_plan(coords, batch, valid, *, max_blocks: int,
 
     With a content-keyed ``cache``, the stage-1 table of ``"kernel"`` and
     ``"ref"`` is pinned in ``cache.pinned`` under ``("qtable",
-    fingerprint, max_blocks, grid_bits, batch_bits)``: a build that finds
-    it there runs the query only, and still counts one map search.
+    fingerprint, max_blocks, grid_bits, batch_bits, mesh fingerprint)``:
+    a build that finds it there runs the query only, and still counts one
+    map search.
     ``warm`` (consulted on a cache miss only, and not part of the key: its
     plan is bit-equal to the scratch plan) builds the plan from
     ``warm.patch()`` instead, counted in ``DELTA_PATCHES``, not as a
@@ -494,7 +501,8 @@ def subm3_plan(coords, batch, valid, *, max_blocks: int,
     """
     if method not in ("octree", "sorted"):
         raise ValueError(f"unknown map search method {method!r}")
-    simpl = (search_impl or "kernel") if method == "octree" else None
+    simpl = (search_impl or oct_ops.search_impl()) \
+        if method == "octree" else None
     statics = ("subm3", max_blocks, method, simpl, grid_bits, batch_bits,
                bm, bo)
     tabled = simpl in ("kernel", "ref")
@@ -523,9 +531,8 @@ def subm3_plan(coords, batch, valid, *, max_blocks: int,
         anchor = (coords, batch, valid) if verify else None
         table = pin_key = None
         if fp is not None and store is not None:
-            # the reference's key also holds the mesh fingerprint; the
-            # port has no mesh until the sharded search is ported
-            pin_key = ("qtable", fp, max_blocks, grid_bits, batch_bits)
+            pin_key = ("qtable", fp, max_blocks, grid_bits, batch_bits,
+                       sharding.mesh_fingerprint())
             table = store.get(pin_key, anchor=anchor, verify=verify,
                               device=coords.device)
         if warm is not None and tabled:

@@ -63,7 +63,7 @@ from repro_torch.kernels.octent.kernel import LANE
 from repro_torch.kernels.octent.ref import encode_queries, octent_query_ref
 from repro_torch.kernels.spconv_gemm import ops as sg_ops
 from repro_torch.models import minkunet
-from repro_torch.runtime import guard
+from repro_torch.runtime import guard, sharding
 
 _I32 = torch.int32
 
@@ -423,7 +423,10 @@ class StreamSession:
       enabled: the delta path on or off (None: :func:`stream_enabled`).
       dirty_frac: full-rebuild threshold (None: :func:`max_dirty_frac`).
       search_impl: ``"kernel"`` (default: kernel 1, in row-list mode on
-        the dirty rows) or ``"ref"`` (its plain version).
+        the dirty rows) or ``"ref"`` (its plain version). Under a mesh
+        the stream keeps this single-device engine and its whole table,
+        as the reference's delta path does, and its pinned tables are
+        keyed by the mesh fingerprint.
       replan: wrap builds in ``guard.with_replan`` (None: on unless
         ``REPRO_GUARD_REPLAN=0``).
       device: None runs on the card (raises without one); ``"cpu"`` runs
@@ -468,11 +471,10 @@ class StreamSession:
     # -- per-level machinery -------------------------------------------------
 
     def _pin_key(self, fp, mb):
-        # the reference's key also holds the mesh fingerprint; the port
-        # has no mesh until the sharded search is ported
         if fp is None:
             return None
-        return ("qtable", fp, mb, self.cfg.grid_bits, self.cfg.batch_bits)
+        return ("qtable", fp, mb, self.cfg.grid_bits, self.cfg.batch_bits,
+                sharding.mesh_fingerprint())
 
     def _advance_level(self, r: int, ic, ib, iv):
         """Diff and rebuild one level. Returns the new state, the Subm3

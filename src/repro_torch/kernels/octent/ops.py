@@ -11,7 +11,12 @@ runs only where a caller names it. ``build_kmap(update=)`` searches only
 a streaming frame's dirty rows, against the frame's spliced table. The
 query runs through ``runtime.guard.dispatch`` at the ``search`` fault
 site; it falls back to the plain version only under
-``REPRO_GUARD_FALLBACK=1`` and only on the CPU.
+``REPRO_GUARD_FALLBACK=1`` and only on the CPU. ``impl="sharded"``
+partitions the table over the active device mesh
+(``kernels/octent/sharded.py``); :func:`search_impl` picks it by itself
+when the mesh splits the block-key axes more than one way. Its merges are
+collectives, so it runs once, outside the guard's retry, quarantine and
+fallback, which decide one rank at a time.
 """
 from __future__ import annotations
 
@@ -24,6 +29,16 @@ from repro_torch.kernels.octent.kernel import LANE, octent_query
 from repro_torch.kernels.octent.ref import octent_query_ref
 from repro_torch.runtime import fault as _fault
 from repro_torch.runtime import guard as _guard
+from repro_torch.runtime import sharding
+
+def search_impl() -> str:
+    """The search engine of a call that names none: ``sharded`` when the
+    active mesh splits the block-key axes (data/model) more than one way,
+    so a model picks up the sharded engine by running under the mesh,
+    else ``kernel``. It depends on the active mesh, so resolve it outside
+    cache keys (``core/plan.py`` does)."""
+    return "sharded" if sharding.blockkey_shards() > 1 else "kernel"
+
 
 #: stage-2 query rows submitted since the last reset: a full
 #: :func:`build_kmap` adds its N voxel rows, an ``update=`` call its Q
@@ -99,13 +114,18 @@ def build_kmap(coords: torch.Tensor, batch: torch.Tensor,
                ) -> tuple[torch.Tensor, torch.Tensor]:
     """Submanifold OCTENT map search: stage 1 + stage 2.
 
-    impl: None or ``"kernel"`` runs the query through the kernel wrapper
-    (the CUDA kernel on a card, its plain version on the CPU); ``"ref"``
-    runs the plain version on any device; ``"dense"`` builds and queries
-    a dense table (:func:`~repro_torch.core.mapsearch.build_block_table`)
-    on any device, and takes no ``table``. ``table`` is a prebuilt
-    :class:`QueryTable` for this exact coordinate set, so only the query
-    runs. The queries are the 27 Subm3 taps.
+    impl: None resolves through :func:`search_impl`. ``"kernel"`` runs
+    the query through the kernel wrapper (the CUDA kernel on a card, its
+    plain version on the CPU); ``"ref"`` runs the plain version on any
+    device; ``"dense"`` builds and queries a dense table
+    (:func:`~repro_torch.core.mapsearch.build_block_table`) on any
+    device, and takes no ``table``; ``"sharded"`` partitions the table
+    over the active mesh (every rank of it calls with the same
+    coordinates), takes no ``table``, raises ValueError when no mesh with
+    a data/model axis is active, and is never retried or served by a
+    fallback: a ``search`` fault on any rank raises on every rank. ``table`` is
+    a prebuilt :class:`QueryTable` for this exact coordinate set, so only
+    the query runs. The queries are the 27 Subm3 taps.
 
     ``update`` (a :class:`KmapUpdate`, which needs ``table``: the table of
     the new frame, never built here) searches only ``update.rows``, in the
@@ -116,12 +136,13 @@ def build_kmap(coords: torch.Tensor, batch: torch.Tensor,
     Returns ``(kmap (N, K) int32 with -1 misses, n_blocks)``; n_blocks is
     the true occupied-block count for the caller's overflow check.
     """
-    impl = impl or "kernel"
-    if impl not in ("kernel", "ref", "dense"):
+    impl = impl or search_impl()
+    if impl not in ("kernel", "ref", "dense", "sharded"):
         raise ValueError(f"unknown search impl {impl!r}")
-    if impl == "dense" and table is not None:
-        raise ValueError("impl='dense' builds its own dense table; a "
-                         "prebuilt QueryTable serves 'kernel' and 'ref' only")
+    if impl in ("dense", "sharded") and table is not None:
+        raise ValueError(f"impl={impl!r} builds its own search structure; "
+                         f"a prebuilt QueryTable serves 'kernel' and 'ref' "
+                         f"only")
     if update is not None and table is None:
         raise ValueError(
             "update= re-searches dirty rows against a delta-updated "
@@ -130,6 +151,15 @@ def build_kmap(coords: torch.Tensor, batch: torch.Tensor,
     offsets = torch.as_tensor(morton.subm3_offsets(), device=coords.device)
     QUERY_ROWS[0] += (update.rows.shape[0] if update is not None
                       else coords.shape[0])
+    if impl == "sharded":
+        # collectives: one call on every rank of the group, which fail
+        # together (guard.dispatch retries and falls back per rank)
+        from repro_torch.kernels.octent import sharded
+        sharded.require_blockkey_mesh()
+        sharded.check_fault_agreed("search", coords.device)
+        return sharded.build_kmap_sharded(
+            coords, batch, valid, max_blocks=max_blocks, grid_bits=grid_bits,
+            batch_bits=batch_bits, offsets=offsets)
 
     def _run(one: str):
         _fault.check("search")

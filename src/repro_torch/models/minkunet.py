@@ -194,7 +194,11 @@ def build_plans(coords, batch, valid, cfg: MinkUNetConfig, *,
     the card; raises without one). ``n_max`` is the octree directory
     capacity (default: the row budget, which no scene can overflow).
     ``cfg.map_method`` picks each Subm3 search (``subm3_plan``'s
-    ``method``), ``search_impl`` the octree engine.
+    ``method``), ``search_impl`` the octree engine (None:
+    ``octent.ops.search_impl()``, so under a device mesh that splits the
+    block-key axes every Subm3 search runs sharded,
+    ``kernels/octent/sharded.py``; every rank of the mesh then builds the
+    same cloud's plans together).
 
     ``replan`` wraps every Subm3 build in :func:`guard.with_replan`: a
     scene that occupies more 16^3 blocks than ``n_max`` rebuilds at an
@@ -347,6 +351,12 @@ def forward_multicloud(model: MinkUNet, clouds, *, plans=None,
                        on_error=None) -> list:
     """Per-voxel logits for each cloud; each keeps its own plans
     (``plans[i]`` prebuilt, or built through one shared ``cache``).
+
+    Under an active device mesh (``runtime.sharding.set_mesh``) every
+    Subm3 search routes through the sharded engine by ``search_impl``'s
+    ``auto``, while each cloud still searches once a resolution; the plan
+    keys carry the mesh fingerprint, so plans built under one mesh never
+    serve another.
 
     The serving engine drives it with two hooks, as the reference's does:
     ``forward_fn(model, st, plans_i) -> logits`` replaces the forward of

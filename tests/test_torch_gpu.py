@@ -59,6 +59,8 @@ dense-table and sorted searches on the card equal their CPU runs bit for
 bit, on clouds without and with duplicate rows (the dense table keeps the
 last, as the host hash does; the sorted search the first, as kernel 1
 does), and the dense search is never reached through the guard's chain.
+One NCCL rank under a 1-way mesh keeps kernel 1 by ``auto`` and its
+forced sharded search equals kernel 1's kmap on a 4,096-row LiDAR cloud.
 """
 from __future__ import annotations
 
@@ -1255,3 +1257,76 @@ def test_dense_search_is_never_a_fallback_on_card(cuda, monkeypatch):
     assert oct_kernel.launches == launches + 1 and not built
     oct_ops.build_kmap(c, b, v, max_blocks=512, impl="dense")
     assert oct_kernel.launches == launches + 1 and built == [1]
+
+
+def _nccl_sharded_rank(rank, cloud):
+    import torch.distributed as dist
+    from repro_torch.launch.spconv_sharded import make_mesh
+    from repro_torch.runtime import sharding
+    c, b, v = _dev(torch.device("cuda", 0), *cloud)
+    n = c.shape[0]
+    km1, nb1 = oct_ops.build_kmap(c, b, v, max_blocks=n, impl="kernel")
+    launches = oct_kernel.launches
+    mesh = make_mesh((1,), ("data",), "cuda")
+    with sharding.set_mesh(mesh):
+        auto = oct_ops.search_impl()
+        km, nb = oct_ops.build_kmap(c, b, v, max_blocks=n, impl="sharded")
+        mode = dist.get_backend(mesh.get_group(0))
+    return {"equal": torch.equal(km, km1), "nb": (int(nb), int(nb1)),
+            "auto": auto, "mode": mode,
+            "launches": (launches, oct_kernel.launches),
+            "hits": int((km >= 0).sum())}
+
+
+def test_sharded_search_one_nccl_rank_equals_kernel(cuda, tmp_path):
+    """One NCCL rank under a 1-way mesh: ``auto`` keeps kernel 1, and the
+    sharded search forced on a 4,096-row LiDAR cloud gives kernel 1's kmap
+    bit for bit without launching it."""
+    from repro_torch.data import pointcloud
+    from repro_torch.launch.spconv_sharded import spawn_ranks
+    vb = pointcloud.make_batch(np.random.default_rng(0), "lidar", 1, 4096,
+                               voxel_size=0.0125)
+    [r] = spawn_ranks(_nccl_sharded_rank, 1, backend="nccl",
+                      init_file=str(tmp_path / "rendezvous"),
+                      args=((vb.coords, vb.batch, vb.valid),), timeout_s=300)
+    assert r["equal"] and r["nb"][0] == r["nb"][1] and r["hits"] > 4096
+    assert r["auto"] == "kernel" and r["mode"] == "nccl"
+    assert r["launches"] == (1, 1)
+
+
+def _gloo_cuda_rank(rank, cloud):
+    import torch.distributed as dist
+    from repro_torch.launch.spconv_sharded import make_mesh
+    from repro_torch.runtime import sharding
+    dev = torch.device("cuda", 0)
+    t = torch.tensor([rank, -rank, 7 * rank], dtype=torch.int32, device=dev)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    parts = [torch.empty_like(t) for _ in range(2)]
+    dist.all_gather(parts, t + rank)
+    c, b, v = _dev(dev, *cloud)
+    n = c.shape[0]
+    km1, _ = oct_ops.build_kmap(c, b, v, max_blocks=n, impl="kernel")
+    with sharding.set_mesh(make_mesh((2,), ("data",), "cuda")):
+        km, _ = oct_ops.build_kmap(c, b, v, max_blocks=n)
+    return {"max": t.tolist(), "device": str(t.device),
+            "gathered": [p.tolist() for p in parts],
+            "equal": torch.equal(km, km1)}
+
+
+def test_gloo_takes_int32_cuda_collectives(cuda, tmp_path):
+    """Two ranks sharing the card over gloo: ``all_reduce(MAX)`` and
+    ``all_gather`` take int32 CUDA tensors as they are (the sharded
+    search's merges pass them so, with no host staging of their own), and
+    the sharded search on a 2-way mesh gives kernel 1's kmap."""
+    from repro_torch.data import pointcloud
+    from repro_torch.launch.spconv_sharded import spawn_ranks
+    vb = pointcloud.make_batch(np.random.default_rng(1), "lidar", 1, 4096,
+                               voxel_size=0.0125)
+    ranks = spawn_ranks(_gloo_cuda_rank, 2, backend="gloo",
+                        init_file=str(tmp_path / "rendezvous"),
+                        args=((vb.coords, vb.batch, vb.valid),),
+                        timeout_s=300)
+    for r in ranks:
+        assert r["max"] == [1, 0, 7] and r["device"] == "cuda:0"
+        assert r["gathered"] == [[1, 0, 7], [2, 1, 8]]
+        assert r["equal"]

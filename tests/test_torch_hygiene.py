@@ -3,7 +3,8 @@
 * Neither ``chip_smoke.py`` nor any module of ``src/repro_torch`` imports
   ``jax`` or the JAX package ``repro`` (the card's machine has neither).
 * ``import repro_torch`` and every module in it work with no ``nvcc`` and
-  no card: kernels are built at first launch, never at import.
+  no card: kernels are built at first launch, never at import, and no
+  module starts a ``torch.distributed`` process group.
 * Entry points called without ``device="cpu"`` on a host with no card
   raise; there is no silent CPU run (the serving CLI, its persist dir
   and the ``--worker-serve`` mode of ``chip_smoke.py`` included).
@@ -51,7 +52,8 @@ def test_port_never_imports_jax_or_repro():
                 "runtime/guard.py", "core/stream.py", "core/validate.py",
                 "runtime/feature_cache.py", "launch/spconv_stream.py",
                 "runtime/persist.py", "runtime/admission.py",
-                "launch/spconv_serve.py"):
+                "launch/spconv_serve.py", "runtime/sharding.py",
+                "kernels/octent/sharded.py", "launch/spconv_sharded.py"):
         assert PKG / mod in files, mod
     bad = {str(p.relative_to(REPO)): sorted(_imported_roots(p)
                                             & {"jax", "jaxlib", "repro"})
@@ -67,6 +69,8 @@ def test_import_needs_no_nvcc_and_no_card():
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "assert 'jax' not in sys.modules and 'repro' not in sys.modules\n"
+            "import torch.distributed as dist\n"
+            "assert not dist.is_initialized()\n"
             "print('ok')\n")
     env = {k: v for k, v in os.environ.items()
            if k not in ("CUDA_HOME", "CUDA_PATH")}
@@ -94,6 +98,13 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         minkunet.build_plans(z, z[:, 0], z[:, 0] == 0, cfg)
     # the explicit CPU request runs
     minkunet.build_plans(z, z[:, 0], z[:, 0] == 0, cfg, device="cpu")
+
+
+def test_sharded_serving_raises_without_a_card(monkeypatch):
+    from repro_torch.launch import spconv_sharded
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        spconv_sharded.main(["--shape", "1"])
 
 
 def test_every_cuda_source_is_built_and_names_its_tpu_kernel():
