@@ -11,7 +11,8 @@ instantiation's registers, shared memory and spills) and drives each
 execution path of the port at MinkUNet-large's full published widths and
 depth (seeded random weights), on a 65,536-voxel bucket, SECOND-large
 on two LiDAR scans in a 131,072-row bucket, then the dense-decoder
-serving path at TinyLlama-1.1B's:
+serving path at TinyLlama-1.1B's and the MoE decoder at Mixtral-8x7B's
+(depth cut to 8 layers), and decoder-LM training:
 
 * ``octent_query`` and ``spconv_gemm_fused`` (both modes): each kernel
   against its plain PyTorch version at the shapes the serving path gives
@@ -141,7 +142,26 @@ serving path at TinyLlama-1.1B's:
   through ``generate``, 22 flash launches per prefill;
 * ``lm_reference``: the kernel prefill's logits against the plain-version
   prefill in bf16 and float32, and the first decode step against a
-  teacher-forced prefill.
+  teacher-forced prefill;
+* ``moe_serve``: Mixtral-8x7B at full width, 8 of its 32 layers (bf16,
+  seeded random weights), serving 4 x 512-token prompts for 32 tokens
+  and one 6,144-token prompt (past its 4,096-token window) for 16, one
+  flash launch a layer a prefill; prefill logits against the plain
+  version (routing flips counted) and, drop-free, the first decode step
+  against the teacher-forced prefill;
+* ``lm_train``: TinyLlama-1.1B trained 3 steps in bf16 (4 x 512 tokens
+  of ``TokenStream``) through the training CLI's ``run_lm`` (a
+  ``TrainRunner`` over ``make_train_step``),
+  44 flash launches a step (remat ``full``); the same bf16 steps again
+  through the plain attention (their losses gated) and in float32
+  (reported); one float32 step's loss and
+  gradients through the kernel against the plain version; Mixtral-8x7B
+  at 2 of 32 layers trained 2 steps (finite, the router's gradient
+  nonzero);
+* ``moe_ragged``: kernel 3 on the router's rulebook
+  (``examples/moe_ragged_torch.py``) at the example's sizes and at one
+  Mixtral-8x7B ``w_gate`` product, against the dense per-expert loop and
+  its plain version, timed against its bound.
 
 Each path runs with its launch counts set to 0 just before and read just
 after (phase ``restart`` reads its workers' counts). The bound of kernels
@@ -157,6 +177,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import re
 import subprocess
@@ -254,6 +275,27 @@ SHARDED_WORLDS = (
 SHARDED_TIMEOUT_S = 300        # each world's spawn
 SHARDED_ITERS = 5              # calls a timing averages
 LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN = "tinyllama-1.1b", 4, 512, 32
+# phase moe_serve: Mixtral-8x7B at full width, 8 of its 32 layers (about
+# 24 GB of bf16 weights), plus one request past its 4,096-token window
+MOE_ARCH, MOE_LAYERS = "mixtral-8x7b", 8
+MOE_BATCH, MOE_PROMPT, MOE_GEN = 4, 512, 32
+MOE_LONG_PROMPT, MOE_LONG_GEN = 6144, 16
+# phase lm_train: TinyLlama-1.1B whole, Mixtral-8x7B at 2 of 32 layers
+# (bf16 parameters and gradients, float32 AdamW moments: about 38 GB)
+LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS = 4, 512, 3
+LM_TRAIN_LR = 3e-4             # the training CLI's default
+MOE_TRAIN_LAYERS, MOE_TRAIN_BATCH, MOE_TRAIN_STEPS = 2, 2, 2
+# float32 step, kernel vs plain: the forwards differ by the kernel's 2e-5
+# through 22 layers; both backwards are the plain version's VJP
+TOL_LM_TRAIN_LOSS = 1e-4       # relative
+TOL_LM_TRAIN_GRAD = 1e-3       # |g_kernel - g_plain| / |g_plain|, each
+# bf16 loss path, each of the steps: kernel vs plain attention, and
+# run_lm's against the same steps outside the runner (relative; set after
+# the first reading, 2.0e-4 and 0 at step 3)
+TOL_LM_TRAIN_PATH = 1e-3
+# phase moe_ragged: (tokens, d, f, experts, top-k, bm) of one Mixtral-8x7B
+# w_gate product (the example's own sizes are its constants)
+MOE_RAGGED = (2048, 4096, 14336, 8, 2, 128)
 #: (name, b, hq, hkv, sq, skv, d, causal, window, dtype)
 FLASH_SHAPES = [
     ("tinyllama_prefill", 4, 32, 4, 512, 512, 64, True, 0, "bfloat16"),
@@ -1197,14 +1239,9 @@ def phase_lm_reference(dev, cfg, params):
     mc = LM_PROMPT + LM_GEN
 
     def compare(label, got, want, tol):
-        got, want = got.float(), want.float()
-        scale = want.abs().max().item()
-        err = (got - want).abs().max().item()
-        check(bool(torch.isfinite(got).all()), f"{label}: non-finite")
-        check(err <= tol * scale,
-              f"{label}: max|diff| {err} > {tol} * {scale}")
-        return {"max_abs_err": err, "max_abs_logit": scale,
-                "tolerance": f"{tol} * max|logit|"}
+        g = _logit_gate(label, got, want, tol)
+        check(g["ok"], f"{label}: {g}")
+        return g
 
     res = {}
     lk, cache = transformer.prefill(params, tokens, cfg, max_context=mc)
@@ -1234,6 +1271,449 @@ def phase_lm_reference(dev, cfg, params):
          prompt_len=LM_PROMPT, **res)
     del p32
     torch.cuda.empty_cache()
+
+
+def _routing(fn, pin=None):
+    """``(fn(), choices)``: ``fn`` run with ``moe.top_k`` recording each
+    call's expert choice (one a layer a forward) or, given ``pin`` (such a
+    list), returning the pinned choice with the gates read off the run's
+    own logits, as phase ``train`` pins ReLU masks."""
+    from repro_torch.models import moe
+    orig, rec = moe.top_k, []
+    pinned = iter(pin) if pin is not None else None
+
+    def hook(logits, k):
+        if pinned is None:
+            vals, idx = orig(logits, k)
+        else:
+            idx = next(pinned)
+            vals = logits.gather(-1, idx)
+        rec.append(idx)
+        return vals, idx
+
+    moe.top_k = hook
+    try:
+        return fn(), rec
+    finally:
+        moe.top_k = orig
+
+
+def _flips(a, b) -> int:
+    """(token, layer) routing decisions whose expert sets differ."""
+    return sum(int((x.sort(-1).values != y.sort(-1).values).any(-1).sum())
+               for x, y in zip(a, b))
+
+
+def _logit_gate(label, got, want, tol):
+    """Max |got - want| against ``tol`` x max |want|, not yet checked."""
+    got, want = got.float(), want.float()
+    scale = want.abs().max().item()
+    err = (got - want).abs().max().item()
+    check(bool(got.isfinite().all()), f"{label}: non-finite")
+    return {"max_abs_err": err, "max_abs_logit": scale,
+            "tolerance": f"{tol} * max|logit|", "ok": err <= tol * scale}
+
+
+def phase_moe_serve(dev):
+    """The MoE decoder served: Mixtral-8x7B at full width with its depth
+    cut to MOE_LAYERS of 32 (bf16, seeded random weights), ``generate``
+    over MOE_BATCH prompts of MOE_PROMPT tokens for MOE_GEN tokens after
+    one warm-up, then one MOE_LONG_PROMPT-token request for MOE_LONG_GEN
+    (past the 4,096-token window: the kernel's window and the rolling
+    cache on the path), each with the flash count set to 0 just before and
+    read just after: one launch a layer a prefill. Gates, at phase
+    ``lm_reference``'s bf16 tolerance: each request's prefill logits
+    against the ``impl="ref"`` prefill (the routing decisions that differ
+    between the two are counted; should they break the gate, the plain
+    run's routing is pinned to the kernel run's and gated), and the first
+    decode step against the teacher-forced prefill. That check holds only
+    where no copy is dropped (a 1-token decode step never drops one; a
+    prefill of 512 or 513 tokens at capacity factor 1.25 does), so it runs
+    on a drop-free copy of the config (capacity factor E / k, the
+    reference's own drop-free setting for it); the served capacity's drop
+    fraction is that of the timed prefills (``runs``)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.launch import serve
+    from repro_torch.models import api, transformer
+    full = get_config(MOE_ARCH)
+    cfg = dataclasses.replace(full, n_layers=MOE_LAYERS)
+    model = api.build_model(cfg, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED))
+    weights_gb = torch.cuda.memory_allocated() / 1e9
+    rng = np.random.default_rng(SEED)
+    requests = {
+        "batch": ({"tokens": rng.integers(0, cfg.vocab,
+                                          (MOE_BATCH, MOE_PROMPT))}, MOE_GEN),
+        "long": ({"tokens": rng.integers(0, cfg.vocab,
+                                         (1, MOE_LONG_PROMPT))},
+                 MOE_LONG_GEN)}
+    batch = requests["batch"][0]
+    serve.generate(model, params, batch, max_context=MOE_PROMPT + MOE_GEN,
+                   n_steps=2, device=dev)          # cuBLAS init, not measured
+    runs, launches = {}, 0
+    for label, (b, gen) in requests.items():
+        n_b, s = b["tokens"].shape
+        fa_kernel.launches = 0
+        toks, stats = serve.generate(model, params, b, max_context=s + gen,
+                                     n_steps=gen, device=dev)
+        n = fa_kernel.launches
+        launches += n
+        check(n == cfg.n_layers, f"moe_serve {label}: one prefill launched "
+                                 f"flash_attention {n} times, want "
+                                 f"{cfg.n_layers}")
+        check(stats["nonfinite_stops"] == 0,
+              f"moe_serve {label}: {stats['nonfinite_stops']} sequences "
+              f"went non-finite")
+        check(tuple(toks.shape) == (n_b, gen)
+              and bool(((toks >= 0) & (toks < cfg.vocab)).all()),
+              f"moe_serve {label}: tokens {tuple(toks.shape)} out of range")
+        wall = stats["prefill_s"] + stats["decode_s_per_tok"] * (gen - 1)
+        with torch.no_grad():
+            _, aux, _ = transformer.forward_embeds(
+                params, params["embed"][torch.as_tensor(b["tokens"],
+                                                        device=dev)], cfg)
+        runs[label] = {
+            "batch": n_b, "prompt_len": s, "generated": gen,
+            "cache_slots": transformer.cache_capacity(cfg, s + gen),
+            "prefill_ms": stats["prefill_s"] * 1e3,
+            "decode_ms_per_token": stats["decode_s_per_tok"] * 1e3,
+            "generated_tokens_per_s": n_b * gen / wall,
+            "prefill_tokens_per_s": n_b * s / stats["prefill_s"],
+            "flash_launches_per_prefill": n,
+            "moe_drop_frac": aux["moe_drop_frac"].item(),
+            "moe_aux": aux["moe_aux"].item(),
+            "first_tokens": toks[0, :8].tolist()}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    prof = _profile_lm(model, params, batch, MOE_PROMPT + MOE_GEN, {
+        "prefill_s": runs["batch"]["prefill_ms"] / 1e3,
+        "decode_s_per_tok": runs["batch"]["decode_ms_per_token"] / 1e3})
+
+    # kernel prefill against the plain one, routing flips counted
+    gates = {}
+    for label, (b, gen) in requests.items():
+        tokens = torch.as_tensor(b["tokens"], device=dev)
+        mc = tokens.shape[1] + gen
+        (lk, _), rk = _routing(lambda: transformer.prefill(
+            params, tokens, cfg, max_context=mc))
+        (lr, _), rr = _routing(lambda: transformer.prefill(
+            params, tokens, cfg, max_context=mc, impl="ref"))
+        g = _logit_gate(f"moe {label} prefill", lk, lr, TOL_LM_BF16)
+        g["routing_flips"] = _flips(rk, rr)
+        g["routing_decisions"] = cfg.n_layers * tokens.numel()
+        if not g["ok"] and g["routing_flips"]:
+            (lp, _), _ = _routing(lambda: transformer.prefill(
+                params, tokens, cfg, max_context=mc, impl="ref"), pin=rk)
+            g["pinned"] = _logit_gate(f"moe {label} prefill, pinned", lk,
+                                      lp, TOL_LM_BF16)
+            check(g["pinned"]["ok"], f"moe {label} prefill with the plain "
+                                     f"routing pinned: {g['pinned']}")
+        else:
+            check(g["ok"], f"moe {label} prefill vs plain: {g}")
+        g["greedy_agreement"] = int((lk.float().argmax(-1)
+                                     == lr.float().argmax(-1)).sum())
+        gates[f"{label}_prefill"] = g
+        del lk, lr, rk, rr
+
+    # first decode step against the teacher-forced prefill, drop-free
+    tokens = torch.as_tensor(batch["tokens"], device=dev)
+    mc = MOE_PROMPT + MOE_GEN
+    free = dataclasses.replace(cfg, capacity_factor=cfg.n_experts
+                               / cfg.top_k)
+    lk, cache = transformer.prefill(params, tokens, free, max_context=mc)
+    nxt = lk.float().argmax(-1)[:, None].int()
+    ld, _ = transformer.decode_step(params, cache, nxt, free)
+    full_logits, _ = transformer.prefill(
+        params, torch.cat([tokens, nxt], 1), free, max_context=mc + 1)
+    g = _logit_gate("moe decode (drop-free)", ld[:, 0], full_logits,
+                    TOL_LM_BF16)
+    check(g["ok"], f"moe decode vs teacher-forced prefill (drop-free): {g}")
+    gates["decode_vs_prefill_drop_free"] = g
+    del lk, cache, ld, full_logits
+    emit(phase="moe_serve", config=cfg.name, dtype=cfg.dtype,
+         layers=cfg.n_layers, reduced={"n_layers": [full.n_layers,
+                                                    cfg.n_layers]},
+         weights_gb=weights_gb, peak_mem_gb=peak, runs=runs,
+         flash_launches=launches, profile=prof, **gates)
+    del params, model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _lm_loss_path(model, params, opt_cfg, stream, steps, impl):
+    """``make_train_step``'s steps from ``params`` (its two calls inline,
+    to keep the gradients): each step's loss, ``grad_norm`` and learning
+    rate, the share of parameter elements the update changed, and the
+    update's first-order loss change on its own batch (the sum of g . dp,
+    with the unclipped gradients)."""
+    import torch
+    from repro_torch.launch import train
+    from repro_torch.optim import adamw
+    state = (params, adamw.init(params))
+    path = {key: [] for key in ("losses", "grad_norm", "lr", "moved",
+                                "first_order")}
+    for i in range(steps):
+        old = state[0]
+        loss, _, grads = train.lm_loss_and_grads(model, old,
+                                                 stream.batch_at(i),
+                                                 impl=impl)
+        new, opt, om = adamw.update(opt_cfg, grads, state[1], old)
+        state = (new, opt)
+        with torch.no_grad():
+            moved = sum(int((new[k] != p).sum()) for k, p in old.items())
+            lin = sum(torch.sum(grads[k].float()
+                                * (new[k].float() - p.float())).item()
+                      for k, p in old.items())
+        path["losses"].append(loss.item())
+        path["grad_norm"].append(om["grad_norm"].item())
+        path["lr"].append(om["lr"].item())
+        path["moved"].append(moved / sum(p.numel() for p in old.values()))
+        path["first_order"].append(lin)
+        del grads, old
+    return path
+
+
+def phase_lm_train(dev):
+    """Decoder-LM training on the card through ``make_train_step``.
+    TinyLlama-1.1B at full width and depth (bf16) takes LM_TRAIN_STEPS
+    steps of LM_TRAIN_BATCH x LM_TRAIN_SEQ tokens from ``TokenStream(seed
+    0)`` through ``run_lm``, the training CLI's loop (a ``TrainRunner``
+    with its baseline and final checkpoint saves; the CLI's schedule,
+    warmup 5 steps), with the flash count set to 0 just before and read
+    just after: 2 launches a layer a step under remat ``full`` (the
+    forward and its recomputation in the backward; the backward itself is
+    the plain version's VJP). A witness for that loss path takes the same
+    steps from the same state and batches again (``_lm_loss_path``): in
+    bf16 through the kernel and through the plain attention, whose losses
+    must agree with each other and with ``run_lm``'s (TOL_LM_TRAIN_PATH),
+    and in float32, reported. The gate runs in float32 on the same
+    config: one step's loss (TOL_LM_TRAIN_LOSS relative) and each gradient
+    (its difference's norm within TOL_LM_TRAIN_GRAD of its norm) through
+    the kernel against the plain version. Then Mixtral-8x7B at full width,
+    MOE_TRAIN_LAYERS of 32 layers (bf16), MOE_TRAIN_STEPS steps of
+    MOE_TRAIN_BATCH x LM_TRAIN_SEQ: finite losses, the router's gradient
+    nonzero (AdamW's first moment of every router is), the kernel's
+    launches. Returns the launches of each run."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.launch import train
+    from repro_torch.models import api, common
+    from repro_torch.optim import adamw
+    out = {}
+
+    cfg = get_config(LM_ARCH)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa_kernel.launches = 0
+    res = train.run_lm(LM_ARCH, steps=LM_TRAIN_STEPS, batch=LM_TRAIN_BATCH,
+                       seq=LM_TRAIN_SEQ, lr=LM_TRAIN_LR,
+                       ckpt_every=LM_TRAIN_STEPS + 1, full_config=True,
+                       seed=SEED, device=dev)
+    launches = fa_kernel.launches
+    want = 2 * cfg.n_layers
+    losses = res["losses"]
+    check(len(losses) == LM_TRAIN_STEPS and all(np.isfinite(losses)),
+          f"lm_train: losses {losses}")
+    check(res["recoveries"] == 0 and res["ckpt_failures"] == 0,
+          f"lm_train: {res['recoveries']} recoveries, "
+          f"{res['ckpt_failures']} checkpoint failures")
+    check(launches == want * LM_TRAIN_STEPS,
+          f"lm_train: {launches} flash launches in {LM_TRAIN_STEPS} steps, "
+          f"want {want} a step")
+    out["tinyllama"] = launches
+    emit(phase="lm_train", config=cfg.name, dtype=cfg.dtype,
+         layers=cfg.n_layers, batch=LM_TRAIN_BATCH, seq=LM_TRAIN_SEQ,
+         steps=LM_TRAIN_STEPS, lr=LM_TRAIN_LR, losses=losses,
+         step_ms=res["timings"], save_ms=res["save_ms"],
+         flash_launches=launches,
+         flash_launches_per_step=launches / LM_TRAIN_STEPS,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+         remat="full", digest=res["state_digest"])
+    del res
+    torch.cuda.empty_cache()
+    stream = train.make_stream(cfg, LM_TRAIN_BATCH, LM_TRAIN_SEQ, seed=SEED)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    model32 = api.build_model(cfg32, device=dev)
+
+    # a witness for the bf16 loss path: the same steps from the same state
+    # (run_lm's) and batches, through the plain attention and in float32
+    model16 = api.build_model(cfg, device=dev)
+    init16, _ = train.init_state(model16, seed=SEED)
+    opt_cfg = adamw.AdamWConfig(lr=LM_TRAIN_LR, total_steps=LM_TRAIN_STEPS,
+                                warmup_steps=max(LM_TRAIN_STEPS // 20, 5))
+    paths = {}
+    for label, model, impl in (("bf16_kernel", model16, "kernel"),
+                               ("bf16_plain", model16, "ref"),
+                               ("f32_kernel", model32, "kernel")):
+        dt = common.dtype_of(model.cfg)
+        paths[label] = _lm_loss_path(
+            model, {k: v.to(dt) for k, v in init16.items()}, opt_cfg,
+            stream, LM_TRAIN_STEPS, impl)
+        torch.cuda.empty_cache()
+    del init16
+    emit(phase="lm_train.loss_path", config=cfg.name, run_lm_losses=losses,
+         tolerance=f"{TOL_LM_TRAIN_PATH} relative", **paths)
+    path_k, path_r = paths["bf16_kernel"]["losses"], \
+        paths["bf16_plain"]["losses"]
+    for path, base, what in ((path_k, path_r, "kernel vs plain attention"),
+                             (losses, path_k, "run_lm vs the same steps")):
+        check(all(abs(x - y) <= TOL_LM_TRAIN_PATH * abs(y)
+                  for x, y in zip(path, base)),
+              f"lm_train bf16 loss path, {what}: {path} vs {base}")
+
+    # the gate: one step's loss and gradients, kernel vs plain, float32
+    params, _ = train.init_state(model32, seed=SEED)
+    b = stream.batch_at(0)
+    fa_kernel.launches = 0
+    lk, mk, gk = train.lm_loss_and_grads(model32, params, b)
+    n_kernel = fa_kernel.launches
+    lr, _, gr = train.lm_loss_and_grads(model32, params, b, impl="ref")
+    check(n_kernel == want and fa_kernel.launches == want,
+          f"lm_train f32: {n_kernel} kernel launches, "
+          f"{fa_kernel.launches - n_kernel} in the plain step")
+    loss_rel = abs(lk.item() - lr.item()) / abs(lr.item())
+    rel = {k: ((gk[k].float() - g.float()).norm()
+               / g.float().norm().clamp(min=1e-30)).item()
+           for k, g in gr.items()}
+    worst = max(rel, key=rel.get)
+    check(loss_rel <= TOL_LM_TRAIN_LOSS,
+          f"lm_train f32: loss {lk.item()} vs plain {lr.item()}")
+    check(rel[worst] <= TOL_LM_TRAIN_GRAD,
+          f"lm_train f32: gradient {worst} differs by {rel[worst]} of its "
+          f"norm")
+    emit(phase="lm_train.gate", config=cfg32.name, dtype="float32",
+         loss=lk.item(), plain_loss=lr.item(), loss_rel_err=loss_rel,
+         worst_grad=worst, worst_grad_rel_err=rel[worst],
+         median_grad_rel_err=float(np.median(list(rel.values()))),
+         tolerance={"loss": f"{TOL_LM_TRAIN_LOSS} relative",
+                    "grad": f"{TOL_LM_TRAIN_GRAD} x |g_plain|"})
+    del params, gk, gr, model32
+    torch.cuda.empty_cache()
+
+    # Mixtral-8x7B at full width, its depth cut: parameters, gradients and
+    # two AdamW states (the update is out of place) near the card's 80 GB
+    full = get_config(MOE_ARCH)
+    mcfg = dataclasses.replace(full, n_layers=MOE_TRAIN_LAYERS)
+    model = api.build_model(mcfg, device=dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    state = train.init_state(model, seed=SEED)
+    stream = train.make_stream(mcfg, MOE_TRAIN_BATCH, LM_TRAIN_SEQ,
+                               seed=SEED)
+    timings = []
+    step = train.make_train_step(
+        model, adamw.AdamWConfig(lr=LM_TRAIN_LR, total_steps=MOE_TRAIN_STEPS,
+                                 warmup_steps=5), timings=timings)
+    metrics = []
+    fa_kernel.launches = 0
+    for i in range(MOE_TRAIN_STEPS):
+        state, m = step(state, stream.batch_at(i))
+        metrics.append({k: v.item() for k, v in m.items()})
+    launches = fa_kernel.launches
+    want = 2 * mcfg.n_layers * MOE_TRAIN_STEPS
+    check(launches == want, f"lm_train mixtral: {launches} flash launches, "
+                            f"want {want}")
+    check(all(np.isfinite(m["loss"]) for m in metrics),
+          f"lm_train mixtral: losses {[m['loss'] for m in metrics]}")
+    router_m = [state[1]["m"][f"layers.{i}.moe.router"].abs().max().item()
+                for i in range(mcfg.n_layers)]
+    check(all(r > 0 for r in router_m),
+          f"lm_train mixtral: router first moments {router_m}")
+    out["mixtral"] = launches
+    emit(phase="lm_train.moe", config=mcfg.name, dtype=mcfg.dtype,
+         layers=mcfg.n_layers, reduced={"n_layers": [full.n_layers,
+                                                     mcfg.n_layers]},
+         batch=MOE_TRAIN_BATCH, seq=LM_TRAIN_SEQ, metrics=metrics,
+         step_ms=timings, router_first_moment_max=router_m,
+         flash_launches=launches, held_before_gb=held_gb,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del state, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def _moe_ragged_example():
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "moe_ragged_torch", ROOT / "examples" / "moe_ragged_torch.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_moe_ragged(dev):
+    """Kernel 3 on the router's rulebook (``examples/moe_ragged_torch.py``)
+    at the example's sizes (its numpy draws) and at one Mixtral-8x7B
+    ``w_gate`` product (MOE_RAGGED; inputs drawn on the card): the kernel
+    launched once a product (the count set to 0 just before, read just
+    after), its valid rows against the dense per-expert loop and its
+    output against its plain version (TOL_KERNEL x max abs), timed against
+    its bytes and operations bound as phase ``spconv_gemm`` times it."""
+    import torch
+    from repro_torch.kernels.spconv_gemm import kernel as sg_kernel
+    from repro_torch.kernels.spconv_gemm.ref import spconv_gemm_ref
+    ex = _moe_ragged_example()
+    per_shape, launches = {}, 0
+    example = (ex.T, ex.D, ex.F, ex.E, ex.K, ex.BM)
+    for name, (t, d, f, e, k, bm) in (("example", example),
+                                      ("mixtral_w_gate", MOE_RAGGED)):
+        if name == "example":
+            x, w_router, w_in = ex.make_inputs(t, d, f, e, device=dev)
+        else:
+            gen = torch.Generator(device=dev).manual_seed(SEED)
+            x = torch.randn((t, d), generator=gen, device=dev)
+            w_router = torch.randn((d, e), generator=gen,
+                                   device=dev) * d ** -0.5
+            w_in = torch.randn((e, d, f), generator=gen,
+                               device=dev) * d ** -0.5
+        sg_kernel.materialized_launches = 0
+        res = ex.run(x, w_router, w_in, k=k, bm=bm)
+        torch.cuda.synchronize()
+        n = sg_kernel.materialized_launches
+        launches += n
+        check(n == 1, f"moe_ragged {name}: {n} kernel-3 launches, want 1")
+        tiles = res["tiles"]
+        lhs = x[tiles.gather_idx.long()]
+        lhs.masked_fill_(~tiles.slot_valid[:, None], 0.0)
+        args = (lhs, w_in, tiles.tile_tap, tiles.tile_nz)
+        plain = spconv_gemm_ref(*args, bm=bm)
+        err = (res["h"] - plain).abs().max().item()
+        ref_max = plain.abs().max().item()
+        check(err <= TOL_KERNEL * ref_max,
+              f"moe_ragged {name}: kernel vs plain {err} > {TOL_KERNEL} * "
+              f"{ref_max}")
+        dense_err = (res["got"] - res["want"]).abs().max().item()
+        dense_max = res["want"].abs().max().item()
+        check(dense_err <= TOL_KERNEL * dense_max,
+              f"moe_ragged {name}: kernel vs dense loop {dense_err} > "
+              f"{TOL_KERNEL} * {dense_max}")
+        n_tiles = tiles.n_tiles
+        live = int(tiles.tile_nz.sum())
+        m_pad = lhs.shape[0]
+        nbytes = 4.0 * (live * bm * d + m_pad * f + e * d * f) + 8.0 * n_tiles
+        rec = {"tokens": t, "d": d, "f": f, "experts": e, "top_k": k,
+               "bm": bm, "m_pad": m_pad, "tiles": n_tiles,
+               "live_tiles": live,
+               "valid_slots": int(tiles.slot_valid.sum()),
+               "max_abs_err": err, "ref_max": ref_max,
+               "dense_loop_err": dense_err,
+               **_bound(2.0 * live * bm * d * f, nbytes),
+               "ms": time_ms(lambda: sg_kernel.spconv_gemm(*args, bm=bm), 5),
+               "plain_ms": time_ms(lambda: spconv_gemm_ref(*args, bm=bm), 2)}
+        rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
+        per_shape[name] = rec
+        emit(phase="moe_ragged", name=name,
+             tolerance=f"{TOL_KERNEL} * max|plain|", **rec)
+        del x, w_router, w_in, res, lhs, args, plain
+        torch.cuda.empty_cache()
+    return per_shape, launches
 
 
 def _seed_bn(model, gen):
@@ -3517,6 +3997,14 @@ def main() -> int:
     flash = phase_flash(dev)
     lm_cfg, lm_params, fa_launches = phase_lm_serve(dev)
     phase_lm_reference(dev, lm_cfg, lm_params)
+    del lm_params
+    torch.cuda.empty_cache()
+    moe_launches = phase_moe_serve(dev)
+    train_launches = phase_lm_train(dev)
+    ragged, k3["moe_ragged_launches"] = phase_moe_ragged(dev)
+    k3["moe_ragged"] = {name: {key: r[key] for key in (
+        "ms", "plain_ms", "bound_ms", "bound_by", "bound_ms_f32_cores",
+        "max_abs_err", "dense_loop_err")} for name, r in ragged.items()}
     served = flash["tinyllama_prefill"]
     n = lm_cfg.n_layers
     k5 = {"name": "flash_attention", "route": "cuda", "source": FLASH_SRC,
@@ -3526,6 +4014,8 @@ def main() -> int:
           "ms": n * served["ms"], "plain_ms": n * served["plain_ms"],
           "bound_ms": n * served["bound_ms"], "bound_by": served["bound_by"],
           "library_ms": n * served["library_ms"],
+          "moe_serve_launches": moe_launches,
+          "lm_train_launches": train_launches,
           "timing": f"{n} launches of one {lm_cfg.name} prefill "
                     f"({LM_BATCH} x {LM_PROMPT} tokens, bf16), one per "
                     f"layer; max_abs_err over all shapes, bf16 and f32"}

@@ -12,6 +12,8 @@ checkpoint the reference wrote restores here:
   thread. The newest ``keep`` steps are retained. The fault plan's
   ``checkpoint`` site fires before any file I/O and its ``kill`` site
   between the temporary write and the rename (``runtime/fault.py``).
+* A bfloat16 leaf is stored as the reference's numpy stores one: its two
+  bytes a value as a ``|V2`` array, read back by bit view.
 * :func:`verify` recomputes the digest; :func:`latest_step` returns the
   newest step that passes, skipping a truncated or bit-flipped one, and
   :func:`restore` refuses corrupt input.
@@ -64,6 +66,24 @@ def _describe(tree) -> str:
     return "*"
 
 
+def host_array(x) -> np.ndarray:
+    """``x`` as the numpy array a checkpoint stores."""
+    if not isinstance(x, torch.Tensor):
+        return np.asarray(x)
+    x = x.detach().cpu()
+    if x.dtype == torch.bfloat16:        # numpy has no bfloat16: raw bytes
+        return x.view(torch.int16).numpy().view("V2")
+    return x.numpy()
+
+
+def _from_host(h: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+    if h.dtype.kind == "V" and h.dtype.itemsize == 2:
+        t = torch.from_numpy(h.view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(h)
+    return t.to(device=like.device, dtype=like.dtype)
+
+
 def _fsync_file(path: str) -> None:
     fd = os.open(path, os.O_RDONLY)
     try:
@@ -86,8 +106,7 @@ def save(directory: str, step: int, tree, *, keep: int = 3,
     intact either way."""
     from repro_torch.runtime import fault    # deferred: fault imports this
     fault.check("checkpoint")
-    host = [x.detach().cpu().numpy() if isinstance(x, torch.Tensor)
-            else np.asarray(x) for x in tree_leaves(tree)]
+    host = [host_array(x) for x in tree_leaves(tree)]
     treedef = _describe(tree)
 
     def _write():
@@ -184,6 +203,5 @@ def restore(directory: str, step: int, like):
     for h, like_leaf in zip(host, leaves_like):
         if tuple(h.shape) != tuple(like_leaf.shape):
             raise ValueError(f"leaf shape {h.shape} != {like_leaf.shape}")
-        out.append(torch.from_numpy(h).to(device=like_leaf.device,
-                                          dtype=like_leaf.dtype))
+        out.append(_from_host(h, like_leaf))
     return _unflatten(like, iter(out))

@@ -1,7 +1,16 @@
-"""Train MinkUNet with the port's kernels, AdamW and checkpoint/restart.
+"""Training with the port's kernels, AdamW and checkpoint/restart: the
+decoder LMs (dense and MoE) and MinkUNet.
 
-Steps run eagerly over prebuilt plans from a long-lived, content-keyed
-plan cache.
+:func:`make_train_step`, :func:`init_state` and :func:`make_stream` are
+the reference's LM step, state and data: the step is eager (there is no
+``jax.jit`` counterpart): ``lm_loss``, ``torch.autograd.grad`` over the
+parameters, then AdamW on the ``state_dict``. Its attention forward runs
+kernel 5 on the card; under the default remat mode each layer's forward
+is recomputed in the backward, so a step launches the kernel twice a
+layer.
+
+MinkUNet steps run eagerly over prebuilt plans from a long-lived,
+content-keyed plan cache.
 
 :func:`run_spconv_demo` is the reference's demo (``src/repro/launch/
 train.py``): every step re-voxelizes the scene into freshly allocated
@@ -16,9 +25,11 @@ so that an injected :class:`~repro_torch.runtime.fault.FaultPlan`
 :class:`~repro_torch.runtime.persist.SnapshotStore`, and a restarted run
 over the same directory searches no geometry it has seen.
 
-CLI (the demo's tiny config on the CPU; ``--full-config`` trains
-MinkUNet-large, on the card by default):
+CLI (reduced configs on the CPU; ``--full-config`` trains the published
+widths, on the card by default):
 
+    PYTHONPATH=src python -m repro_torch.launch.train --arch tinyllama-1.1b \\
+        --device cpu --steps 20 --batch 4 --seq 64
     PYTHONPATH=src python -m repro_torch.launch.train --arch minkunet \\
         --device cpu --steps 4
     PYTHONPATH=src python -m repro_torch.launch.train --arch minkunet \\
@@ -38,9 +49,11 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint import checkpoint
+from repro_torch.configs import get_config
 from repro_torch.core import plan as planlib
+from repro_torch.data.tokens import TokenStream
 from repro_torch.device import resolve_device
-from repro_torch.models import minkunet
+from repro_torch.models import api, minkunet, transformer
 from repro_torch.optim import adamw
 from repro_torch.runtime import fault as faultlib
 from repro_torch.runtime import feature_cache, guard, persist
@@ -56,6 +69,123 @@ def _sync(dev: torch.device) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
 
+
+# ---------------------------------------------------------------------------
+# LM training
+# ---------------------------------------------------------------------------
+
+def lm_loss_and_grads(model: api.Model, params: dict, batch: dict, *,
+                      impl: str = "kernel"):
+    """``(loss, metrics, grads)`` of ``model.loss`` at ``params`` (a flat
+    :class:`~repro_torch.models.transformer.DecoderLM` ``state_dict``, not
+    modified) on ``batch`` (arrays or tensors: ``tokens``, optionally
+    ``loss_mask``, moved to the parameters' device); ``grads`` has the
+    keys of ``params``. ``impl`` goes to the attention (``"ref"``: the
+    plain version)."""
+    dev = next(iter(params.values())).device
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    leaves = {k: p.detach().requires_grad_() for k, p in params.items()}
+    loss, metrics = model.loss(transformer.nest_params(leaves), batch,
+                               impl=impl)
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
+            dict(zip(leaves, grads)))
+
+
+def make_train_step(model: api.Model, opt_cfg: adamw.AdamWConfig, *,
+                    impl: str = "kernel", timings: list | None = None):
+    """``(state, batch) -> (state, metrics)`` of a decoder LM:
+    :func:`lm_loss_and_grads`, then AdamW.
+
+    ``state`` is ``(params, opt_state)``: ``params`` a flat
+    ``DecoderLM`` ``state_dict`` and ``opt_state`` from
+    :func:`adamw.init`. The tensors of the old state are not modified.
+    With ``timings`` (a list) it appends each step's forward+backward and
+    optimizer ms (host clock around synchronized work).
+    """
+    def step(state, batch):
+        params, opt_state = state
+        dev = next(iter(params.values())).device
+        _sync(dev)
+        t0 = time.perf_counter()
+        loss, metrics, grads = lm_loss_and_grads(model, params, batch,
+                                                 impl=impl)
+        _sync(dev)
+        t1 = time.perf_counter()
+        params, opt_state, om = adamw.update(opt_cfg, grads, opt_state,
+                                             params)
+        if timings is not None:
+            _sync(dev)
+            timings.append({"forward_backward_ms": (t1 - t0) * 1e3,
+                            "optimizer_ms": (time.perf_counter() - t1)
+                            * 1e3})
+        return (params, opt_state), {**metrics, "loss": loss, **om}
+
+    return step
+
+
+def init_state(model: api.Model, seed: int = 0):
+    """``(params, opt_state)``: the ``state_dict`` of a
+    :class:`~repro_torch.models.transformer.DecoderLM` drawn from a
+    generator on ``model.device`` seeded ``seed``, and zero AdamW
+    moments."""
+    lm = transformer.DecoderLM(
+        model.cfg, device=model.device,
+        generator=torch.Generator(model.device).manual_seed(seed))
+    params = dict(lm.state_dict())
+    return params, adamw.init(params)
+
+
+def make_stream(cfg, batch: int, seq: int, seed: int = 0):
+    """The reference's synthetic data of ``cfg``'s family: a
+    :class:`~repro_torch.data.tokens.TokenStream` for the decoders."""
+    if cfg.family in ("encoder", "vlm"):
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family} family is not ported yet "
+            f"(ROADMAP §1 item 5)")
+    return TokenStream(vocab=cfg.vocab, batch=batch, seq=seq, seed=seed)
+
+
+def run_lm(arch: str, *, steps: int, batch: int, seq: int, lr: float,
+           ckpt_dir: str | None = None, ckpt_every: int = 50,
+           full_config: bool = False, seed: int = 0,
+           total_steps: int | None = None,
+           device: str | torch.device | None = None) -> dict:
+    """Train decoder LM ``arch`` (its reduced config unless
+    ``full_config``) for ``steps`` steps on ``make_stream``'s tokens under
+    a :class:`~repro_torch.runtime.fault.TrainRunner`, resuming from the
+    newest verified checkpoint in ``ckpt_dir`` (None: a temporary
+    directory, removed at the end). ``total_steps`` (None: ``steps``) is
+    the learning-rate horizon. Returns ``losses``, ``resumed_from``,
+    ``state_digest``, per-step ``timings``, ``save_ms`` and the runner's
+    ``recoveries`` and ``ckpt_failures``."""
+    cfg = get_config(arch)
+    if not full_config:
+        cfg = cfg.reduced()
+    model = api.build_model(cfg, device=device)
+    horizon = total_steps or steps
+    opt_cfg = adamw.AdamWConfig(lr=lr, total_steps=horizon,
+                                warmup_steps=max(horizon // 20, 5))
+    timings: list = []
+    step_fn = make_train_step(model, opt_cfg, timings=timings)
+    stream = make_stream(cfg, batch, seq, seed=seed)
+    with (contextlib.nullcontext(ckpt_dir) if ckpt_dir is not None
+          else tempfile.TemporaryDirectory(prefix="lm-ckpt-")) as d:
+        runner = TrainRunner(RunnerConfig(ckpt_dir=d, ckpt_every=ckpt_every),
+                             step_fn, stream.batch_at,
+                             init_state(model, seed))
+        resumed_from = runner.step if runner.restore_latest() else None
+        losses = runner.run(steps)
+    return {"config": cfg.name, "losses": losses,
+            "resumed_from": resumed_from,
+            "state_digest": state_digest(runner.state), "timings": timings,
+            "save_ms": runner.save_ms, "recoveries": runner.recoveries,
+            "ckpt_failures": runner.ckpt_failures}
+
+
+# ---------------------------------------------------------------------------
+# MinkUNet training
+# ---------------------------------------------------------------------------
 
 def loss_and_grads(model: minkunet.MinkUNet, params: dict, batch: dict, *,
                    plans: minkunet.MinkPlans | None = None,
@@ -130,7 +260,7 @@ def state_digest(state) -> str:
     """sha256 over every leaf's bytes, in checkpoint order."""
     digest = hashlib.sha256()
     for leaf in checkpoint.tree_leaves(state):
-        digest.update(leaf.detach().cpu().numpy().tobytes())
+        digest.update(checkpoint.host_array(leaf).tobytes())
     return digest.hexdigest()
 
 
@@ -267,23 +397,32 @@ def run_spconv_demo(steps: int = 2, *, voxels: int = 128,
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", required=True,
-                    help="minkunet (LM training is not ported yet)")
+                    help="minkunet or a decoder LM config (tinyllama-1.1b, "
+                         "mixtral-8x7b, ...)")
     ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8,
+                    help="LM sequences a step")
+    ap.add_argument("--seq", type=int, default=128, help="LM tokens a row")
+    ap.add_argument("--lr", type=float, default=3e-4, help="LM peak lr")
+    ap.add_argument("--ckpt-every", type=int, default=50,
+                    help="LM steps between checkpoints")
     ap.add_argument("--voxels", type=int, default=512,
-                    help="the cloud's row budget")
+                    help="the cloud's row budget (minkunet)")
     ap.add_argument("--full-config", action="store_true",
-                    help="train MinkUNet-large (default: the demo's tiny "
-                         "config)")
+                    help="the published widths: MinkUNet-large, or the "
+                         "LM's full config (default: the demo's tiny "
+                         "config, the LM's reduced one)")
     ap.add_argument("--impl", default="auto",
                     choices=("auto", "kernel", "ref", "scan"),
                     help="rulebook execution: auto/kernel (the kernels on "
                          "the card, plain versions on the CPU), ref, scan")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ckpt-dir", default=None,
-                    help="checkpoint directory (default: a temporary one)")
+                    help="checkpoint directory (default: a temporary one); "
+                         "an LM run resumes from its newest verified step")
     ap.add_argument("--resume", action="store_true",
-                    help="resume from the newest verified checkpoint in "
-                         "--ckpt-dir")
+                    help="resume minkunet from the newest verified "
+                         "checkpoint in --ckpt-dir")
     ap.add_argument("--total-steps", type=int, default=None,
                     help="lr-schedule horizon when resuming a partial run "
                          "(default: --steps)")
@@ -297,7 +436,25 @@ def main(argv=None) -> None:
                          "after the run")
     args = ap.parse_args(argv)
     if args.arch != "minkunet":
-        ap.error(f"--arch {args.arch}: only minkunet training is ported")
+        t0 = time.perf_counter()
+        res = run_lm(args.arch, steps=args.steps, batch=args.batch,
+                     seq=args.seq, lr=args.lr, ckpt_dir=args.ckpt_dir,
+                     ckpt_every=args.ckpt_every,
+                     full_config=args.full_config, seed=args.seed,
+                     total_steps=args.total_steps, device=args.device)
+        losses = res["losses"] or [float("nan")]
+        if res["resumed_from"] is not None:
+            print(f"resumed from step {res['resumed_from']}")
+        dt = time.perf_counter() - t0
+        print(f"arch={res['config']} steps={len(res['losses'])} "
+              f"first_loss={losses[0]:.4f} last_loss={losses[-1]:.4f} "
+              f"({dt / max(len(losses), 1):.3f}s/step) "
+              f"digest={res['state_digest'][:12]}")
+        if args.health_json:
+            guard.dump_health_json(args.health_json, meta={
+                "arch": res["config"], "steps": len(losses),
+                "digest": res["state_digest"]})
+        return
     if args.resume and args.ckpt_dir is None:
         ap.error("--resume needs --ckpt-dir")
     res = run_spconv_demo(

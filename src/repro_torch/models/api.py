@@ -1,8 +1,8 @@
-"""Uniform model API: init / prefill / init_cache / decode_step.
+"""Uniform model API: init / loss / prefill / init_cache / decode_step.
 
-Only the ``decoder`` family is ported. The others raise
-``NotImplementedError`` naming their ROADMAP item; ``loss`` and the
-dry-run's ``input_specs`` come with training and the dry-run port.
+Only the ``decoder`` family (dense and MoE) is ported. The others raise
+``NotImplementedError`` naming their ROADMAP item; the dry-run's
+``input_specs`` and ``abstract_cache`` come with them.
 """
 from __future__ import annotations
 
@@ -16,12 +16,12 @@ from repro_torch.device import resolve_device
 from repro_torch.models import transformer
 
 _NOT_PORTED = {
-    "vlm": "the VLM family (llava) is not ported yet (ROADMAP §1 item 17)",
-    "mamba2": "the Mamba2 family is not ported yet (ROADMAP §1 item 17)",
+    "vlm": "the VLM family (llava) is not ported yet (ROADMAP §1 item 5)",
+    "mamba2": "the Mamba2 family is not ported yet (ROADMAP §1 item 5)",
     "rglru": "the RG-LRU family (recurrentgemma) is not ported yet "
-             "(ROADMAP §1 item 17)",
+             "(ROADMAP §1 item 5)",
     "encoder": "the encoder family (hubert) is not ported yet (ROADMAP §1 "
-               "item 17)",
+               "item 5)",
 }
 
 
@@ -30,6 +30,7 @@ class Model:
     cfg: ModelConfig
     device: torch.device
     init: Callable[..., Any]            # (generator=None) -> params
+    loss: Callable[..., Any]            # (params, batch, impl=) -> (loss, metrics)
     prefill: Callable[..., Any]         # (params, batch, max_context)
     init_cache: Callable[..., Any]      # (batch, max_context) -> cache
     decode_step: Callable[..., Any]     # (params, cache, tokens)
@@ -49,6 +50,8 @@ def build_model(cfg: ModelConfig, *,
         cfg, dev,
         init=lambda generator=None: transformer.DecoderLM(
             cfg, device=dev, generator=generator).params(),
+        loss=lambda p, b, impl="kernel": transformer.lm_loss(p, b, cfg,
+                                                             impl=impl),
         prefill=lambda p, b, mc: transformer.prefill(
             p, b["tokens"], cfg, max_context=mc),
         init_cache=lambda bs, mc: transformer.init_cache(cfg, bs, mc,

@@ -2,8 +2,7 @@
 
 Parameters are plain tensors in nested dicts, keyed as in the reference.
 The reference's ``runtime.sharding.shard`` annotations have no counterpart
-on one card, so those calls are dropped. ``cross_entropy`` and
-``shift_labels`` come with training.
+on one card, so those calls are dropped.
 """
 from __future__ import annotations
 
@@ -73,6 +72,25 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x[..., :half].float(), x[..., half:].float()
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], -1)
     return out.to(x.dtype)
+
+
+def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
+                  mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean token CE in float32; logits (..., V), targets int (...), mask
+    optional (a masked mean over ``max(mask.sum(), 1)``)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = logits.gather(-1, targets[..., None].long())[..., 0]
+    nll = lse - ll
+    if mask is None:
+        return nll.mean()
+    mask = mask.float()
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def shift_labels(tokens: torch.Tensor):
+    """Next-token prediction: inputs tokens[:, :-1] predict tokens[:, 1:]."""
+    return tokens[:, :-1], tokens[:, 1:]
 
 
 def init_mlp(gen: torch.Generator, d: int, f: int, dtype,

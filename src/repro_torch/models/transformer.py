@@ -1,32 +1,58 @@
-"""Dense decoder LM: prefill and decode, for the llama-family configs
-(tinyllama, yi, deepseek, qwen3 with qk-norm and tied embeddings) and the
-sliding-window ones.
+"""Decoder LM (dense and MoE): training loss, prefill and decode, for the
+llama-family configs (tinyllama, yi, deepseek, qwen3 with qk-norm and tied
+embeddings), the sliding-window ones and mixtral's MoE feed-forward
+(:mod:`repro_torch.models.moe`).
 
 Parameters are nested dicts keyed as in the reference, except that
 ``layers`` is a list with one dict per layer where the reference stacks
 them on a leading axis for ``lax.scan``: depth is a Python loop here.
 :class:`DecoderLM` holds them as an ``nn.Module`` under the reference's
-names, and :func:`lm_params_from_jax` turns a reference parameter tree into
-its ``state_dict``. The MoE feed-forward (mixtral) comes later (ROADMAP §1
-item 17), and so does ``lm_loss``, with training.
+names, :func:`lm_params_from_jax` turns a reference parameter tree into
+its ``state_dict`` and :func:`nest_params` a ``state_dict`` into the
+nested dict. With grad enabled every layer runs under
+``torch.utils.checkpoint`` in the mode :func:`set_remat_mode` picks, as
+the reference's ``jax.checkpoint`` with its policy.
 """
 from __future__ import annotations
 
+import functools
 from collections.abc import Mapping
+from typing import Any
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils import checkpoint as _checkpoint
 
 from repro_torch.device import resolve_device
-from repro_torch.models import attention, common
+from repro_torch.models import attention, common, moe
+
+#: ops whose outputs a remat mode saves (None: save the layer input only):
+#: "dots" is ``checkpoint_dots`` (every matmul), "dots_no_batch"
+#: ``checkpoint_dots_with_no_batch_dims`` (no batched matmul)
+REMAT_SAVED_OPS = {
+    "full": None,
+    "dots": (torch.ops.aten.mm.default, torch.ops.aten.bmm.default),
+    "dots_no_batch": (torch.ops.aten.mm.default,),
+}
+_REMAT_MODE = ["full"]          # mutable: launch-time perf knob
 
 
-def _dense_only(cfg) -> None:
-    if cfg.n_experts:
-        raise NotImplementedError(
-            f"{cfg.name}: the MoE feed-forward is not ported yet (ROADMAP "
-            f"§1 item 17)")
+def set_remat_mode(mode: str) -> None:
+    if mode not in REMAT_SAVED_OPS:
+        raise ValueError(f"unknown remat mode {mode!r}")
+    _REMAT_MODE[0] = mode
+
+
+def _remat(fn, *args):
+    """``fn(*args)``, checkpointed in the current remat mode when grad is
+    enabled: the backward recomputes what the mode does not save."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    ops = REMAT_SAVED_OPS[_REMAT_MODE[0]]
+    kw = {} if ops is None else {"context_fn": functools.partial(
+        _checkpoint.create_selective_checkpoint_contexts, list(ops))}
+    return _checkpoint.checkpoint(fn, *args, use_reentrant=False, **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -34,16 +60,20 @@ def _dense_only(cfg) -> None:
 # ---------------------------------------------------------------------------
 
 def init_layer(gen: torch.Generator, cfg, dtype) -> dict:
-    return {"ln1": common.init_norm(cfg.norm, cfg.d_model, dtype, gen.device),
-            "ln2": common.init_norm(cfg.norm, cfg.d_model, dtype, gen.device),
-            "attn": attention.init_attention(gen, cfg, dtype),
-            "mlp": common.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype,
-                                   gated=cfg.act == "silu")}
+    p = {"ln1": common.init_norm(cfg.norm, cfg.d_model, dtype, gen.device),
+         "ln2": common.init_norm(cfg.norm, cfg.d_model, dtype, gen.device),
+         "attn": attention.init_attention(gen, cfg, dtype)}
+    if cfg.n_experts:
+        p["moe"] = moe.init_moe(gen, cfg, dtype)
+    else:
+        p["mlp"] = common.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype,
+                                   gated=cfg.act == "silu")
+    return p
 
 
 def init_lm(cfg, gen: torch.Generator) -> dict:
-    """Random parameters drawn from ``gen``, on its device, in cfg.dtype."""
-    _dense_only(cfg)
+    """Random parameters drawn from ``gen``, on its device, in cfg.dtype
+    (the MoE router in float32)."""
     dtype = common.dtype_of(cfg)
     params = {
         "embed": common.normal(gen, (cfg.vocab, cfg.d_model), 0.02, dtype),
@@ -63,10 +93,11 @@ def _param_dict(tree: Mapping) -> nn.ParameterDict:
 
 
 class DecoderLM(nn.Module):
-    """The parameters of a dense decoder LM under the reference's names:
+    """The parameters of a decoder LM under the reference's names:
     ``embed``, ``layers.<i>.{ln1,ln2}.w``, ``layers.<i>.attn.{wq,wk,wv,wo}``
-    (and ``q_norm``, ``k_norm``), ``layers.<i>.mlp.{w_up,w_gate,w_down}``,
-    ``final_norm.w`` and, untied, ``lm_head``.
+    (and ``q_norm``, ``k_norm``), ``layers.<i>.mlp.{w_up,w_gate,w_down}``
+    or, MoE, ``layers.<i>.moe.{router,w_gate,w_up,w_down}`` (the router
+    float32), ``final_norm.w`` and, untied, ``lm_head``.
 
     Weights come from :func:`init_lm` with ``generator`` (None: a fresh one
     on the device, seeded 0), on ``device`` (None: the card; raises without
@@ -105,7 +136,7 @@ def lm_params_from_jax(tree: Mapping) -> dict[str, torch.Tensor]:
     (``repro.models.transformer.init_lm`` mapped through ``np.asarray``):
     the leading layer axis of ``layers`` is split into ``layers.<i>``.
     Values are float32; ``load_state_dict`` casts them to the model's
-    dtype."""
+    dtype (the router stays float32)."""
     out: dict[str, torch.Tensor] = {}
 
     def walk(prefix, node, layer=None):
@@ -128,34 +159,87 @@ def lm_params_from_jax(tree: Mapping) -> dict[str, torch.Tensor]:
     return out
 
 
+def nest_params(flat: Mapping[str, torch.Tensor]) -> dict:
+    """The nested parameter dict of a :class:`DecoderLM` ``state_dict``
+    (``layers.<i>.attn.wq`` -> ``params["layers"][i]["attn"]["wq"]``),
+    sharing its tensors."""
+    out: dict = {}
+    layers: dict[int, dict] = {}
+    for key, t in flat.items():
+        parts = key.split(".")
+        node = out
+        if parts[0] == "layers":
+            node = layers.setdefault(int(parts[1]), {})
+            parts = parts[2:]
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = t
+    if layers:
+        out["layers"] = [layers[i] for i in range(len(layers))]
+    return out
+
+
 # ---------------------------------------------------------------------------
 # forward (full sequence)
 # ---------------------------------------------------------------------------
+
+def _ffn(lp, x, cfg):
+    """The layer's feed-forward: (out, moe_aux, moe_drop_frac)."""
+    if cfg.n_experts:
+        out, metrics = moe.moe_ffn(lp["moe"], x, cfg)
+        return out, metrics["moe_aux"], metrics["moe_drop_frac"]
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    return common.mlp(lp["mlp"], x, cfg.act), zero, zero
+
 
 def _layer_full(lp, h, cfg, impl: str = "kernel"):
     a_in = common.norm(h, lp["ln1"], cfg.norm)
     a_out, kv = attention.attend_full(lp["attn"], a_in, cfg, impl=impl)
     h = h + a_out
     m_in = common.norm(h, lp["ln2"], cfg.norm)
-    return h + common.mlp(lp["mlp"], m_in, cfg.act), kv
+    m_out, aux, drop = _ffn(lp, m_in, cfg)
+    return h + m_out, aux, drop, kv
 
 
 def forward_embeds(params, h, cfg, *, collect_kv: bool = False,
                    impl: str = "kernel"):
-    """h (B, S, D) embeddings -> (hidden, per-layer (k, v) list | None)."""
-    _dense_only(cfg)
+    """h (B, S, D) embeddings -> (hidden, aux, per-layer (k, v) list |
+    None); aux holds ``moe_aux`` and ``moe_drop_frac`` averaged over the
+    layers (zeros for a dense model)."""
+    aux = drop = torch.zeros((), dtype=torch.float32, device=h.device)
     kvs = []
     for lp in params["layers"]:
-        h, kv = _layer_full(lp, h, cfg, impl)
+        h, a, d, kv = _remat(functools.partial(_layer_full, cfg=cfg,
+                                               impl=impl), lp, h)
+        aux, drop = aux + a, drop + d
         if collect_kv:
             kvs.append(kv)
     h = common.norm(h, params["final_norm"], cfg.norm)
-    return h, (kvs if collect_kv else None)
+    n_l = cfg.n_layers
+    return h, {"moe_aux": aux / n_l, "moe_drop_frac": drop / n_l}, \
+        (kvs if collect_kv else None)
 
 
 def logits_fn(params, h, cfg):
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     return h @ w
+
+
+def lm_loss(params, batch: dict[str, Any], cfg, *, impl: str = "kernel"):
+    """Next-token CE (+ MoE aux). batch: tokens (B, S) [, loss_mask (B, S)]
+    tensors on the parameters' device. Returns (loss, {"ce", "moe_aux",
+    "moe_drop_frac"}); ``impl`` as in :func:`attention.attend_full`."""
+    inputs, targets = common.shift_labels(batch["tokens"])
+    h = params["embed"][inputs]
+    h, aux, _ = forward_embeds(params, h, cfg, impl=impl)
+    logits = logits_fn(params, h, cfg)
+    mask = batch.get("loss_mask")
+    mask = mask[:, 1:] if mask is not None else None
+    loss = common.cross_entropy(logits, targets, mask)
+    metrics = {"ce": loss, **aux}
+    if cfg.n_experts:
+        loss = loss + cfg.router_aux_coef * aux["moe_aux"]
+    return loss, metrics
 
 
 # ---------------------------------------------------------------------------
@@ -188,7 +272,7 @@ def prefill(params, tokens: torch.Tensor, cfg, *, max_context: int,
     s = tokens.shape[1]
     cap = cache_capacity(cfg, max_context)
     h = params["embed"][tokens]
-    h, kvs = forward_embeds(params, h, cfg, collect_kv=True, impl=impl)
+    h, _, kvs = forward_embeds(params, h, cfg, collect_kv=True, impl=impl)
     logits = logits_fn(params, h[:, -1:], cfg)[:, 0]
     caches = [attention.cache_from_prefill(k, v, cap) for k, v in kvs]
     return logits, {"k": torch.stack([c.k for c in caches]),
@@ -204,7 +288,6 @@ def decode_step(params, cache: dict, tokens: torch.Tensor, cfg):
     :func:`attention.attend_decode`); the returned dict shares them, with
     ``step`` advanced by one.
     """
-    _dense_only(cfg)
     step = cache["step"]
     cap = cache["k"].shape[2]
     h = params["embed"][tokens]
@@ -216,6 +299,6 @@ def decode_step(params, cache: dict, tokens: torch.Tensor, cfg):
         a_out, _ = attention.attend_decode(lp["attn"], a_in, cfg, kvc, step)
         h = h + a_out
         m_in = common.norm(h, lp["ln2"], cfg.norm)
-        h = h + common.mlp(lp["mlp"], m_in, cfg.act)
+        h = h + _ffn(lp, m_in, cfg)[0]
     h = common.norm(h, params["final_norm"], cfg.norm)
     return logits_fn(params, h, cfg), {**cache, "step": step + 1}

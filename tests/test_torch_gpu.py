@@ -41,7 +41,12 @@ Sq = Skv at and around the bf16 route's block edges (1, 64, 65, 127, 128,
 129) and Sq = Skv - 7 at every head dim, MQA, Hq / Hkv = 32 and non-causal
 attention; a bf16 view whose base is not 16-byte aligned raises. A small
 TinyLlama prefill through the kernel is held to the same prefill through
-the plain version. The output-stationary Gconv3 goes through the
+the plain version. With grad enabled the kernel path's attention Function
+launches the kernel once in its forward and returns the plain version's
+gradients (float32 and bf16); the MoE feed-forward on the card gives its
+CPU result (routing integers equal, output and gradients within 1e-4),
+and a two-layer Mixtral ``lm_loss`` through the kernel (4 launches under
+remat ``full``) holds its loss and gradients to the plain version's. The output-stationary Gconv3 goes through the
 gather-GEMM kernel with more output rows than input rows (after a replan
 to a row count that is not a multiple of 128) and with fewer, its plan
 bit-equal to the CPU's and its output and gradients to the plain
@@ -811,6 +816,101 @@ def test_lm_prefill_kernel_vs_plain(cuda):
     assert cache["k"].shape == (4, 2, 128, 4, 64)
     scale = want.abs().max().item()
     assert (got - want).abs().max().item() <= 1e-3 * scale
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_function_grad_on_card(cuda, dtype):
+    """The forward launches the kernel once; the gradients are the plain
+    version's VJP from the same q, k, v (the same math on the same card)."""
+    from repro_torch.kernels.flash_attention import ops as attn_ops
+    g = torch.Generator(device=cuda).manual_seed(3)
+    shapes = ((2, 8, 200, 128), (2, 2, 200, 128), (2, 2, 200, 128))
+    q, k, v = (torch.randn(s, generator=g, device=cuda).to(dtype)
+               .requires_grad_() for s in shapes)
+    ct = torch.randn(shapes[0], generator=g, device=cuda).to(dtype)
+    before = fa_kernel.launches
+    out = attn_ops.attention(q, k, v, window=64)
+    got = torch.autograd.grad(out, (q, k, v), ct)
+    torch.cuda.synchronize()
+    assert fa_kernel.launches == before + 1
+    want_out = attention_ref(q, k, v, window=64)
+    want = torch.autograd.grad(want_out, (q, k, v), ct)
+    rtol, atol = (2.0 ** -7, 2e-3) if dtype == torch.bfloat16 else (2e-5,
+                                                                      2e-5)
+    torch.testing.assert_close(out.float(), want_out.float(), rtol=rtol,
+                               atol=atol)
+    for a, b in zip(got, want):
+        assert a.dtype == dtype
+        assert (a.float() - b.float()).abs().max().item() <= \
+            1e-5 * b.float().abs().max().item()
+
+
+def test_moe_ffn_on_card_matches_cpu(cuda):
+    import dataclasses
+    from repro_torch.models import moe
+    cfg = dataclasses.replace(get_config("mixtral-8x7b").reduced(),
+                              capacity_factor=1.25)
+    gen = torch.Generator().manual_seed(2)
+    params = moe.init_moe(gen, cfg, torch.float32)
+    x = (torch.randn((2, 40, cfg.d_model), generator=gen)
+         + 1.5 * torch.randn(cfg.d_model, generator=gen))
+    ct = torch.randn(x.shape, generator=gen)
+    logits = x @ params["router"]
+    cap = moe.capacity(cfg, x.shape[1])
+    want = moe._dispatch_one(x, logits, cfg.top_k, cfg.n_experts, cap)
+    got = moe._dispatch_one(x.to(cuda), logits.to(cuda), cfg.top_k,
+                            cfg.n_experts, cap)
+    # the integers bit for bit; the gates are a softmax, whose exp differs
+    # between the card and the CPU in the last bit
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[2].cpu(), want[2])
+    assert torch.equal(got[1].cpu() == 0, want[1] == 0)
+    np.testing.assert_array_max_ulp(got[1].cpu().numpy(), want[1].numpy(),
+                                    maxulp=2)
+
+    def run(dev):
+        p = {k: v.to(dev).requires_grad_() for k, v in params.items()}
+        xx = x.to(dev).requires_grad_()
+        out, m = moe.moe_ffn(p, xx, cfg)
+        grads = torch.autograd.grad((out * ct.to(dev)).sum() + m["moe_aux"],
+                                    [xx, *p.values()])
+        return out, m, grads
+
+    out, m, grads = run("cpu")
+    cout, cm, cgrads = run(cuda)
+    assert float(m["moe_drop_frac"]) > 0
+    assert float(cm["moe_drop_frac"]) == float(m["moe_drop_frac"])
+    for a, b in ((cout, out), (cm["moe_aux"], m["moe_aux"]),
+                 *zip(cgrads, grads)):
+        assert (a.detach().cpu() - b).abs().max().item() <= \
+            1e-4 * b.abs().max().item()
+
+
+def test_mixtral_lm_loss_kernel_vs_plain_on_card(cuda):
+    """Two Mixtral layers (head_dim 128, GQA 8/2, a 64-token window) in
+    float32: the kernel path's loss and gradients against the plain
+    version's; 2 launches a layer under remat ``full`` (forward and its
+    recomputation)."""
+    import dataclasses
+    from repro_torch.launch import train
+    from repro_torch.models import api
+    cfg = dataclasses.replace(
+        get_config("mixtral-8x7b"), n_layers=2, d_model=512, n_heads=8,
+        n_kv_heads=2, d_ff=1024, vocab=1000, swa_window=64, dtype="float32")
+    model = api.build_model(cfg, device=cuda)
+    params, _ = train.init_state(model, seed=1)
+    batch = {"tokens": np.random.default_rng(1).integers(
+        0, cfg.vocab, (2, 150)).astype(np.int32)}
+    before = fa_kernel.launches
+    lk, mk, gk = train.lm_loss_and_grads(model, params, batch)
+    torch.cuda.synchronize()
+    assert fa_kernel.launches == before + 2 * cfg.n_layers
+    lr, mr, gr = train.lm_loss_and_grads(model, params, batch, impl="ref")
+    assert fa_kernel.launches == before + 2 * cfg.n_layers
+    assert abs(lk.item() - lr.item()) <= 1e-4 * abs(lr.item())
+    for key, g in gr.items():
+        assert (gk[key] - g).norm().item() <= 1e-3 * g.norm().item(), key
+    assert gr["layers.0.moe.router"].abs().max().item() > 0
 
 
 def _gconv3_inputs(dev, case):

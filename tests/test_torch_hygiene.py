@@ -1,7 +1,8 @@
 """Guard rails of the PyTorch port.
 
-* Neither ``chip_smoke.py`` nor any module of ``src/repro_torch`` imports
-  ``jax`` or the JAX package ``repro`` (the card's machine has neither).
+* Neither ``chip_smoke.py``, the port's examples (``examples/*_torch.py``)
+  nor any module of ``src/repro_torch`` imports ``jax`` or the JAX
+  package ``repro`` (the card's machine has neither).
 * ``import repro_torch`` and every module in it work with no ``nvcc`` and
   no card: kernels are built at first launch, never at import, and no
   module starts a ``torch.distributed`` process group.
@@ -31,7 +32,9 @@ PKG = REPO / "src" / "repro_torch"
 
 
 def _port_files():
-    return [REPO / "chip_smoke.py", *sorted(PKG.rglob("*.py"))]
+    return [REPO / "chip_smoke.py",
+            *sorted((REPO / "examples").glob("*_torch.py")),
+            *sorted(PKG.rglob("*.py"))]
 
 
 def _imported_roots(path: Path) -> set[str]:
@@ -53,8 +56,10 @@ def test_port_never_imports_jax_or_repro():
                 "runtime/feature_cache.py", "launch/spconv_stream.py",
                 "runtime/persist.py", "runtime/admission.py",
                 "launch/spconv_serve.py", "runtime/sharding.py",
-                "kernels/octent/sharded.py", "launch/spconv_sharded.py"):
+                "kernels/octent/sharded.py", "launch/spconv_sharded.py",
+                "models/moe.py", "data/tokens.py"):
         assert PKG / mod in files, mod
+    assert REPO / "examples" / "moe_ragged_torch.py" in files
     bad = {str(p.relative_to(REPO)): sorted(_imported_roots(p)
                                             & {"jax", "jaxlib", "repro"})
            for p in files}
@@ -132,6 +137,10 @@ def test_training_entry_points_raise_without_a_card(monkeypatch, tmp_path):
         train.run_spconv_demo(1)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train.main(["--arch", "minkunet", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--arch", "tinyllama-1.1b", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.run_lm("mixtral-8x7b", steps=1, batch=1, seq=8, lr=1e-3)
     # the explicit CPU request runs, and writes only where it is told to
     res = train.run_spconv_demo(1, ckpt_dir=str(tmp_path), device="cpu")
     assert res["recoveries"] == 0 and len(res["losses"]) == 1
@@ -233,6 +242,7 @@ def test_gemm_wrapper_rejects_bad_inputs():
 
 
 def test_lm_entry_points_raise_without_a_card(monkeypatch):
+    import importlib.util
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
     from repro_torch.models import api, transformer
@@ -242,6 +252,14 @@ def test_lm_entry_points_raise_without_a_card(monkeypatch):
         transformer.DecoderLM(cfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         api.build_model(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        api.build_model(get_config("mixtral-8x7b").reduced())
+    spec = importlib.util.spec_from_file_location(
+        "moe_ragged_torch", REPO / "examples" / "moe_ragged_torch.py")
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        example.main([])
     model = api.build_model(cfg, device="cpu")
     params = transformer.DecoderLM(cfg, device="cpu").params()
     batch = {"tokens": np.zeros((2, 5), np.int64)}

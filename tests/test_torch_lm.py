@@ -1,5 +1,5 @@
-"""Parity of the port's dense decoder LM (repro_torch) against the JAX
-package, on the CPU at reduced sizes.
+"""Parity of the port's decoder LM (repro_torch) against the JAX package,
+on the CPU at reduced sizes.
 
 Field for field: every ported ``CONFIG`` and its ``reduced()``. Within
 float32 summation order: ``rms_norm``, ``layer_norm``, ``rope`` and
@@ -7,8 +7,9 @@ float32 summation order: ``rms_norm``, ``layer_norm``, ``rope`` and
 both below and at or past the capacity), with the cache's ``pos`` bit for
 bit; ``prefill`` and every ``decode_step`` of a few steps, through
 ``lm_params_from_jax``, for tinyllama (GQA), qwen3 (qk-norm, tied
-embeddings) and tinyllama with a 16-token sliding window (rolling cache,
-decoded past the window), logits within 1e-4 * max|logit|; greedy
+embeddings), tinyllama with a 16-token sliding window (rolling cache,
+decoded past the window) and the two mixtrals (MoE, their reduced
+drop-free capacity, a 16-token window), logits within 1e-4 * max|logit|; greedy
 ``generate`` token for token. The non-finite guard and the sampled path
 of ``generate`` on a stub model, as the reference's own tests run them.
 """
@@ -158,6 +159,8 @@ def _check_cache(cache, jcache):
     ("tinyllama-1.1b", {}, 16, 3),
     ("qwen3-1.7b", {}, 16, 3),
     ("tinyllama-1.1b", {"swa_window": 16}, 24, 5),   # rolling cache
+    ("mixtral-8x7b", {}, 20, 3),                     # MoE, rolling cache
+    ("mixtral-8x22b", {}, 20, 3),
 ])
 def test_prefill_and_decode_match_reference(arch, repl, s, steps):
     cfg, jcfg, params, jparams = _lm(arch, **repl)
@@ -197,25 +200,49 @@ def test_greedy_generate_matches_reference():
     assert stats["nonfinite_stops"] == 0
 
 
-def test_decoder_lm_names_match_reference_tree():
-    cfg, jcfg = _cfgs("qwen3-1.7b")
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "mixtral-8x7b"])
+def test_decoder_lm_names_match_reference_tree(arch):
+    cfg, jcfg = _cfgs(arch)
     sd = transformer.lm_params_from_jax(_np(jtransformer.init_lm(
         jcfg, jax.random.key(0))))
     model = transformer.DecoderLM(cfg, device="cpu")
     assert set(sd) == set(model.state_dict())
-    assert "lm_head" not in sd and "layers.2.attn.q_norm" in sd
-    assert sd["layers.1.mlp.w_gate"].shape == (cfg.d_model, cfg.d_ff)
+    nested = transformer.nest_params(sd)
+    assert len(nested["layers"]) == cfg.n_layers
+    assert nested["layers"][1]["attn"]["wq"] is sd["layers.1.attn.wq"]
+    if cfg.n_experts:
+        assert sd["layers.1.moe.w_down"].shape == (cfg.n_experts, cfg.d_ff,
+                                                   cfg.d_model)
+        assert model.state_dict()["layers.0.moe.router"].dtype == \
+            torch.float32
+    else:
+        assert "lm_head" not in sd and "layers.2.attn.q_norm" in sd
+        assert sd["layers.1.mlp.w_gate"].shape == (cfg.d_model, cfg.d_ff)
 
 
 def test_unported_families_raise():
     for arch in ("mamba2-2.7b", "recurrentgemma-2b", "hubert-xlarge",
                  "llava-next-mistral-7b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(NotImplementedError, match="ROADMAP §1 item 5"):
             api.build_model(configs.get_config(arch).reduced(), device="cpu")
-    model = api.build_model(configs.get_config("mixtral-8x7b").reduced(),
-                            device="cpu")
-    with pytest.raises(NotImplementedError, match="MoE"):
-        model.init()
+    # the MoE decoders build, init and serve
+    cfg = dataclasses.replace(configs.get_config("mixtral-8x7b").reduced(),
+                              dtype="bfloat16")
+    model = api.build_model(cfg, device="cpu")
+    params = model.init()
+    lp = params["layers"][0]
+    assert "mlp" not in lp and set(lp["moe"]) == {"router", "w_gate",
+                                                  "w_up", "w_down"}
+    assert lp["moe"]["router"].dtype == torch.float32      # as the reference
+    assert lp["moe"]["w_gate"].dtype == torch.bfloat16
+    assert lp["moe"]["w_gate"].shape == (cfg.n_experts, cfg.d_model,
+                                         cfg.d_ff)
+    logits, cache = model.prefill(params, {"tokens": torch.zeros(
+        (2, 5), dtype=torch.int64)}, 8)
+    logits, _ = model.decode_step(params, cache, torch.zeros(
+        (2, 1), dtype=torch.int64))
+    assert logits.shape == (2, 1, cfg.vocab)
+    assert bool(torch.isfinite(logits.float()).all())
 
 
 def _stub(v_size, nan_from=None, peak=1.0):
