@@ -207,6 +207,9 @@ PEAK_BYTES_S = 3.35e12         # HBM3
 OCTENT_SRC = "src/repro_torch/csrc/octent_query.cu"
 GEMM_SRC = "src/repro_torch/csrc/spconv_gemm_fused.cu"
 MAT_SRC = "src/repro_torch/csrc/spconv_gemm.cu"
+# kernel 3's earlier form is not in the checkout: this script prints no
+# time of it, and the A/B script times it beside this one in one process
+K3_AB_SCRIPT = "scripts/spconv_gemm_ab.py"
 MM_SRC = "src/repro_torch/csrc/masked_matmul.cu"
 FLASH_SRC = "src/repro_torch/csrc/flash_attention.cu"
 PEAK_BF16_FLOPS = 989e12       # bf16 on the tensor cores, float32 sum
@@ -375,8 +378,9 @@ def _ptxas(log: str) -> list:
 
 def phase_device():
     """The card, the parallel build of every kernel with each
-    instantiation's registers, shared memory and spills, and no spill in
-    the bf16 flash-attention route."""
+    instantiation's registers, shared memory and spills, no spill in the
+    bf16 flash-attention route, and no spill and at most 128 registers a
+    thread in the 3xTF32 tile loops of kernels 2, 3 and 4."""
     import ctypes
     import torch
     from repro_torch.kernels import build
@@ -413,15 +417,21 @@ def phase_device():
           f"octent_query.cu built {ptxas['octent_query']}")
     gemm_smem = build.load("spconv_gemm_fused").spconv_gemm_fused_smem
     gemm_smem.argtypes, gemm_smem.restype = [ctypes.c_int], ctypes.c_int
-    mm_smem = build.load("masked_matmul").masked_matmul_smem
-    mm_smem.argtypes, mm_smem.restype = [], ctypes.c_int
-    for name in ("spconv_gemm_fused", "masked_matmul"):
+    ring_smem = {}
+    for name in ("masked_matmul", "spconv_gemm"):
+        fn = getattr(build.load(name), f"{name}_smem")
+        fn.argtypes, fn.restype = [], ctypes.c_int
+        ring_smem[f"{name}_kernel"] = fn()
+    check([r["kernel"] for r in ptxas["spconv_gemm"]]
+          == ["spconv_gemm_kernel"], f"spconv_gemm.cu built "
+          f"{ptxas['spconv_gemm']}")
+    for name in ("spconv_gemm_fused", "masked_matmul", "spconv_gemm"):
         for rep in ptxas[name]:
             m = re.match(r"spconv_gemm_fused_kernel<(\d+)>", rep["kernel"])
             if m:
                 rep["dynamic_smem"] = gemm_smem(int(m.group(1)))
-            elif rep["kernel"] == "masked_matmul_kernel":
-                rep["dynamic_smem"] = mm_smem()
+            elif rep["kernel"] in ring_smem:
+                rep["dynamic_smem"] = ring_smem[rep["kernel"]]
             else:
                 continue
             # the 3xTF32 tile loops are held to two CTAs per SM
@@ -789,6 +799,21 @@ def _kernel_entry(name, src, replaces, per_shape, launches, *,
             "timing": "sum over the 25 layers of one forward", **extra}
 
 
+def materialized_args(shp):
+    """Kernel 3's inputs at one layer shape (``layer_shapes``' record): the
+    tiles built with row elision, the gathered lhs with its invalid slots
+    zeroed, and the weights padded to 128-column slabs."""
+    from repro_torch.core import sparsity
+    from repro_torch.kernels.spconv_gemm import ops as sg_ops
+    from repro_torch.kernels.spconv_gemm.ref import BN
+    plan, f = shp["plan"], shp["f"]
+    tiles = sg_ops.build_tap_tiles(plan.kmap, sparsity.row_nonzero(f),
+                                   bm=plan.tiles.bm, bo=plan.tiles.bo)
+    lhs = f[tiles.gather_idx.long()]
+    lhs.masked_fill_(~tiles.slot_valid[:, None], 0.0)
+    return tiles, lhs, sg_ops._pad_cout(shp["w"], BN)
+
+
 def phase_materialized(dev, scene, cfg):
     """Kernel 3 at every distinct layer shape, on the same seeded inputs as
     phase_gemm, against its plain version; then the main path of this
@@ -804,14 +829,9 @@ def phase_materialized(dev, scene, cfg):
     _, shapes = layer_shapes(dev, scene, cfg)
     per_shape = []
     for shp in shapes:
-        plan, f, w = shp["plan"], shp["f"], shp["w"]
         cin, cout, k = shp["cin"], shp["cout"], shp["k"]
-        bm, bo = plan.tiles.bm, plan.tiles.bo
-        tiles = sg_ops.build_tap_tiles(plan.kmap, sparsity.row_nonzero(f),
-                                       bm=bm, bo=bo)
-        lhs = f[tiles.gather_idx.long()]
-        lhs.masked_fill_(~tiles.slot_valid[:, None], 0.0)
-        wp = sg_ops._pad_cout(w, BN)
+        bm = shp["plan"].tiles.bm
+        tiles, lhs, wp = materialized_args(shp)
         args = (lhs, wp, tiles.tile_tap, tiles.tile_nz)
         got = sg_kernel.spconv_gemm(*args, bm=bm)
         want = spconv_gemm_ref(*args, bm=bm)
@@ -853,6 +873,7 @@ def phase_materialized(dev, scene, cfg):
                **_bound(2.0 * live_tiles * bm * cin * c_out_pad, nbytes),
                "ms": time_ms(lambda: sg_kernel.spconv_gemm(*args, bm=bm), 5),
                "plain_ms": time_ms(lambda: spconv_gemm_ref(*args, bm=bm), 2)}
+        rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
         del args, lhs
         per_shape.append(rec)
 
@@ -915,13 +936,21 @@ def phase_materialized(dev, scene, cfg):
     del outs
     tot = {key: sum(len(r["layers"]) * r[key] for r in per_shape)
            for key in ("apply_kmap_ms", "apply_tiles_ms")}
+    # kernel 3's sum over the shapes, each once: one apply_kmap launch a
+    # shape on the path above
+    path = {key: sum(r[key] for r in per_shape)
+            for key in ("ms", "bound_ms", "plain_ms")}
+    path["share_of_bound"] = path["bound_ms"] / path["ms"]
     emit(phase="spconv_gemm.per_request", shapes=len(per_shape),
-         peak_mem_gb=max(r["peak_mem_gb"] for r in per_shape), **tot)
-    return _kernel_entry(
+         peak_mem_gb=max(r["peak_mem_gb"] for r in per_shape),
+         apply_kmap_path=path, **tot)
+    entry = _kernel_entry(
         "spconv_gemm", MAT_SRC, "src/repro/kernels/spconv_gemm/kernel.py:68",
         per_shape, launches, library=False,
         apply_kmap_ms=tot["apply_kmap_ms"],
-        apply_tiles_ms=tot["apply_tiles_ms"])
+        apply_tiles_ms=tot["apply_tiles_ms"], apply_kmap_path=path)
+    entry["share_of_bound"] = entry["bound_ms"] / entry["ms"]
+    return entry
 
 
 def phase_masked(dev, scene, cfg):
@@ -1648,6 +1677,19 @@ def _moe_ragged_example():
     return mod
 
 
+def w_gate_inputs(dev):
+    """The router input, router weights and expert weights of one
+    Mixtral-8x7B ``w_gate`` product (MOE_RAGGED), seeded, drawn on the
+    card."""
+    import torch
+    t, d, f, e, _, _ = MOE_RAGGED
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    x = torch.randn((t, d), generator=gen, device=dev)
+    w_router = torch.randn((d, e), generator=gen, device=dev) * d ** -0.5
+    w_in = torch.randn((e, d, f), generator=gen, device=dev) * d ** -0.5
+    return x, w_router, w_in
+
+
 def phase_moe_ragged(dev):
     """Kernel 3 on the router's rulebook (``examples/moe_ragged_torch.py``)
     at the example's sizes (its numpy draws) and at one Mixtral-8x7B
@@ -1667,12 +1709,7 @@ def phase_moe_ragged(dev):
         if name == "example":
             x, w_router, w_in = ex.make_inputs(t, d, f, e, device=dev)
         else:
-            gen = torch.Generator(device=dev).manual_seed(SEED)
-            x = torch.randn((t, d), generator=gen, device=dev)
-            w_router = torch.randn((d, e), generator=gen,
-                                   device=dev) * d ** -0.5
-            w_in = torch.randn((e, d, f), generator=gen,
-                               device=dev) * d ** -0.5
+            x, w_router, w_in = w_gate_inputs(dev)
         sg_kernel.materialized_launches = 0
         res = ex.run(x, w_router, w_in, k=k, bm=bm)
         torch.cuda.synchronize()
@@ -1708,6 +1745,11 @@ def phase_moe_ragged(dev):
                "ms": time_ms(lambda: sg_kernel.spconv_gemm(*args, bm=bm), 5),
                "plain_ms": time_ms(lambda: spconv_gemm_ref(*args, bm=bm), 2)}
         rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
+        if name == "mixtral_w_gate":
+            # the 3xTF32 kernel against one cuBLAS SGEMM a tap
+            check(rec["ms"] < rec["plain_ms"],
+                  f"moe_ragged {name}: kernel {rec['ms']} ms is not faster "
+                  f"than its plain version {rec['plain_ms']} ms")
         per_shape[name] = rec
         emit(phase="moe_ragged", name=name,
              tolerance=f"{TOL_KERNEL} * max|plain|", **rec)
@@ -4004,7 +4046,9 @@ def main() -> int:
     ragged, k3["moe_ragged_launches"] = phase_moe_ragged(dev)
     k3["moe_ragged"] = {name: {key: r[key] for key in (
         "ms", "plain_ms", "bound_ms", "bound_by", "bound_ms_f32_cores",
-        "max_abs_err", "dense_loop_err")} for name, r in ragged.items()}
+        "share_of_bound", "max_abs_err", "dense_loop_err")}
+        for name, r in ragged.items()}
+    k3["old_form_ab"] = K3_AB_SCRIPT
     served = flash["tinyllama_prefill"]
     n = lm_cfg.n_layers
     k5 = {"name": "flash_attention", "route": "cuda", "source": FLASH_SRC,

@@ -27,17 +27,37 @@ import numpy as np
 ROOT = Path(__file__).resolve().parents[1]
 
 
-def _load(src: Path, out: Path):
+def build_launch(src: Path, out: Path, entry: str, argtypes):
+    """Compile one kernel source with the port's nvcc flags into the
+    library ``out`` and return its C launch function ``entry`` (``int``
+    result, ``argtypes`` arguments). Shared by the kernels' A/B scripts."""
     from repro_torch.kernels import build
-    subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(out),
-                    str(src)], check=True, capture_output=True)
-    fn = ctypes.CDLL(str(out)).octent_query_launch
+    res = subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-o",
+                          str(out), str(src)], capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {src}:\n{res.stderr}")
+    fn = getattr(ctypes.CDLL(str(out)), entry)
+    fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    return fn
+
+
+def ab_times(calls, iters: int) -> dict:
+    """Device ms of ``calls["other"]`` and ``calls["this"]`` in the order
+    other, this, this, other (``chip_smoke.time_ms``, ``iters`` calls
+    each), so that a drift of the card's clock over the run falls on both."""
+    import chip_smoke as cs
+    ms = {"other": [], "this": []}
+    for name in ("other", "this", "this", "other"):
+        ms[name].append(cs.time_ms(calls[name], iters))
+    return ms
+
+
+def _load(src: Path, out: Path):
     p, i = ctypes.c_void_p, ctypes.c_int
     scratch = "scratch" in src.read_text()
-    fn.argtypes = [p, p, p, i, p, i, p, i, p, p, p, i, i] + (
-        [p, p, p] if scratch else [p, p])
-    fn.restype = ctypes.c_int
-    return fn, scratch
+    return build_launch(src, out, "octent_query_launch",
+                        [p, p, p, i, p, i, p, i, p, p, p, i, i] + (
+                            [p, p, p] if scratch else [p, p])), scratch
 
 
 def main() -> int:
@@ -102,9 +122,7 @@ def main() -> int:
             torch.cuda.synchronize()
             cs.check(torch.equal(out, want),
                      f"{name} differs from the plain version at res {res}")
-        ms = {"other": [], "this": []}
-        for name in ("other", "this", "this", "other"):
-            ms[name].append(cs.time_ms(calls[name], 50))
+        ms = ab_times(calls, 50)
         for name in total:
             total[name] += float(np.mean(ms[name]))
         print(json.dumps({"res": res, "voxels": int(v.sum()),

@@ -95,23 +95,8 @@ __device__ __forceinline__ void load_step(const Args& p, float* sa, float* sb,
       }
     }
   }
-#pragma unroll
-  for (int q = 0; q < kKC * kNT / 4 / kThreads; ++q) {  // B: 4 chunks each
-    const int idx = tid + q * kThreads, kk = idx >> 5, c4 = (idx & 31) * 4;
-    const int kr = k0 + kk, col = col0 + c4;
-    float* dst = sb + kk * kLdb + c4;
-    const long long off = (long long)kr * p.n + col;
-    if (p.b_vec) {
-      const bool ok = kr < p.k && col < p.n;
-      cp_async16(dst, ok ? p.b + off : p.b, ok ? 16 : 0);
-    } else {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool ok = kr < p.k && col + e < p.n;
-        cp_async4(dst + e, ok ? p.b + off + e : p.b, ok ? 4 : 0);
-      }
-    }
-  }
+  tf32x3::stage_b<kKC, kNT, kLdb, kThreads>(sb, p.b, p.n, k0, col0, p.k,
+                                           p.n, p.b_vec, tid);
 }
 
 __global__ void __launch_bounds__(kThreads, 2)
@@ -128,13 +113,8 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int mr0 = row0 / p.bm, mr1 = (min(row0 + kMT, p.m) - 1) / p.bm;
   const int n_steps = (p.k + kKC - 1) / kKC;
 
-  float acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+  tf32x3::WarpAcc acc;
+  tf32x3::zero(acc);
 
   for (int w0 = 0; w0 < n_steps; w0 += kWin) {
     // the live steps of this window, in K order
@@ -150,69 +130,22 @@ __global__ void __launch_bounds__(kThreads, 2)
     const int n_live = tf32x3::append_live<kThreads>(live, step, s_list, 0,
                                                     s_warp);
 
-#pragma unroll
-    for (int s = 0; s < kStages - 1; ++s) {
-      if (s < n_live)
-        load_step(p, s_a + s * kStageA, s_b + s * kStageB, s_list[s], row0,
-                  col0, tid);
-      tf32x3::cp_async_commit();
-    }
-    for (int i = 0; i < n_live; ++i) {
-      // step i has landed for every thread, and every warp is done with
-      // the stage that the next load overwrites
-      tf32x3::cp_async_wait<kStages - 2>();
-      __syncthreads();
-      const int nxt = i + kStages - 1;
-      if (nxt < n_live)
-        load_step(p, s_a + (nxt % kStages) * kStageA,
-                  s_b + (nxt % kStages) * kStageB, s_list[nxt], row0, col0,
-                  tid);
-      tf32x3::cp_async_commit();
-
-      const float* a = s_a + (i % kStages) * kStageA + wm * 64 * kLda;
-      const float* b = s_b + (i % kStages) * kStageB + wn * 32;
-#pragma unroll
-      for (int ks = 0; ks < kKC; ks += 8) {
-        uint32_t bh[4][2], bl[4][2];
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          tf32x3::load_b(b, kLdb, ks, j * 8, lane, bh[j], bl[j]);
-#pragma unroll
-        for (int mi = 0; mi < 4; ++mi) {
-          uint32_t ah[4], al[4];
-          tf32x3::load_a(a, kLda, mi * 16, ks, lane, ah, al);
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            tf32x3::mma3(acc[mi][j], ah, al, bh[j], bl[j]);
-        }
-      }
-    }
+    tf32x3::ring<kStages>(
+        n_live,
+        [&](int i, int s) {
+          load_step(p, s_a + s * kStageA, s_b + s * kStageB, s_list[i],
+                    row0, col0, tid);
+        },
+        [&](int s) {
+          tf32x3::warp_tile<kKC, kLda, kLdb>(
+              s_a + s * kStageA + wm * 64 * kLda, s_b + s * kStageB + wn * 32,
+              acc, lane);
+        });
     // drained: the next window rewrites the list and the ring
-    tf32x3::cp_async_wait<0>();
-    __syncthreads();
   }
 
-  const int g = lane >> 2, t = lane & 3;
-  const bool vec2 = (p.n & 1) == 0;
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = row0 + wm * 64 + mi * 16 + g + 8 * h;
-      if (row >= p.m) continue;
-      float* o = p.c + (long long)row * p.n;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = col0 + wn * 32 + j * 8 + 2 * t;
-        const float v0 = acc[mi][j][2 * h], v1 = acc[mi][j][2 * h + 1];
-        if (vec2 && col + 1 < p.n) {
-          *reinterpret_cast<float2*>(o + col) = make_float2(v0, v1);
-        } else {
-          if (col < p.n) o[col] = v0;
-          if (col + 1 < p.n) o[col + 1] = v1;
-        }
-      }
-    }
+  tf32x3::store_tile(acc, p.c, p.n, row0 + wm * 64, col0 + wn * 32, p.m,
+                     p.n, (p.n & 1) == 0, lane);
 }
 
 }  // namespace

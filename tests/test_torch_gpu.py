@@ -27,7 +27,10 @@ its planning kernel must equal its plain version bit for bit, repeated
 calls must give the same bits, and neither it nor the block-masked matmul
 may synchronise with the host. The materialized
 GEMM and the block-masked matmul are held to the same 1e-4 at all-dead
-tiles, the Cin = 4 stem, Cin = Cout = 512, tile heights other than 128, a
+tiles, the Cin = 4 stem, Cin = Cout = 512, tile heights other than 128
+(the materialized GEMM also at Cin 2,304 and 38, a run of six same-tap
+tiles, all-live layouts at bm 8 and 128 and nine 128-column slabs, live
+tiles marked dead giving zeros), a
 caller's mask that kills a nonzero tile, masks whose tiles straddle the
 kernel's 128 x 32 steps, ragged M, N and K (K and N not multiples of 4
 included), and shapes that are not tile multiples through
@@ -653,6 +656,59 @@ def test_materialized_all_dead_tiles(cuda):
 @pytest.mark.parametrize("bm", [32, 96, 256])
 def test_materialized_tile_heights(cuda, bm):
     _check_materialized(cuda, _subm_kmap(1200, 14, 1000), 32, 128, bm=bm)
+
+
+def _check_k3_layout(dev, taps, live, *, c_in, c_out_pad, bm, seed=0):
+    """The materialized kernel on a layout given tile by tile (``taps``,
+    ``live``), lhs and weights drawn from ``seed`` with the dead tiles' rows
+    nonzero too: within 1e-4 of the plain version, the dead tiles exact
+    zeros, one launch."""
+    rng = np.random.default_rng(seed)
+    lhs = rng.standard_normal((len(taps) * bm, c_in)).astype(np.float32)
+    w = rng.standard_normal((max(taps) + 1, c_in, c_out_pad)).astype(
+        np.float32)
+    lhs, w = _dev(dev, lhs, w)
+    tap = torch.tensor(taps, dtype=torch.int32, device=dev)
+    nz = torch.tensor(live, dtype=torch.int32, device=dev)
+    before = sg_kernel.materialized_launches
+    got = sg_kernel.spconv_gemm(lhs, w, tap, nz, bm=bm)
+    torch.cuda.synchronize()
+    assert sg_kernel.materialized_launches == before + 1
+    _close(got, spconv_gemm_ref(lhs, w, tap, nz, bm=bm))
+    dead = (nz == 0).repeat_interleave(bm)
+    assert not got[dead].any()
+
+
+def test_materialized_deep_cin(cuda):
+    # 72 ring steps of 32 a CTA
+    _check_k3_layout(cuda, [0, 0, 1, 2, 2, 2], [1, 0, 1, 1, 1, 0],
+                     c_in=2304, c_out_pad=256, bm=128)
+
+
+def test_materialized_cin38(cuda):
+    # rows of 152 bytes: 4-byte copies, a ragged last Cin step
+    _check_materialized(cuda, _subm_kmap(1200, 14, 1000), 38, 128, bm=128)
+
+
+def test_materialized_same_tap_run(cuda):
+    # six consecutive tiles of tap 3 (one dead inside the run), then four
+    # of tap 1 and two of tap 3 again
+    _check_k3_layout(cuda, [3] * 6 + [1] * 4 + [3] * 2,
+                     [1, 1, 0, 1, 1, 1, 1, 1, 1, 1, 0, 1],
+                     c_in=256, c_out_pad=512, bm=128, seed=1)
+
+
+@pytest.mark.parametrize("bm", [8, 128])
+def test_materialized_all_live(cuda, bm):
+    taps = np.random.default_rng(bm).integers(0, 27, 40).tolist()
+    _check_k3_layout(cuda, taps, [1] * 40, c_in=64, c_out_pad=128, bm=bm,
+                     seed=2)
+
+
+def test_materialized_wide_cout(cuda):
+    # nine 128-column slabs
+    _check_k3_layout(cuda, [0, 1, 1, 2, 3, 3, 3], [1, 1, 0, 1, 1, 0, 1],
+                     c_in=96, c_out_pad=1152, bm=128, seed=3)
 
 
 def _check_masked(dev, a, b, mask, *, bm, bn, bk):

@@ -156,16 +156,29 @@ def _gemm_inputs(c_in, c_out=128, bm=16, seed=0):
     return lhs, _t(w), tiles.tile_tap, nz
 
 
-@pytest.mark.parametrize("c_in", [4, 32, 96])
-def test_spconv_gemm_ref_matches_reference(c_in):
-    lhs, w, tap, nz = _gemm_inputs(c_in, seed=c_in)
-    got = spconv_gemm_ref(lhs, w, tap, nz, bm=16)
+# (Cin, Cout_pad, bm): the first three at bm 16, then the edges the CUDA
+# kernel handles apart: a tile shorter than a warp's 16 rows, a tile of two
+# 128-row blocks, a Cin that is not a multiple of 4 (4-byte copies, a ragged
+# last step) and three 128-column slabs. Every case marks live tiles dead.
+GEMM_CASES = [pytest.param(4, 128, 16, id="4"),
+              pytest.param(32, 128, 16, id="32"),
+              pytest.param(96, 128, 16, id="96"),
+              pytest.param(32, 128, 8, id="bm8"),
+              pytest.param(16, 128, 256, id="bm256"),
+              pytest.param(38, 128, 16, id="cin38"),
+              pytest.param(24, 384, 16, id="cout384")]
+
+
+@pytest.mark.parametrize("c_in,c_out,bm", GEMM_CASES)
+def test_spconv_gemm_ref_matches_reference(c_in, c_out, bm):
+    lhs, w, tap, nz = _gemm_inputs(c_in, c_out, bm=bm, seed=c_in)
+    got = spconv_gemm_ref(lhs, w, tap, nz, bm=bm)
     args = (jnp.asarray(lhs.numpy()), jnp.asarray(w.numpy()),
             jnp.asarray(tap.numpy()), jnp.asarray(nz.numpy()))
-    _close(got, jspconv_gemm_ref(*args, bm=16))
-    _close(got, jspconv_gemm(*args, bm=16, interpret=True))
-    # dead tiles are exact zeros
-    dead = (nz == 0).repeat_interleave(16)
+    _close(got, jspconv_gemm_ref(*args, bm=bm))
+    _close(got, jspconv_gemm(*args, bm=bm, interpret=True))
+    # dead tiles are exact zeros, the killed live ones among them
+    dead = (nz == 0).repeat_interleave(bm)
     assert not got[dead].any()
 
 
