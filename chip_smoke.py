@@ -130,11 +130,12 @@ serving path at TinyLlama-1.1B's and the MoE decoder at Mixtral-8x7B's
   shape over the other two ranks.
   Printed, not gated: the sharded search's ms a call, its two merges',
   kernel 1's path in the same worker and the table bytes a rank;
-* ``flash_attention``: the kernel (bf16 on the tensor cores, float32 on
-  the CUDA cores) against its plain version at six attention shapes of
-  the repo's configs (TinyLlama's served prefill, in bf16 and float32, a
-  4,096-token prompt, Mixtral's windowed attention, HuBERT's,
-  RecurrentGemma's, and a ragged Sq < Skv case), each bf16 shape also
+* ``flash_attention``: the kernel (both routes on the tensor cores: bf16
+  through ``wgmma``, float32 as 3xTF32 ``mma.sync``) against its plain
+  version at six attention shapes of the repo's configs (TinyLlama's
+  served prefill, in bf16 and float32, a 4,096-token prompt, Mixtral's
+  windowed attention, HuBERT's, RecurrentGemma's, and a ragged Sq < Skv
+  case), each bf16 shape also
   checked in float32, with ``scaled_dot_product_attention`` timed beside
   it, the kernel's share of its bound and its time over SDPA's;
 * ``lm_serve``: TinyLlama-1.1B at full width and depth (bf16, seeded
@@ -165,11 +166,11 @@ serving path at TinyLlama-1.1B's and the MoE decoder at Mixtral-8x7B's
 
 Each path runs with its launch counts set to 0 just before and read just
 after (phase ``restart`` reads its workers' counts). The bound of kernels
-2-4 is float32-accurate work at the 3xTF32 tensor-core rate (495 / 3
-TFLOP/s) or bytes at HBM's rate, whichever is longer;
-``bound_ms_f32_cores`` beside it is the bound at the CUDA cores' 67
-TFLOP/s. Output is one JSON object per line; the last line is
-``{"ok": true, "device": {...}}``. Any failed check raises, so the script
+2-4 and of kernel 5's float32 route is float32-accurate work at the
+3xTF32 tensor-core rate (495 / 3 TFLOP/s) or bytes at HBM's rate,
+whichever is longer; ``bound_ms_f32_cores`` beside it is the bound at the
+CUDA cores' 67 TFLOP/s. Output is one JSON object per line; the last line
+is ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
 exits non-zero and prints no last line. It also exits non-zero when no
 CUDA device is visible or when ``src/repro_torch`` is not beside it.
 """
@@ -378,9 +379,10 @@ def _ptxas(log: str) -> list:
 
 def phase_device():
     """The card, the parallel build of every kernel with each
-    instantiation's registers, shared memory and spills, no spill in the
-    bf16 flash-attention route, and no spill and at most 128 registers a
-    thread in the 3xTF32 tile loops of kernels 2, 3 and 4."""
+    instantiation's registers, shared memory and spills, no spill in
+    either flash-attention route (bf16 ``wgmma``, float32 3xTF32) at any
+    head dim, and no spill and at most 128 registers a thread in the
+    3xTF32 tile loops of kernels 2, 3 and 4."""
     import ctypes
     import torch
     from repro_torch.kernels import build
@@ -401,10 +403,12 @@ def phase_device():
         route, d = re.match(r"flash_attention_(\w+)<(\d+)>",
                             rep["kernel"]).groups()
         rep["dynamic_smem"] = smem_fn(int(d), int(route == "wgmma"))
-        if route == "wgmma":
-            check(rep["spill_stores"] == rep["spill_loads"] == 0,
-                  f"{rep['kernel']} spills: {rep}")
-    check(len(ptxas["flash_attention"]) == 2 * len(HEAD_DIMS),
+        check(rep["spill_stores"] == rep["spill_loads"] == 0,
+              f"{rep['kernel']} spills: {rep}")
+    check(len(ptxas["flash_attention"]) == 2 * len(HEAD_DIMS) and
+          sorted(r["kernel"] for r in ptxas["flash_attention"])
+          == sorted(f"flash_attention_{route}<{d}>" for d in HEAD_DIMS
+                    for route in ("tf32x3", "wgmma")),
           f"flash_attention.cu built {ptxas['flash_attention']}")
     oct_smem = build.load("octent_query").octent_query_smem
     oct_smem.argtypes, oct_smem.restype = [ctypes.c_int], ctypes.c_int
@@ -1076,31 +1080,59 @@ def phase_scan(dev, cfg, scene, model):
 
 def _flash_bound(b, hq, hkv, sq, skv, d, causal, window, elt):
     """The least time for one attention call: the live (q, k) pairs' 4 * D
-    FLOPs each at the peak rate of the input type (bf16 on the tensor
-    cores; float32 outside them), against q, k, v read once and o written
-    once."""
+    FLOPs each at the peak rate of the input type, against q, k, v read
+    once and o written once. bf16 (``elt`` 2) counts at the bf16
+    tensor-core rate; float32 at the float32-exact 3xTF32 rate, as
+    ``_bound`` counts kernels 2-4, with ``bound_ms_f32_cores`` (the CUDA
+    cores' 67 TFLOP/s, the rate of the route's first form) beside it."""
     q_pos = np.arange(sq) + skv - sq
     hi = q_pos if causal else np.full(sq, skv - 1)
     lo = np.maximum(0, q_pos - window + 1) if window > 0 else 0 * q_pos
     pairs = b * hq * int((hi - lo + 1).sum())
     flops = 4.0 * d * pairs
     nbytes = float(elt * (2 * b * hq * sq * d + 2 * b * hkv * skv * d))
-    t_ops = flops / (PEAK_BF16_FLOPS if elt == 2 else PEAK_F32_FLOPS)
-    t_bytes = nbytes / PEAK_BYTES_S
+    if elt != 2:
+        return {"live_pairs": pairs, **_bound(flops, nbytes)}
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_S
     return {"live_pairs": pairs, "flops": flops, "bytes": nbytes,
             "bound_ms": max(t_ops, t_bytes) * 1e3,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
+def sdpa_call(q, k, v, causal, window):
+    """One ``scaled_dot_product_attention`` call of kernel 5's function on
+    these inputs (a yardstick, never called by the port), and its label.
+    SDPA's ``is_causal`` is top-left aligned, so a window or Sq < Skv goes
+    in as an explicit boolean band mask."""
+    import torch
+    import torch.nn.functional as F
+    sq, skv = q.shape[2], k.shape[2]
+    if window == 0 and (sq == skv or not causal):
+        label, mask = f"sdpa(is_causal={causal}, enable_gqa=True)", None
+    else:
+        label = "sdpa(attn_mask=<bool band>, enable_gqa=True)"
+        q_pos = torch.arange(sq, device=q.device)[:, None] + skv - sq
+        k_pos = torch.arange(skv, device=q.device)[None, :]
+        mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= k_pos <= q_pos
+        if window > 0:
+            mask &= k_pos > q_pos - window
+
+    def library():
+        return F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, is_causal=causal and mask is None,
+            enable_gqa=True)
+    return library, label
+
+
 def phase_flash(dev):
     """Kernel 5 against its plain version at each of FLASH_SHAPES, with
     one ``scaled_dot_product_attention`` call of the same function timed
-    beside it (never called by the port). Its ``is_causal`` is top-left
-    aligned, so a window or Sq < Skv goes in as an explicit boolean band
-    mask. A bf16 shape is also checked (not timed) in float32 on the same
-    values, which holds every D, window and ragged edge to 2e-5."""
+    beside it (``sdpa_call``). A bf16 shape is also checked (not timed) in
+    float32 on the same values, which holds the float32 route at every D,
+    window and ragged edge to 2e-5."""
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
@@ -1130,24 +1162,7 @@ def phase_flash(dev):
                               "float32")
         err, want = held(name, q, k, v, kw, dt)
         rel, tol = TOL_FLASH[dt]
-        if window == 0 and (sq == skv or not causal):
-            lib_call = f"sdpa(is_causal={causal}, enable_gqa=True)"
-            mask = None
-        else:
-            lib_call = "sdpa(attn_mask=<bool band>, enable_gqa=True)"
-            q_pos = torch.arange(sq, device=dev)[:, None] + skv - sq
-            k_pos = torch.arange(skv, device=dev)[None, :]
-            mask = torch.ones((sq, skv), dtype=torch.bool, device=dev)
-            if causal:
-                mask &= k_pos <= q_pos
-            if window > 0:
-                mask &= k_pos > q_pos - window
-
-        def library():
-            return F.scaled_dot_product_attention(
-                q, k, v, attn_mask=mask,
-                is_causal=causal and mask is None, enable_gqa=True)
-
+        library, lib_call = sdpa_call(q, k, v, causal, window)
         lib_err = (library().float() - want).abs().max().item()
         del want
         rec = {"shape": [b, hq, hkv, sq, skv, d], "causal": causal,
@@ -1166,7 +1181,7 @@ def phase_flash(dev):
         rec["vs_library"] = rec["ms"] / rec["library_ms"]
         per_shape[name] = rec
         emit(phase="flash_attention", name=name, **rec)
-        del q, k, v, mask
+        del q, k, v, library
         torch.cuda.empty_cache()
     return per_shape
 
@@ -1294,6 +1309,12 @@ def phase_lm_reference(dev, cfg, params):
     lr, _ = transformer.prefill(p32, tokens, cfg32, max_context=mc,
                                 impl="ref")
     res["f32_prefill"] = compare("f32 prefill", lk, lr, TOL_LM_F32)
+    # device ms of a whole float32 prefill (22 layers, one kernel-5 launch
+    # each), kernel and plain attention, warm
+    res["f32_prefill"]["ms"] = {impl: time_ms(
+        lambda impl=impl: transformer.prefill(p32, tokens, cfg32,
+                                              max_context=mc, impl=impl), 3)
+        for impl in ("kernel", "ref")}
     res["f32_prefill"]["greedy_agreement"] = int(
         (lk.argmax(-1) == lr.argmax(-1)).sum())
     emit(phase="lm_reference", config=cfg.name, batch=LM_BATCH,
@@ -1598,9 +1619,16 @@ def phase_lm_train(dev):
     params, _ = train.init_state(model32, seed=SEED)
     b = stream.batch_at(0)
     fa_kernel.launches = 0
+    step_ms = {}
+    t0 = time.perf_counter()
     lk, mk, gk = train.lm_loss_and_grads(model32, params, b)
+    torch.cuda.synchronize()
+    step_ms["kernel"] = (time.perf_counter() - t0) * 1e3
     n_kernel = fa_kernel.launches
+    t0 = time.perf_counter()
     lr, _, gr = train.lm_loss_and_grads(model32, params, b, impl="ref")
+    torch.cuda.synchronize()
+    step_ms["plain"] = (time.perf_counter() - t0) * 1e3
     check(n_kernel == want and fa_kernel.launches == want,
           f"lm_train f32: {n_kernel} kernel launches, "
           f"{fa_kernel.launches - n_kernel} in the plain step")
@@ -1618,6 +1646,7 @@ def phase_lm_train(dev):
          loss=lk.item(), plain_loss=lr.item(), loss_rel_err=loss_rel,
          worst_grad=worst, worst_grad_rel_err=rel[worst],
          median_grad_rel_err=float(np.median(list(rel.values()))),
+         step_ms=step_ms,
          tolerance={"loss": f"{TOL_LM_TRAIN_LOSS} relative",
                     "grad": f"{TOL_LM_TRAIN_GRAD} x |g_plain|"})
     del params, gk, gr, model32
@@ -4050,6 +4079,7 @@ def main() -> int:
         for name, r in ragged.items()}
     k3["old_form_ab"] = K3_AB_SCRIPT
     served = flash["tinyllama_prefill"]
+    served_f32 = flash["tinyllama_prefill_f32"]
     n = lm_cfg.n_layers
     k5 = {"name": "flash_attention", "route": "cuda", "source": FLASH_SRC,
           "replaces": "src/repro/kernels/flash_attention/kernel.py:80",
@@ -4058,11 +4088,21 @@ def main() -> int:
           "ms": n * served["ms"], "plain_ms": n * served["plain_ms"],
           "bound_ms": n * served["bound_ms"], "bound_by": served["bound_by"],
           "library_ms": n * served["library_ms"],
+          "f32": {"ms": n * served_f32["ms"],
+                  "bound_ms": n * served_f32["bound_ms"],
+                  "bound_by": served_f32["bound_by"],
+                  "bound_ms_f32_cores": n * served_f32["bound_ms_f32_cores"],
+                  "library_ms": n * served_f32["library_ms"],
+                  "plain_ms": n * served_f32["plain_ms"],
+                  "max_abs_err": served_f32["max_abs_err"],
+                  "share_of_bound": served_f32["share_of_bound"]},
           "moe_serve_launches": moe_launches,
           "lm_train_launches": train_launches,
           "timing": f"{n} launches of one {lm_cfg.name} prefill "
                     f"({LM_BATCH} x {LM_PROMPT} tokens, bf16), one per "
-                    f"layer; max_abs_err over all shapes, bf16 and f32"}
+                    f"layer; max_abs_err over all shapes, bf16 and f32; "
+                    f"f32: the same prefill's {n} launches in float32 "
+                    f"(3xTF32 route), bound at 495 / 3 TFLOP/s"}
     for k in (k1, k2, k3, k4, k5):
         check(k["launches"] > 0, f"{k['name']} never launched on the path")
     emit(phase="done", seconds=time.perf_counter() - t0)

@@ -14,16 +14,17 @@
 // What bounds it on the H100: operations. A live (q, k) pair costs 4 * D
 // FLOPs (q.k and p.v) against 2 * D bytes of k and v that every query row
 // of a head group shares, so at prefill lengths the work is far above the
-// card's ridge point, and only the tensor cores (989 TFLOP/s in bf16, one
-// `wgmma` per 64-row tile) reach it.
+// card's ridge point, and only the tensor cores reach it (989 TFLOP/s in
+// bf16, one `wgmma` per 64-row tile; 495 / 3 TFLOP/s for float32-exact
+// products, three TF32 products each).
 //
 // Two routes, chosen by the input type in flash_attention_launch. This is
 // a route by type, not a fallback: a bf16 input always takes the first.
 //  * bf16: flash_attention_wgmma, both products on the tensor cores.
-//  * float32: flash_attention_f32, float32 FMAs on the CUDA cores (67
-//    TFLOP/s). It serves the float32 prefill and the float32 check of
-//    every shape against the plain version at 2e-5, which a bf16 or TF32
-//    tensor-core product could not meet.
+//  * float32: flash_attention_tf32x3, both products on the tensor cores as
+//    3xTF32 mma.sync (tf32x3.cuh). It serves the float32 prefill and
+//    training gate and the float32 check of every shape against the plain
+//    version at 2e-5, which one bf16 or TF32 product could not meet.
 //
 // Both routes:
 //  * One CTA per (q block, query head, batch row), with a loop over KV
@@ -78,17 +79,45 @@
 //  * Epilogue: O / max(l, 1e-30) in bf16, stored from registers for rows
 //    below Sq and columns below D.
 //
-// The float32 route: one 256-thread CTA per 64-row q block; q, k and v are
-// staged in shared memory, each thread owns 4 q rows (4 x BKV / 16 scores
-// and 4 x D / 16 accumulator columns), a row's 16 threads are 16 lanes of
-// one warp, and the probabilities go through shared memory for p.v. BKV =
-// 64 at D <= 80 and 32 at D >= 128 (68,608-141,824 bytes of dynamic shared
-// memory). Ragged edges: q rows past Sq are staged as zeros and never
-// stored; keys past Skv are masked.
+// The float32 route (3xTF32 on the tensor cores, mma.sync):
+//  * Both products are the split-precision step of tf32x3.cuh (m16n8k8,
+//    each operand split into two TF32 terms, three products): S = q k^T
+//    with q the row-major A operand and k as stored (keys x D, D
+//    contiguous) the "col" B operand, b0 = K[n0 + g][k0 + t] and b1 =
+//    K[n0 + g][k0 + t + 4]; O += P V with V (keys x D) N-major.
+//  * P never leaves registers: the keys of each k8 step of P V are taken
+//    in the order 0, 2, 4, 6, 1, 3, 5, 7 (A's k index t is key 2t, t + 4
+//    is key 2t + 1; the sum over keys does not care), so the S fragment
+//    (c0 (g, 2t), c1 (g, 2t + 1), c2 (g + 8, 2t), c3 (g + 8, 2t + 1)) is
+//    P's A fragment as it stands, a0 a1 a2 a3 = c0 c2 c1 c3, and V's rows
+//    are read in the same order, b0 = V[k0 + 2t][n0 + g], b1 =
+//    V[k0 + 2t + 1][n0 + g]. Each thread splits the P values it owns.
+//  * Every thread copies the q block once and K and V tiles of kBKV keys
+//    (64; 16 at D = 256) through a cp.async ring (tf32x3::ring), 16 bytes
+//    a copy, into tiles with a row pitch of D + 4 floats, which keeps every
+//    fragment read on 32 distinct banks. Rows past Sq or Skv are
+//    zero-filled: q rows past Sq are never stored, keys past Skv masked.
+//  * What holds it back is not the tensor cores alone: with two warps a
+//    scheduler the fragment loads and splits and the softmax barely
+//    overlap the MMAs. So a warp takes two m16 row tiles at D = 64 (each
+//    K or V fragment, loaded and split once, feeds both; 4 warps, 128 q
+//    rows, two CTAs an SM) and one above (8 warps at D = 80 and 128, 4 at
+//    D = 256, whose 16 x 256 O accumulator alone takes 128 registers).
+//    Each warp splits the fragments it reads by split_fast (lo passed
+//    whole, truncated by the tensor core): splitting each K and V tile
+//    once for the CTA into fragment-ordered (hi, lo) tiles, or splitting
+//    exactly (split, at the same error), measured slower on an H100
+//    (PERF.md).
+//  * The online softmax is the bf16 route's, on the float32 S fragment.
+//    A warp also skips a KV tile that none of its rows sees (a causal
+//    diagonal, a window's edge): such a tile adds exactly nothing, see the
+//    note on -1e30 above.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "tf32x3.cuh"
 
 namespace {
 
@@ -96,177 +125,274 @@ constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kNegInf2 = kNegInf * kLog2e;   // -1e30 in the exp2 domain
 
-// ---------------------------------------------------------------------------
-// float32 route: CUDA cores
-// ---------------------------------------------------------------------------
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
 
-constexpr int kBQ = 64;
-constexpr int kThreads = 256;
+// ---------------------------------------------------------------------------
+// float32 route: 3xTF32 mma.sync
+// ---------------------------------------------------------------------------
 
 template <int D>
-struct Tile {
-  static constexpr int kBKV = D >= 128 ? 32 : 64;
-  static constexpr int kQP = D + 4;       // row pitch of sQ and sK (floats)
-  static constexpr int kPP = kBKV + 4;    // row pitch of sP
-  static constexpr size_t kBytes =
-      sizeof(float) * (kBQ * kQP + kBKV * kQP + kBKV * D + kBQ * kPP);
+struct F32 {
+  static constexpr int kMT = D == 64 ? 2 : 1;   // m16 row tiles a warp
+  static constexpr int kWarps = D == 256 ? 4 : 8 / kMT;
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kBQ = 16 * kMT * kWarps;   // q rows of a CTA
+  static constexpr int kBKV = D == 256 ? 16 : 64;   // keys of a tile
+  static constexpr int kStages = D == 80 || D == 256 ? 3 : 2;
+  static constexpr int kMinBlocks = kMT == 2 ? 2 : 1;   // CTAs an SM
+  static constexpr int kPitch = D + 4;   // floats a tile row
+  static constexpr int kQTile = kBQ * kPitch;
+  static constexpr int kKVTile = kBKV * kPitch;   // one K or V tile
+  static constexpr size_t kSmem =
+      sizeof(float) * (kQTile + 2 * kStages * kKVTile);
 };
 
-template <int D>
-__global__ void __launch_bounds__(kThreads) flash_attention_f32(
-    const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, float* __restrict__ o, int hq, int hkv,
-    int sq, int skv, int causal, int window, float scale) {
-  constexpr int BKV = Tile<D>::kBKV;
-  constexpr int QP = Tile<D>::kQP;
-  constexpr int PP = Tile<D>::kPP;
-  constexpr int DC = D / 16;     // accumulator columns per thread
-  constexpr int JC = BKV / 16;   // key columns per thread
-  extern __shared__ float4 smem4[];
-  float* sQ = reinterpret_cast<float*>(smem4);   // [kBQ][QP]
-  float* sK = sQ + kBQ * QP;                       // [BKV][QP]
-  float* sV = sK + BKV * QP;                       // [BKV][D]
-  float* sP = sV + BKV * D;                        // [kBQ][PP]
-
-  const int n_qb = (sq + kBQ - 1) / kBQ;
-  const int qb = n_qb - 1 - (int)blockIdx.x;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (hq / hkv);
-  const int tid = threadIdx.x;
-  const int rg = tid >> 4;   // rows rg * 4 .. rg * 4 + 3 of the q block
-  const int cg = tid & 15;   // key columns cg + 16 j, output cols cg + 16 dd
-
-  const int row0 = qb * kBQ;
-  const int q_lo = row0 + skv - sq;                    // q_pos of row 0
-  const int q_hi = min(row0 + kBQ, sq) - 1 + skv - sq; // of the last row
-
-  const float* qp = q + ((long long)(b * hq + h) * sq + row0) * D;
-  const float* kp = k + (long long)(b * hkv + hk) * skv * D;
-  const float* vp = v + (long long)(b * hkv + hk) * skv * D;
-  float* op = o + ((long long)(b * hq + h) * sq + row0) * D;
-
-  for (int idx = tid; idx < kBQ * D; idx += kThreads) {
-    const int r = idx / D, c = idx - r * D;
-    sQ[r * QP + c] = row0 + r < sq ? qp[(long long)r * D + c] : 0.f;
+// cp.async rows r0 .. r0 + kRows of a row-major (n, D) array into a tile
+// of pitch D + 4, 16 bytes a copy; rows past n are zero-filled.
+template <int D, int kRows, int kThreads>
+__device__ __forceinline__ void stage_rows(float* dst, const float* src,
+                                           int r0, int n, int tid) {
+  constexpr int kChunks = D / 4;
+  static_assert(kRows * kChunks % kThreads == 0, "layout");
+#pragma unroll
+  for (int j = 0; j < kRows * kChunks / kThreads; ++j) {
+    const int idx = tid + j * kThreads, r = idx / kChunks;
+    const int c = 4 * (idx - r * kChunks);
+    const bool ok = r0 + r < n;
+    tf32x3::cp_async16(dst + r * (D + 4) + c,
+                       ok ? src + (long long)(r0 + r) * D + c : src,
+                       ok ? 16 : 0);
   }
+}
 
-  // the KV blocks inside the band of this q block
+// B fragment of q k^T: keys n0 .. n0 + 8 of the K tile (keys x D, pitch
+// kP) against D columns k0 .. k0 + 8, split into hi and lo.
+template <int kP>
+__device__ __forceinline__ void load_k(const float* sk, int n0, int k0,
+                                       int lane, uint32_t (&hi)[2],
+                                       uint32_t (&lo)[2]) {
+  const float* p = sk + (n0 + (lane >> 2)) * kP + k0 + (lane & 3);
+  tf32x3::split_fast(p[0], hi[0], lo[0]);
+  tf32x3::split_fast(p[4], hi[1], lo[1]);
+}
+
+// B fragment of P V: keys k0 .. k0 + 8 of the V tile (keys x D, pitch kP)
+// in the order 0, 2, 4, 6, 1, 3, 5, 7, against columns n0 .. n0 + 8.
+template <int kP>
+__device__ __forceinline__ void load_v(const float* sv, int k0, int n0,
+                                       int lane, uint32_t (&hi)[2],
+                                       uint32_t (&lo)[2]) {
+  const float* p = sv + (k0 + 2 * (lane & 3)) * kP + n0 + (lane >> 2);
+  tf32x3::split_fast(p[0], hi[0], lo[0]);
+  tf32x3::split_fast(p[kP], hi[1], lo[1]);
+}
+
+// One KV block of the online softmax on the float32 S fragments s[j] of
+// one m16 tile (elements 0-1 on the thread's row g, 2-3 on row g + 8). s
+// holds raw scores when sc is the exp2-domain scale, or scaled and masked
+// ones when sc is 1. Updates m, l (per-thread partial) and o, and leaves P
+// in s.
+template <int NS, int NO>
+__device__ __forceinline__ void softmax_f32(float (&s)[NS][4], float sc,
+                                            float (&m)[2], float (&l)[2],
+                                            float (&o)[NO][4]) {
+  float mx[2] = {kNegInf2, kNegInf2};
+#pragma unroll
+  for (int j = 0; j < NS; ++j) {
+    mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
+    mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
+  }
+  float alpha[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new = fmaxf(m[r], mx[r] * sc);
+    alpha[r] = ex2(m[r] - m_new);
+    m[r] = m_new;
+    l[r] *= alpha[r];
+  }
+#pragma unroll
+  for (int j = 0; j < NS; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[j][e] = ex2(fmaf(s[j][e], sc, -m[e / 2]));
+      l[e / 2] += s[j][e];
+    }
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] *= alpha[e / 2];
+}
+
+template <int D>
+__global__ void __launch_bounds__(F32<D>::kThreads, F32<D>::kMinBlocks)
+    flash_attention_tf32x3(const float* __restrict__ q,
+                           const float* __restrict__ k,
+                           const float* __restrict__ v, float* __restrict__ o,
+                           int hq, int hkv, int sq, int skv, int causal,
+                           int window, float scale2) {
+  using C = F32<D>;
+  constexpr int BQ = C::kBQ, BKV = C::kBKV, P = C::kPitch, MT = C::kMT;
+  constexpr int NS = BKV / 8;   // n8 tiles of S: k8 steps of P V
+  constexpr int NO = D / 8;     // n8 tiles of O
+  constexpr int KD = D / 8;     // k8 steps of q k^T
+  extern __shared__ float4 smem4[];
+  float* sQ = reinterpret_cast<float*>(smem4);
+  float* sKV = sQ + C::kQTile;   // stage s: K tile 2 s, V tile 2 s + 1
+
+  // heads fastest, q blocks last: the heaviest q blocks of every head first
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int row0 = ((int)gridDim.z - 1 - (int)blockIdx.z) * BQ;
+  const int q_lo = row0 + skv - sq;                    // q_pos of row 0
+  const int q_hi = min(row0 + BQ, sq) - 1 + skv - sq;  // of the last row
   int kb_lo = 0, kb_hi = (skv - 1) / BKV;
   if (causal) kb_hi = min(kb_hi, q_hi / BKV);
   if (window > 0) kb_lo = max(0, q_lo - window + 1) / BKV;
 
-  float m[4], l[4], acc[4][DC];
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int wr = tid / 32 * 16 * MT;   // the warp's rows: wr .. wr + 16 MT
+  const int g = lane / 4, t = lane % 4;
+  // q_pos of row wr + 16 mt + g; of row wr + 16 mt + g + 8: + 8
+  const int qp = q_lo + wr + g;
+  const int wq_lo = q_lo + wr;
+  const int wq_hi = min(row0 + wr + 16 * MT, sq) - 1 + skv - sq;
+  const bool live = row0 + wr < sq;   // the warp holds a q row
+
+  const long long kvo = (long long)(b * hkv + h / (hq / hkv)) * skv * D;
+  // the q block joins the first stage's copies
+  stage_rows<D, BQ, C::kThreads>(sQ, q + (long long)(b * hq + h) * sq * D,
+                                 row0, sq, tid);
+
+  float m[MT][2], l[MT][2], acc[MT][NO][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
+  for (int mt = 0; mt < MT; ++mt) {
+    m[mt][0] = m[mt][1] = kNegInf2;
+    l[mt][0] = l[mt][1] = 0.f;
 #pragma unroll
-    for (int dd = 0; dd < DC; ++dd) acc[i][dd] = 0.f;
+    for (int n = 0; n < NO; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][n][e] = 0.f;
   }
+  int step = 0;
 
-  for (int kb = kb_lo; kb <= kb_hi; ++kb) {
-    const int k0 = kb * BKV;
-    __syncthreads();   // the previous block's sK, sV and sP are consumed
-    for (int idx = tid; idx < BKV * D; idx += kThreads) {
-      const int r = idx / D, c = idx - r * D;
-      const bool in = k0 + r < skv;
-      const long long off = (long long)(k0 + r) * D + c;
-      sK[r * QP + c] = in ? kp[off] : 0.f;
-      sV[r * D + c] = in ? vp[off] : 0.f;
-    }
-    __syncthreads();
+  tf32x3::ring<C::kStages>(
+      kb_hi - kb_lo + 1,
+      [&](int i, int s) {
+        const int k0 = (kb_lo + i) * BKV;
+        float* dst = sKV + 2 * s * C::kKVTile;
+        stage_rows<D, BKV, C::kThreads>(dst, k + kvo, k0, skv, tid);
+        stage_rows<D, BKV, C::kThreads>(dst + C::kKVTile, v + kvo, k0, skv,
+                                        tid);
+      },
+      [&](int s) {
+        const int k0 = (kb_lo + step) * BKV;
+        ++step;
+        // a tile that no row of the warp sees adds nothing
+        if (!live || (causal && k0 > wq_hi) ||
+            (window > 0 && k0 + BKV - 1 <= wq_lo - window))
+          return;
+        const float* sK = sKV + 2 * s * C::kKVTile;
+        const float* sV = sK + C::kKVTile;
 
-    float s[4][JC];
+        float sc[MT][NS][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+        for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-      for (int j = 0; j < JC; ++j) s[i][j] = 0.f;
-#pragma unroll 2
-    for (int kk = 0; kk < D; kk += 4) {
-      float4 qv[4], kv[JC];
+          for (int j = 0; j < NS; ++j)
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        qv[i] = *reinterpret_cast<const float4*>(sQ + (rg * 4 + i) * QP + kk);
+            for (int e = 0; e < 4; ++e) sc[mt][j][e] = 0.f;
 #pragma unroll
-      for (int j = 0; j < JC; ++j)
-        kv[j] = *reinterpret_cast<const float4*>(sK + (cg + 16 * j) * QP + kk);
+        for (int kk = 0; kk < KD; ++kk) {
+          uint32_t ah[MT][4], al[MT][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+          for (int mt = 0; mt < MT; ++mt)
+            tf32x3::load_a<false>(sQ, P, wr + 16 * mt, 8 * kk, lane,
+                                  ah[mt], al[mt]);
 #pragma unroll
-        for (int j = 0; j < JC; ++j) {
-          s[i][j] = fmaf(qv[i].x, kv[j].x, s[i][j]);
-          s[i][j] = fmaf(qv[i].y, kv[j].y, s[i][j]);
-          s[i][j] = fmaf(qv[i].z, kv[j].z, s[i][j]);
-          s[i][j] = fmaf(qv[i].w, kv[j].w, s[i][j]);
+          for (int j = 0; j < NS; ++j) {
+            uint32_t bh[2], bl[2];
+            load_k<P>(sK, 8 * j, 8 * kk, lane, bh, bl);
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt)
+              tf32x3::mma3(sc[mt][j], ah[mt], al[mt], bh, bl);
+          }
         }
-    }
 
+        // the per-element mask only where the tile straddles an edge
+        const bool edge = k0 + BKV > skv ||
+                          (causal && k0 + BKV - 1 > wq_lo) ||
+                          (window > 0 && k0 <= wq_hi - window);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int q_pos = q_lo + rg * 4 + i;
-      float mx = kNegInf;
+        for (int mt = 0; mt < MT; ++mt) {
+          if (edge) {
 #pragma unroll
-      for (int j = 0; j < JC; ++j) {
-        const int k_pos = k0 + cg + 16 * j;
-        bool keep = k_pos < skv;
-        if (causal) keep = keep && k_pos <= q_pos;
-        if (window > 0) keep = keep && k_pos > q_pos - window;
-        s[i][j] = keep ? s[i][j] * scale : kNegInf;
-        mx = fmaxf(mx, s[i][j]);
-      }
+            for (int j = 0; j < NS; ++j)
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      const float alpha = expf(m[i] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < JC; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        sP[(rg * 4 + i) * PP + cg + 16 * j] = p;
-        sum += p;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      l[i] = l[i] * alpha + sum;
-      m[i] = m_new;
-#pragma unroll
-      for (int dd = 0; dd < DC; ++dd) acc[i][dd] *= alpha;
-    }
-    __syncthreads();
-
-#pragma unroll 2
-    for (int j = 0; j < BKV; j += 4) {
-      float4 pv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        pv[i] = *reinterpret_cast<const float4*>(sP + (rg * 4 + i) * PP + j);
-#pragma unroll
-      for (int dd = 0; dd < DC; ++dd) {
-        const float* vc = sV + j * D + cg + 16 * dd;
-        const float v0 = vc[0], v1 = vc[D], v2 = vc[2 * D], v3 = vc[3 * D];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          float a = acc[i][dd];
-          a = fmaf(pv[i].x, v0, a);
-          a = fmaf(pv[i].y, v1, a);
-          a = fmaf(pv[i].z, v2, a);
-          a = fmaf(pv[i].w, v3, a);
-          acc[i][dd] = a;
+              for (int e = 0; e < 4; ++e) {
+                const int key = k0 + 8 * j + 2 * t + e % 2;
+                const int q_pos = qp + 16 * mt + 8 * (e / 2);
+                bool keep = key < skv;
+                if (causal) keep = keep && key <= q_pos;
+                if (window > 0) keep = keep && key > q_pos - window;
+                sc[mt][j][e] = keep ? sc[mt][j][e] * scale2 : kNegInf2;
+              }
+            softmax_f32(sc[mt], 1.f, m[mt], l[mt], acc[mt]);
+          } else {
+            softmax_f32(sc[mt], scale2, m[mt], l[mt], acc[mt]);
+          }
         }
-      }
-    }
-  }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = rg * 4 + i;
-    if (row0 + r < sq) {
-      const float den = fmaxf(l[i], 1e-30f);
+        for (int j = 0; j < NS; ++j) {
+          // P's A fragments in the permuted key order: c0 c2 c1 c3
+          uint32_t ph[MT][4], pl[MT][4];
 #pragma unroll
-      for (int dd = 0; dd < DC; ++dd)
-        op[(long long)r * D + cg + 16 * dd] = acc[i][dd] / den;
+          for (int mt = 0; mt < MT; ++mt) {
+            tf32x3::split_fast(sc[mt][j][0], ph[mt][0], pl[mt][0]);
+            tf32x3::split_fast(sc[mt][j][2], ph[mt][1], pl[mt][1]);
+            tf32x3::split_fast(sc[mt][j][1], ph[mt][2], pl[mt][2]);
+            tf32x3::split_fast(sc[mt][j][3], ph[mt][3], pl[mt][3]);
+          }
+#pragma unroll
+          for (int n = 0; n < NO; ++n) {
+            uint32_t bh[2], bl[2];
+            load_v<P>(sV, 8 * j, 8 * n, lane, bh, bl);
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt)
+              tf32x3::mma3(acc[mt][n], ph[mt], pl[mt], bh, bl);
+          }
+        }
+      });
+
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    // l is a per-thread partial sum (alpha is the same on a row's 4 lanes)
+    float den[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float lr = l[mt][r];
+      lr += __shfl_xor_sync(0xffffffffu, lr, 1);
+      lr += __shfl_xor_sync(0xffffffffu, lr, 2);
+      den[r] = fmaxf(lr, 1e-30f);
+    }
+    const int r0 = row0 + wr + 16 * mt;   // the m16 tile's first q row
+    float* og = o + ((long long)(b * hq + h) * sq + r0) * D;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = g + 8 * r;
+      if (r0 + row < sq) {
+#pragma unroll
+        for (int n = 0; n < NO; ++n)
+          *reinterpret_cast<float2*>(og + (long long)row * D + 8 * n +
+                                     2 * t) =
+              make_float2(acc[mt][n][2 * r] / den[r],
+                          acc[mt][n][2 * r + 1] / den[r]);
+      }
     }
   }
 }
@@ -275,17 +401,17 @@ template <int D>
 int launch_f32(const void* q, const void* k, const void* v, void* o, int b,
                int hq, int hkv, int sq, int skv, int causal, int window,
                float scale, cudaStream_t stream) {
-  const auto kern = flash_attention_f32<D>;
-  constexpr size_t bytes = Tile<D>::kBytes;
+  using C = F32<D>;
+  const auto kern = flash_attention_tf32x3<D>;
   // The shared-memory size is a constant of the instantiation: raise the
   // limit once, on the first launch, and keep its result for later ones.
   static const cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::kSmem);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((sq + kBQ - 1) / kBQ, hq, b);
-  kern<<<grid, kThreads, bytes, stream>>>(
+  const dim3 grid(hq, b, (sq + C::kBQ - 1) / C::kBQ);
+  kern<<<grid, C::kThreads, C::kSmem, stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (float*)o, hq, hkv,
-      sq, skv, causal, window, scale);
+      sq, skv, causal, window, scale * kLog2e);
   return (int)cudaGetLastError();
 }
 
@@ -388,12 +514,6 @@ template <int N>
 __device__ __forceinline__ void reg_fence(uint32_t (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
 }
 
 #define WG_R32 \
@@ -773,8 +893,9 @@ int launch_d(const void* q, const void* k, const void* v, void* o, int b,
 
 // o (b, hq, sq, d) = attention of q (b, hq, sq, d) over k, v
 // (b, hkv, skv, d), all contiguous device arrays of one type: bf16 when
-// is_bf16 (the tensor-core route; every base 16-byte aligned, as TMA
-// needs), else float32 (the CUDA-core route). hq % hkv == 0, sq <= skv,
+// is_bf16 (the wgmma route; every base 16-byte aligned, as TMA needs),
+// else float32 (the 3xTF32 route; 16-byte aligned bases for its cp.async
+// copies, which the wrapper checks for both types). hq % hkv == 0, sq <= skv,
 // d in {64, 80, 128, 256} (checked by the wrapper); scale = d^-1/2.
 // Returns the CUDA error code of the launch (0 on success).
 extern "C" int flash_attention_launch(const void* q, const void* k,
@@ -795,13 +916,13 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
 extern "C" int flash_attention_smem(int d, int is_bf16) {
   switch (d) {
     case 64:
-      return (int)(is_bf16 ? Wg<64>::kSmem : Tile<64>::kBytes);
+      return (int)(is_bf16 ? Wg<64>::kSmem : F32<64>::kSmem);
     case 80:
-      return (int)(is_bf16 ? Wg<80>::kSmem : Tile<80>::kBytes);
+      return (int)(is_bf16 ? Wg<80>::kSmem : F32<80>::kSmem);
     case 128:
-      return (int)(is_bf16 ? Wg<128>::kSmem : Tile<128>::kBytes);
+      return (int)(is_bf16 ? Wg<128>::kSmem : F32<128>::kSmem);
     case 256:
-      return (int)(is_bf16 ? Wg<256>::kSmem : Tile<256>::kBytes);
+      return (int)(is_bf16 ? Wg<256>::kSmem : F32<256>::kSmem);
     default:
       return -1;
   }

@@ -1,6 +1,7 @@
 // The float32-exact tensor-core step shared by the block-masked matmul
-// (masked_matmul.cu), the materialized tiled GEMM (spconv_gemm.cu) and the
-// output-stationary gather-GEMM (spconv_gemm_fused.cu), plus the cp.async
+// (masked_matmul.cu), the materialized tiled GEMM (spconv_gemm.cu), the
+// output-stationary gather-GEMM (spconv_gemm_fused.cu) and the float32
+// route of flash attention (flash_attention.cu), plus the cp.async
 // helpers and the staged ring that feed it. The first two run the same
 // 128 x 128 CTA tile: 8 warps, each a 64 x 32 block (warp_tile below), over
 // a kStages ring of 32-deep steps (ring, stage_b, store_tile below).

@@ -1,10 +1,10 @@
 """Wrapper of the CUDA flash-attention kernel (csrc/flash_attention.cu).
 
 :func:`flash_attention` checks its inputs, then launches the hand-written
-kernel on CUDA tensors (bf16 on the tensor cores, float32 on the CUDA
-cores: two routes of one source), or runs the plain version (ref.py) on
-CPU tensors. There is no fallback: a CUDA input launches the kernel or
-raises.
+kernel on CUDA tensors (two routes of one source, both on the tensor
+cores: bf16 through ``wgmma``, float32 as split-precision 3xTF32
+``mma.sync``), or runs the plain version (ref.py) on CPU tensors. There is
+no fallback: a CUDA input launches the kernel or raises.
 ``launches`` counts kernel launches.
 """
 from __future__ import annotations

@@ -820,6 +820,37 @@ _FLASH_EDGES = (
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel_vs_plain(cuda, b, hq, hkv, sq, skv, d,
                                          causal, window, dtype):
+    _check_flash(cuda, b, hq, hkv, sq, skv, d, causal, window, dtype)
+
+
+def _f32_blocks(d):
+    """(q rows, keys) of a block of the float32 route at head dim d."""
+    return (64, 32) if d == 256 else (128, 64)
+
+
+# the float32 route's blocks: a q block of warps of 16 rows, and KV tiles
+# (_f32_blocks); each size one below, at and one above, at every D
+_FLASH_F32_EDGES = (
+    [(1, 4, 2, s, s, d, True, 0) for d in fa_kernel.HEAD_DIMS
+     for s in sorted({15, 16, 17} | {n + e for n in _f32_blocks(d)
+                                      for e in (-1, 0, 1)})]
+    + [(1, 4, 2, 200, 200, d, True, 1) for d in fa_kernel.HEAD_DIMS]
+    # Sq < Skv: the leading KV blocks outside the band, and tiles that
+    # some warps of the q block see and others skip
+    + [(1, 4, 2, 128, 300, d, True, 20) for d in fa_kernel.HEAD_DIMS]
+    + [(2, 8, 2, 100, 333, d, True, 0) for d in fa_kernel.HEAD_DIMS]
+    + [(1, 4, 4, 33, 97, d, False, 0) for d in fa_kernel.HEAD_DIMS])
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d,causal,window",
+                         _FLASH_F32_EDGES)
+def test_flash_attention_f32_route_edges(cuda, b, hq, hkv, sq, skv, d,
+                                         causal, window):
+    _check_flash(cuda, b, hq, hkv, sq, skv, d, causal, window,
+                 torch.float32)
+
+
+def _check_flash(cuda, b, hq, hkv, sq, skv, d, causal, window, dtype):
     g = torch.Generator(device=cuda).manual_seed(sq + skv + d)
     q = torch.randn((b, hq, sq, d), generator=g, device=cuda).to(dtype)
     k = torch.randn((b, hkv, skv, d), generator=g, device=cuda).to(dtype)
