@@ -12,7 +12,8 @@ execution path of the port at MinkUNet-large's full published widths and
 depth (seeded random weights), on a 65,536-voxel bucket, SECOND-large
 on two LiDAR scans in a 131,072-row bucket, then the dense-decoder
 serving path at TinyLlama-1.1B's and the MoE decoder at Mixtral-8x7B's
-(depth cut to 8 layers), and decoder-LM training:
+(depth cut to 8 layers), decoder-LM training, and the Mamba2,
+RecurrentGemma, HuBERT and LLaVA families served and trained:
 
 * ``octent_query`` and ``spconv_gemm_fused`` (both modes): each kernel
   against its plain PyTorch version at the shapes the serving path gives
@@ -159,6 +160,29 @@ serving path at TinyLlama-1.1B's and the MoE decoder at Mixtral-8x7B's
   gradients through the kernel against the plain version; Mixtral-8x7B
   at 2 of 32 layers trained 2 steps (finite, the router's gradient
   nonzero);
+* ``mamba2``: Mamba2-2.7B at full width and depth (64 layers, bf16)
+  served through ``generate`` (4 x 512 prompts for 32 tokens, a 700-token
+  prompt that is not a multiple of the 256-token chunk, a 2-token prompt
+  decoded 4 steps), the first decode step against the teacher-forced
+  prefill in bf16 and float32, and 2 training steps (finite losses, the
+  first moments of ``A_log``, ``dt_bias``, ``D_skip`` nonzero); no kernel
+  launch: the SSD scan is plain PyTorch, as the reference's is XLA;
+* ``rglru``: RecurrentGemma-2B at full width and depth (26 layers, bf16)
+  served over 4 x 512 prompts and one 3,072-token prompt past its
+  2,048-token window, one kernel-5 launch a group a prefill (D 256, MQA),
+  the kernel prefill against the plain one in bf16 and float32, decode
+  against the teacher-forced prefill, 2 training steps (16 launches a
+  step);
+* ``hubert``: HuBERT-XLarge at full width and depth (48 layers, bf16):
+  ``encode`` of 4 x 1,024 frames (48 non-causal launches at D 80), kernel
+  against plain in bf16 and float32, 2 ``masked_prediction_loss`` steps
+  on ``FrameStream``'s float32 frames (the float32 route, as the
+  reference promotes);
+* ``llava``: LLaVA-NeXT (Mistral-7B) at full width and depth (32 layers,
+  bf16) served over 2 x (2,880 bf16 patch embeddings + 512 tokens), 32
+  launches a prefill over 3,392 positions, kernel against plain and
+  decode against the teacher-forced prefill; 2 training steps at 4 of
+  its 32 layers on the VLM stream's float32 patches;
 * ``moe_ragged``: kernel 3 on the router's rulebook
   (``examples/moe_ragged_torch.py``) at the example's sizes and at one
   Mixtral-8x7B ``w_gate`` product, against the dense per-expert loop and
@@ -221,6 +245,14 @@ PEAK_BF16_FLOPS = 989e12       # bf16 on the tensor cores, float32 sum
 TOL_FLASH = {"bfloat16": (2.0 ** -7, 2e-3), "float32": (2e-5, 2e-5)}
 TOL_LM_BF16 = 2e-2             # x max|logit|: the reference's prefill/decode
 TOL_LM_F32 = 1e-3              # x max|logit|: f32 order through 22 layers
+# the families' bf16 gate: the kernel (decode) side's distance to the
+# float32 function of the same weights, over the plain (teacher-forced)
+# side's. Each bf16 side rounds on its own path, so at full depth the two
+# distances differ by their rounding alone (0.83-1.22 on an H100), while
+# bf16 rounding itself moves either side 1-6 % of max |logit| off the
+# float32 function, past the 2e-2 that phase lm_reference holds at 22
+# layers
+TOL_BF16_RATIO = 1.5
 # a training step, kernels against plain versions: 3xTF32 through 25
 # layers, then training BatchNorm, so wider than the forward's 1e-3. The
 # gradients are held with the plain run's ReLU masks pinned to the kernel
@@ -297,6 +329,20 @@ TOL_LM_TRAIN_GRAD = 1e-3       # |g_kernel - g_plain| / |g_plain|, each
 # run_lm's against the same steps outside the runner (relative; set after
 # the first reading, 2.0e-4 and 0 at step 3)
 TOL_LM_TRAIN_PATH = 1e-3
+# the families of phases mamba2, rglru, hubert and llava, each at its full
+# published width and depth (LLaVA's training at LLAVA_TRAIN_LAYERS)
+MAMBA2_ARCH, MAMBA2_BATCH, MAMBA2_PROMPT, MAMBA2_GEN = "mamba2-2.7b", 4, 512, 32
+MAMBA2_ODD_PROMPT, MAMBA2_ODD_GEN = 700, 16      # not a multiple of 256
+MAMBA2_TRAIN_BATCH, MAMBA2_TRAIN_STEPS = 2, 2
+RGLRU_ARCH, RGLRU_BATCH, RGLRU_PROMPT, RGLRU_GEN = ("recurrentgemma-2b", 4,
+                                                    512, 32)
+RGLRU_LONG_PROMPT, RGLRU_LONG_GEN = 3072, 16     # past the 2,048 window
+RGLRU_TRAIN_BATCH, RGLRU_TRAIN_STEPS = 2, 2
+HUBERT_ARCH, HUBERT_BATCH, HUBERT_SEQ = "hubert-xlarge", 4, 1024
+HUBERT_TRAIN_BATCH, HUBERT_TRAIN_STEPS = 2, 2
+LLAVA_ARCH, LLAVA_BATCH, LLAVA_PROMPT, LLAVA_GEN = ("llava-next-mistral-7b",
+                                                    2, 512, 32)
+LLAVA_TRAIN_LAYERS, LLAVA_TRAIN_BATCH, LLAVA_TRAIN_STEPS = 4, 1, 2
 # phase moe_ragged: (tokens, d, f, experts, top-k, bm) of one Mixtral-8x7B
 # w_gate product (the example's own sizes are its constants)
 MOE_RAGGED = (2048, 4096, 14336, 8, 2, 128)
@@ -1243,14 +1289,14 @@ def _profile_lm(model, params, batch, max_ctx, stats):
     unprofiled times of the served run."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    tokens = torch.as_tensor(batch["tokens"], device=model.device)
-    logits, cache = model.prefill(params, {"tokens": tokens}, max_ctx)
+    batch = {k: torch.as_tensor(v, device=model.device)
+             for k, v in batch.items()}
+    logits, cache = model.prefill(params, batch, max_ctx)
     tok = logits.argmax(-1)[:, None].int()
     torch.cuda.synchronize()
     out = {}
     for label, fn, wall_ms in (
-            ("prefill", lambda: model.prefill(params, {"tokens": tokens},
-                                              max_ctx),
+            ("prefill", lambda: model.prefill(params, batch, max_ctx),
              stats["prefill_s"] * 1e3),
             ("decode_step", lambda: model.decode_step(params, cache, tok),
              stats["decode_s_per_tok"] * 1e3)):
@@ -1695,6 +1741,468 @@ def phase_lm_train(dev):
     del state, model
     torch.cuda.empty_cache()
     return out
+
+
+def _family_model(arch, dev):
+    """``(cfg, model, params)``: ``arch``'s full config built on the card,
+    weights seeded SEED."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    cfg = get_config(arch)
+    model = api.build_model(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED))
+    return cfg, model, params
+
+
+def _served(dev, model, params, batch, gen, label, want_launches):
+    """One ``generate`` of ``batch`` for ``gen`` tokens with the flash
+    count set to 0 just before and read just after: its times, launches
+    and first tokens, after the launches, the non-finite stops and the
+    tokens' range are checked."""
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.launch import serve
+    n_b, s = batch["tokens"].shape
+    extra = batch["patches"].shape[1] if "patches" in batch else 0
+    fa_kernel.launches = 0
+    toks, stats = serve.generate(model, params, batch,
+                                 max_context=extra + s + gen, n_steps=gen,
+                                 device=dev)
+    n = fa_kernel.launches
+    check(n == want_launches, f"{label}: one prefill launched "
+                              f"flash_attention {n} times, want "
+                              f"{want_launches}")
+    check(stats["nonfinite_stops"] == 0,
+          f"{label}: {stats['nonfinite_stops']} sequences went non-finite")
+    check(tuple(toks.shape) == (n_b, gen)
+          and bool(((toks >= 0) & (toks < model.cfg.vocab)).all()),
+          f"{label}: tokens {tuple(toks.shape)} out of range")
+    wall = stats["prefill_s"] + stats["decode_s_per_tok"] * (gen - 1)
+    return {"batch": n_b, "prompt_len": s, "patches": extra,
+            "generated": gen, "prefill_ms": stats["prefill_s"] * 1e3,
+            "decode_ms_per_token": stats["decode_s_per_tok"] * 1e3,
+            "generated_tokens_per_s": n_b * gen / wall,
+            "prefill_tokens_per_s": n_b * (extra + s) / stats["prefill_s"],
+            "flash_launches_per_prefill": n,
+            "first_tokens": toks[0, :8].tolist()}
+
+
+def _device_batch(dev, batch):
+    import torch
+    return {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+
+
+def _upcast(model, params):
+    """``(model32, params32)``: the model's functions in float32 over its
+    (bf16) weights cast exactly to float32, the function a bf16 run
+    rounds."""
+    from repro_torch.models import api, common
+    m32 = api.build_model(dataclasses.replace(model.cfg, dtype="float32"),
+                          device=model.device)
+    flat = common.ParamTree(params).state_dict()
+    return m32, m32.nest({k: v.float() for k, v in flat.items()})
+
+
+def _as_f32(batch):
+    return {k: v.float() if v.is_floating_point() else v
+            for k, v in batch.items()}
+
+
+def _bf16_gate(label, got, want, exact):
+    """The families' bf16 gate: ``got`` (the kernel's or the decode's
+    values) no farther from ``exact``, the same function in float32 over
+    the same weights cast exactly, than TOL_BF16_RATIO x ``want``'s (the
+    plain or the teacher-forced side's) distance, each a share of max
+    |exact|. ``vs_plain``, |got - want| over max |want|, is printed and
+    not gated. The gate, checked."""
+    exact = exact.float()
+    scale = exact.abs().max().item()
+    e_got = (got.float() - exact).abs().max().item() / scale
+    e_want = (want.float() - exact).abs().max().item() / scale
+    g = {"got_rel": e_got, "want_rel": e_want,
+         "ratio": e_got / e_want if e_want else None,
+         "vs_plain": (got.float() - want.float()).abs().max().item()
+         / want.float().abs().max().item(),
+         "tolerance": f"got_rel <= {TOL_BF16_RATIO} * want_rel",
+         "ok": e_got <= TOL_BF16_RATIO * e_want}
+    check(g["ok"], f"{label}: {g}")
+    return g
+
+
+def _f32_gate(label, got, want):
+    g = _logit_gate(label, got, want, TOL_LM_F32)
+    check(g["ok"], f"{label}: {g}")
+    return g
+
+
+def _decode_gates(model, params, exact, batch, label, steps=1):
+    """Decode ``steps`` greedy tokens after the prefill of ``batch`` in
+    bf16 and, on the same tokens, in ``exact`` (the model's ``_upcast``),
+    each step's logits held against a teacher-forced prefill of the prompt
+    and the tokens so far: float32 at TOL_LM_F32 x max |logit|, bf16 by
+    ``_bf16_gate`` against the float32 teacher-forced prefill. The gates,
+    checked: ``{"bf16": ..., "f32": ...}``, a list of ``steps`` each where
+    ``steps`` > 1."""
+    import torch
+    m32, p32 = exact
+    b = _device_batch(model.device, batch)
+    extra = b["patches"].shape[1] if "patches" in b else 0
+    mc = extra + b["tokens"].shape[1] + steps
+    logits, cache = model.prefill(params, b, mc)
+    _, c32 = m32.prefill(p32, _as_f32(b), mc)
+    gates = {"bf16": [], "f32": []}
+    for i in range(steps):
+        nxt = logits.reshape(logits.shape[0], -1).float().argmax(-1)[
+            :, None].int()
+        b["tokens"] = torch.cat([b["tokens"], nxt.to(b["tokens"].dtype)], 1)
+        logits, cache = model.decode_step(params, cache, nxt)
+        l32, c32 = m32.decode_step(p32, c32, nxt)
+        full = model.prefill(params, b, mc)[0]
+        full32 = m32.prefill(p32, _as_f32(b), mc)[0]
+        what = f"{label} decode step {i} vs teacher-forced prefill"
+        gates["f32"].append(_f32_gate(f"{what}, float32", l32[:, 0],
+                                      full32))
+        gates["bf16"].append(_bf16_gate(f"{what}, bf16", logits[:, 0], full,
+                                        full32))
+        del full, full32
+    return gates if steps > 1 else {k: v[0] for k, v in gates.items()}
+
+
+def _impl_gates(model, params, exact, batch, label):
+    """The kernel prefill (the encoder's encode) against ``impl="ref"`` on
+    the same inputs, in bf16 and in ``exact`` (the model's ``_upcast``, on
+    the inputs cast exactly): float32 at TOL_LM_F32 x max |value|, bf16 by
+    ``_bf16_gate`` against the float32 plain prefill. The gates, checked:
+    ``{"bf16": ..., "f32": ...}``."""
+    m32, p32 = exact
+    b = _device_batch(model.device, batch)
+    extra = b["patches"].shape[1] if "patches" in b else 0
+    mc = extra + b["tokens"].shape[1] + 1 if "tokens" in b else 0
+
+    def run(m, p, inputs, impl):
+        out = m.prefill(p, inputs, mc, impl=impl)
+        return out[0] if isinstance(out, tuple) else out
+
+    want32 = run(m32, p32, _as_f32(b), "ref")
+    g32 = _f32_gate(f"{label} kernel vs plain, float32",
+                    run(m32, p32, _as_f32(b), "kernel"), want32)
+    return {"bf16": _bf16_gate(f"{label} kernel vs plain, bf16",
+                               run(model, params, b, "kernel"),
+                               run(model, params, b, "ref"), want32),
+            "f32": g32}
+
+
+def _train_steps(model, stream, steps, label, want_launches):
+    """``steps`` steps of ``make_train_step`` from a state seeded SEED on
+    ``stream``'s batches, with the flash count set to 0 just before and
+    read just after (``want_launches`` a step); finite losses checked.
+    Returns (final state, per-step metrics, timings, launches)."""
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.launch import train
+    from repro_torch.optim import adamw
+    state = train.init_state(model, seed=SEED)
+    timings = []
+    step = train.make_train_step(
+        model, adamw.AdamWConfig(lr=LM_TRAIN_LR, total_steps=steps,
+                                 warmup_steps=5), timings=timings)
+    metrics = []
+    fa_kernel.launches = 0
+    for i in range(steps):
+        state, m = step(state, stream.batch_at(i))
+        metrics.append({k: v.item() for k, v in m.items()})
+    torch.cuda.synchronize()
+    launches = fa_kernel.launches
+    check(launches == want_launches * steps,
+          f"{label} training: {launches} flash launches in {steps} steps, "
+          f"want {want_launches} a step")
+    check(all(np.isfinite(m["loss"]) for m in metrics),
+          f"{label} training: losses {[m['loss'] for m in metrics]}")
+    return state, metrics, timings, launches
+
+
+def _free():
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_mamba2(dev):
+    """Mamba2-2.7B at full width and depth (64 layers, bf16, seeded): no
+    kernel of the port runs (the SSD scan is plain PyTorch, as the
+    reference's is XLA), so the flash count must stay 0. ``generate`` of
+    MAMBA2_BATCH x MAMBA2_PROMPT tokens for MAMBA2_GEN after one warm-up,
+    and of one MAMBA2_ODD_PROMPT-token prompt (not a multiple of the
+    256-token chunk); for both and for a 2-token prompt (shorter than the
+    conv window, which the reference's cache cannot decode; 4 steps), the
+    decode steps against the teacher-forced prefill in bf16
+    (``_bf16_gate``) and on the weights cast to float32 (TOL_LM_F32,
+    ``_decode_gates``); then MAMBA2_TRAIN_STEPS
+    ``make_train_step`` steps of 2 x 512 tokens of ``TokenStream(seed 0)``
+    (no checkpoint): finite losses and AdamW's first moments of every
+    layer's ``A_log``, ``dt_bias`` and ``D_skip`` nonzero."""
+    import torch
+    from repro_torch.launch import serve, train
+    from repro_torch.models import api
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, model, params = _family_model(MAMBA2_ARCH, dev)
+    weights_gb = torch.cuda.memory_allocated() / 1e9
+    rng = np.random.default_rng(SEED)
+    batch = {"tokens": rng.integers(0, cfg.vocab,
+                                    (MAMBA2_BATCH, MAMBA2_PROMPT))}
+    odd = {"tokens": rng.integers(0, cfg.vocab, (1, MAMBA2_ODD_PROMPT))}
+    short = {"tokens": rng.integers(0, cfg.vocab, (MAMBA2_BATCH, 2))}
+    serve.generate(model, params, batch, max_context=MAMBA2_PROMPT + 2,
+                   n_steps=2, device=dev)              # warm-up
+    runs = {"batch": _served(dev, model, params, batch, MAMBA2_GEN,
+                             "mamba2 batch", 0),
+            "odd": _served(dev, model, params, odd, MAMBA2_ODD_GEN,
+                           "mamba2 odd prompt", 0)}
+    prof = _profile_lm(model, params, batch, MAMBA2_PROMPT + MAMBA2_GEN, {
+        "prefill_s": runs["batch"]["prefill_ms"] / 1e3,
+        "decode_s_per_tok": runs["batch"]["decode_ms_per_token"] / 1e3})
+    exact = _upcast(model, params)
+    gates = {"decode_vs_prefill": _decode_gates(
+                 model, params, exact, batch, "mamba2"),
+             "odd_decode_vs_prefill": _decode_gates(
+                 model, params, exact, odd, "mamba2 odd prompt"),
+             "short_prompt_decode": _decode_gates(
+                 model, params, exact, short, "mamba2 2-token prompt",
+                 steps=4)}
+    serve_peak = torch.cuda.max_memory_allocated() / 1e9
+    del params, model, exact
+    _free()
+    model = api.build_model(cfg, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    stream = train.make_stream(cfg, MAMBA2_TRAIN_BATCH, LM_TRAIN_SEQ,
+                               seed=SEED)
+    state, metrics, timings, _ = _train_steps(model, stream,
+                                              MAMBA2_TRAIN_STEPS, "mamba2", 0)
+    moments = {key: min(state[1]["m"][f"layers.{i}.{key}"].abs().max().item()
+                        for i in range(cfg.n_layers))
+               for key in ("A_log", "dt_bias", "D_skip")}
+    check(all(v > 0 for v in moments.values()),
+          f"mamba2 training: a zero first moment {moments}")
+    emit(phase="mamba2", config=cfg.name, dtype=cfg.dtype,
+         layers=cfg.n_layers, weights_gb=weights_gb,
+         serve_peak_mem_gb=serve_peak, runs=runs, profile=prof,
+         flash_launches=0, **gates,
+         train={"batch": MAMBA2_TRAIN_BATCH, "seq": LM_TRAIN_SEQ,
+                "metrics": metrics, "step_ms": timings,
+                "min_first_moment": moments,
+                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9},
+         seconds=time.perf_counter() - t0)
+    del state
+    _free()
+
+
+def phase_rglru(dev):
+    """RecurrentGemma-2B at full width and depth (26 layers: 8 (rec, rec,
+    attn) groups and 2 tail layers; bf16, seeded): ``generate`` of
+    RGLRU_BATCH x RGLRU_PROMPT tokens for RGLRU_GEN after one warm-up,
+    and of one RGLRU_LONG_PROMPT-token prompt for RGLRU_LONG_GEN, past the
+    2,048-token local window (the kernel's window and the rolling cache on
+    the path), each with the flash count set to 0 just before and read
+    just after: one launch a group a prefill (D 256, MQA 10/1). Gates, for
+    both requests, in bf16 (``_bf16_gate``) and on the weights cast to
+    float32 (TOL_LM_F32): the kernel prefill against ``impl="ref"``
+    (``_impl_gates``; the long one masks keys by the window) and the first
+    decode step against the teacher-forced prefill (``_decode_gates``).
+    Then RGLRU_TRAIN_STEPS steps of 2 x 512 tokens: finite losses, 2 launches a
+    group a step under remat ``full``. Returns the launches a prefill and
+    a training step."""
+    import torch
+    from repro_torch.launch import serve, train
+    from repro_torch.models import api
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, model, params = _family_model(RGLRU_ARCH, dev)
+    n_groups = cfg.n_layers // 3
+    weights_gb = torch.cuda.memory_allocated() / 1e9
+    rng = np.random.default_rng(SEED)
+    batch = {"tokens": rng.integers(0, cfg.vocab,
+                                    (RGLRU_BATCH, RGLRU_PROMPT))}
+    long = {"tokens": rng.integers(0, cfg.vocab, (1, RGLRU_LONG_PROMPT))}
+    serve.generate(model, params, batch, max_context=RGLRU_PROMPT + 2,
+                   n_steps=2, device=dev)              # warm-up
+    runs = {"batch": _served(dev, model, params, batch, RGLRU_GEN,
+                             "rglru batch", n_groups),
+            "long": _served(dev, model, params, long, RGLRU_LONG_GEN,
+                            "rglru long prompt", n_groups)}
+    prof = _profile_lm(model, params, batch, RGLRU_PROMPT + RGLRU_GEN, {
+        "prefill_s": runs["batch"]["prefill_ms"] / 1e3,
+        "decode_s_per_tok": runs["batch"]["decode_ms_per_token"] / 1e3})
+    exact = _upcast(model, params)
+    gates = {"prefill": _impl_gates(model, params, exact, batch, "rglru"),
+             "long_prefill": _impl_gates(model, params, exact, long,
+                                         "rglru long prompt"),
+             "decode_vs_prefill": _decode_gates(model, params, exact, batch,
+                                                "rglru"),
+             "long_decode_vs_prefill": _decode_gates(
+                 model, params, exact, long, "rglru long prompt")}
+    serve_peak = torch.cuda.max_memory_allocated() / 1e9
+    del params, model, exact
+    _free()
+    model = api.build_model(cfg, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    stream = train.make_stream(cfg, RGLRU_TRAIN_BATCH, LM_TRAIN_SEQ,
+                               seed=SEED)
+    state, metrics, timings, launches = _train_steps(
+        model, stream, RGLRU_TRAIN_STEPS, "rglru", 2 * n_groups)
+    emit(phase="rglru", config=cfg.name, dtype=cfg.dtype,
+         layers=cfg.n_layers, groups=n_groups, weights_gb=weights_gb,
+         serve_peak_mem_gb=serve_peak, runs=runs, profile=prof, **gates,
+         train={"batch": RGLRU_TRAIN_BATCH, "seq": LM_TRAIN_SEQ,
+                "metrics": metrics, "step_ms": timings,
+                "flash_launches": launches,
+                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9},
+         seconds=time.perf_counter() - t0)
+    del state
+    _free()
+    return {"prefill": n_groups, "train_step": launches // RGLRU_TRAIN_STEPS}
+
+
+def phase_hubert(dev):
+    """HuBERT-XLarge at full width and depth (48 layers, bf16, seeded):
+    ``encode`` of HUBERT_BATCH x HUBERT_SEQ bf16 frames once to warm up,
+    then timed with the flash count set to 0 just before and read just
+    after (one non-causal launch a layer, D 80); the kernel encode against
+    ``impl="ref"`` (``_bf16_gate`` over max |h|) and, on the weights and
+    frames cast to float32, TOL_LM_F32 (``_impl_gates``). Then
+    HUBERT_TRAIN_STEPS
+    ``masked_prediction_loss`` steps of 2 x HUBERT_SEQ frames of
+    ``FrameStream(seed 0)``, whose float32 frames compute in float32 (the
+    kernel's float32 route), as the reference's type promotion does:
+    finite losses, 2 launches a layer a step. Returns the launches an
+    encode and a training step."""
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.launch import train
+    from repro_torch.models import api, encoder
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, model, params = _family_model(HUBERT_ARCH, dev)
+    weights_gb = torch.cuda.memory_allocated() / 1e9
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    f16 = torch.randn((HUBERT_BATCH, HUBERT_SEQ, cfg.frontend_dim),
+                      generator=gen, device=dev).to(torch.bfloat16)
+    with torch.no_grad():
+        encoder.encode(params, f16, cfg)               # warm-up
+        torch.cuda.synchronize()
+        fa_kernel.launches = 0
+        t1 = time.perf_counter()
+        h = encoder.encode(params, f16, cfg)
+        torch.cuda.synchronize()
+        encode_ms = (time.perf_counter() - t1) * 1e3
+    launches = fa_kernel.launches
+    check(launches == cfg.n_layers, f"hubert: one encode launched "
+                                    f"flash_attention {launches} times, "
+                                    f"want {cfg.n_layers}")
+    check(tuple(h.shape) == (HUBERT_BATCH, HUBERT_SEQ, cfg.d_model)
+          and h.dtype == torch.bfloat16 and bool(h.isfinite().all()),
+          f"hubert encode: {tuple(h.shape)} {h.dtype}")
+    del h
+    exact = _upcast(model, params)
+    gates = {"encode": _impl_gates(model, params, exact, {"frames": f16},
+                                   "hubert")}
+    serve_peak = torch.cuda.max_memory_allocated() / 1e9
+    del params, model, exact, f16
+    _free()
+    model = api.build_model(cfg, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    stream = train.make_stream(cfg, HUBERT_TRAIN_BATCH, HUBERT_SEQ,
+                               seed=SEED)
+    state, metrics, timings, train_launches = _train_steps(
+        model, stream, HUBERT_TRAIN_STEPS, "hubert", 2 * cfg.n_layers)
+    emit(phase="hubert", config=cfg.name, dtype=cfg.dtype,
+         layers=cfg.n_layers, weights_gb=weights_gb, batch=HUBERT_BATCH,
+         seq=HUBERT_SEQ, encode_ms=encode_ms,
+         encode_frames_per_s=HUBERT_BATCH * HUBERT_SEQ / encode_ms * 1e3,
+         flash_launches_per_encode=launches, serve_peak_mem_gb=serve_peak,
+         **gates,
+         train={"batch": HUBERT_TRAIN_BATCH, "seq": HUBERT_SEQ,
+                "frames_dtype": "float32", "metrics": metrics,
+                "step_ms": timings, "flash_launches": train_launches,
+                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9},
+         seconds=time.perf_counter() - t0)
+    del state
+    _free()
+    return {"encode": launches,
+            "train_step": train_launches // HUBERT_TRAIN_STEPS}
+
+
+def phase_llava(dev):
+    """LLaVA-NeXT (Mistral-7B) at full width and depth (32 layers, bf16,
+    seeded): ``generate`` of LLAVA_BATCH x (n_patches bf16 patch
+    embeddings + LLAVA_PROMPT tokens) for LLAVA_GEN after one warm-up,
+    with the flash count set to 0 just before and read just after (one
+    launch a layer a prefill over 3,392 positions, D 128, GQA 32/8); the
+    kernel prefill against ``impl="ref"`` (``_impl_gates``) and the first
+    decode step against the teacher-forced prefill (``_decode_gates``), in
+    bf16 (``_bf16_gate``) and on the weights cast to float32
+    (TOL_LM_F32). Then, at
+    LLAVA_TRAIN_LAYERS of its 32 layers at full width, LLAVA_TRAIN_STEPS
+    steps of 1 x (n_patches + 512) from the VLM stream, whose float32
+    patches compute in float32 as the reference's do: finite losses, 2
+    launches a layer a step. Returns the launches a prefill and a step."""
+    import torch
+    from repro_torch.launch import serve, train
+    from repro_torch.models import api
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, model, params = _family_model(LLAVA_ARCH, dev)
+    weights_gb = torch.cuda.memory_allocated() / 1e9
+    rng = np.random.default_rng(SEED)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    batch = {"tokens": rng.integers(0, cfg.vocab,
+                                    (LLAVA_BATCH, LLAVA_PROMPT)),
+             "patches": torch.randn(
+                 (LLAVA_BATCH, cfg.n_patches, cfg.vision_dim),
+                 generator=gen, device=dev).to(torch.bfloat16)}
+    serve.generate(model, params, batch,
+                   max_context=cfg.n_patches + LLAVA_PROMPT + 2, n_steps=2,
+                   device=dev)                          # warm-up
+    runs = {"batch": _served(dev, model, params, batch, LLAVA_GEN,
+                             "llava", cfg.n_layers)}
+    prof = _profile_lm(model, params, batch,
+                       cfg.n_patches + LLAVA_PROMPT + LLAVA_GEN, {
+                           "prefill_s": runs["batch"]["prefill_ms"] / 1e3,
+                           "decode_s_per_tok":
+                               runs["batch"]["decode_ms_per_token"] / 1e3})
+    exact = _upcast(model, params)
+    gates = {"prefill": _impl_gates(model, params, exact, batch, "llava"),
+             "decode_vs_prefill": _decode_gates(model, params, exact, batch,
+                                                "llava")}
+    serve_peak = torch.cuda.max_memory_allocated() / 1e9
+    del params, model, batch, exact
+    _free()
+    tcfg = dataclasses.replace(cfg, n_layers=LLAVA_TRAIN_LAYERS)
+    model = api.build_model(tcfg, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    stream = train.make_stream(tcfg, LLAVA_TRAIN_BATCH, LLAVA_PROMPT,
+                               seed=SEED)
+    state, metrics, timings, launches = _train_steps(
+        model, stream, LLAVA_TRAIN_STEPS, "llava", 2 * tcfg.n_layers)
+    emit(phase="llava", config=cfg.name, dtype=cfg.dtype,
+         layers=cfg.n_layers, weights_gb=weights_gb,
+         serve_peak_mem_gb=serve_peak, runs=runs, profile=prof, **gates,
+         train={"layers": tcfg.n_layers,
+                "reduced": {"n_layers": [cfg.n_layers, tcfg.n_layers]},
+                "batch": LLAVA_TRAIN_BATCH,
+                "positions": cfg.n_patches + LLAVA_PROMPT - 1,
+                "patches_dtype": "float32", "metrics": metrics,
+                "step_ms": timings, "flash_launches": launches,
+                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9},
+         seconds=time.perf_counter() - t0)
+    del state, model
+    _free()
+    return {"prefill": cfg.n_layers,
+            "train_step": launches // LLAVA_TRAIN_STEPS}
 
 
 def _moe_ragged_example():
@@ -4072,6 +4580,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     moe_launches = phase_moe_serve(dev)
     train_launches = phase_lm_train(dev)
+    phase_mamba2(dev)
+    family_launches = {"recurrentgemma": phase_rglru(dev),
+                       "hubert": phase_hubert(dev),
+                       "llava": phase_llava(dev)}
     ragged, k3["moe_ragged_launches"] = phase_moe_ragged(dev)
     k3["moe_ragged"] = {name: {key: r[key] for key in (
         "ms", "plain_ms", "bound_ms", "bound_by", "bound_ms_f32_cores",
@@ -4098,6 +4610,7 @@ def main() -> int:
                   "share_of_bound": served_f32["share_of_bound"]},
           "moe_serve_launches": moe_launches,
           "lm_train_launches": train_launches,
+          "family_launches": family_launches,
           "timing": f"{n} launches of one {lm_cfg.name} prefill "
                     f"({LM_BATCH} x {LM_PROMPT} tokens, bf16), one per "
                     f"layer; max_abs_err over all shapes, bf16 and f32; "

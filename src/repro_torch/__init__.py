@@ -12,16 +12,19 @@ Hopper (``csrc/``) and built with ``nvcc`` at first use:
     ``apply_kmap`` baseline;
   * ``kernels/masked_matmul`` — the block-masked dense matmul (SPAC tile
     skipping on one GEMM);
-  * ``kernels/flash_attention`` — causal / sliding-window / GQA attention,
-    every prefill layer of the dense decoder LMs (``models/transformer``,
-    served by ``launch/serve``).
+  * ``kernels/flash_attention`` — causal / sliding-window / non-causal,
+    GQA / MQA attention: every attention layer of a prefill or a training
+    forward of the decoder LMs (``models/transformer``), RecurrentGemma
+    (``models/rglru``), the HuBERT encoder (``models/encoder``) and the
+    LLaVA VLM (``models/vlm``), served by ``launch/serve`` and trained by
+    ``launch/train``; Mamba2 (``models/mamba2``) runs none.
 
 ``plan.execute(impl="scan")`` runs a layer by the plain tap scan instead,
 the oracle the reference calls ``impl="xla"``.
 
 Importing this package never builds a kernel and never needs ``nvcc``.
-Entry points (``ServeEngine``, ``MinkUNet``, ``build_plans``, ``DecoderLM``,
-``build_model``, ``generate``) run on the card unless the caller passes
+Entry points (``ServeEngine``, ``MinkUNet``, ``build_plans``, ``DecoderLM``
+and the other families' modules, ``build_model``, ``generate``) run on the card unless the caller passes
 ``device="cpu"``; with no card they raise.
 """
 from repro_torch.device import resolve_device

@@ -3,7 +3,8 @@ the reference, each ``CONFIG`` a copy of the reference's."""
 from __future__ import annotations
 
 from repro_torch.configs import base
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import (SHAPE_CELLS, ModelConfig, ShapeCell,
+                                      cell_applicable)
 
 _MODULES = {
     "mixtral-8x22b": "mixtral_8x22b",
@@ -32,4 +33,5 @@ def get_config(name: str) -> ModelConfig:
     return mod.CONFIG
 
 
-__all__ = ["get_config", "list_archs", "ModelConfig", "base"]
+__all__ = ["get_config", "list_archs", "ModelConfig", "ShapeCell",
+           "SHAPE_CELLS", "cell_applicable", "base"]

@@ -1,8 +1,6 @@
-"""Architecture config schema, copied field for field from the reference.
-
-The shape cells of the dry-run grid (``SHAPE_CELLS``, ``cell_applicable``)
-come with the dry-run port.
-"""
+"""Architecture config schema and the shape cells of the model API
+(``ShapeCell``, ``SHAPE_CELLS``, ``cell_applicable``), copied field for
+field from the reference."""
 from __future__ import annotations
 
 import dataclasses
@@ -92,3 +90,30 @@ class ModelConfig:
             dtype="float32",
         )
         return dataclasses.replace(self, **repl)
+
+
+@dataclass(frozen=True)
+class ShapeCell:
+    """One assigned (arch x input-shape) benchmark cell."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                   # train | prefill | decode
+
+
+SHAPE_CELLS = {
+    "train_4k": ShapeCell("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeCell("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeCell("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeCell("long_500k", 524_288, 1, "decode"),
+}
+
+
+def cell_applicable(cfg: ModelConfig, cell: ShapeCell) -> tuple[bool, str]:
+    """Skip rules of the grid (recorded, not silently dropped)."""
+    if cell.kind == "decode" and not cfg.has_decode:
+        return False, "encoder-only arch has no decode step"
+    if cell.name == "long_500k" and not cfg.sub_quadratic:
+        return False, "full-attention arch: 500k decode needs sub-quadratic attention"
+    return True, ""

@@ -4,7 +4,7 @@ reference's ``src/repro/data/tokens.py``: its batches bit for bit.
 Every batch is a pure function of (seed, step), so checkpoint/restart
 reproduces the exact stream with no stored state. Tokens are
 Zipf-distributed with injected bigram structure so losses actually
-decrease. :class:`FrameStream` feeds the encoder family, not ported yet.
+decrease. :class:`FrameStream` feeds the encoder family (HuBERT).
 """
 from __future__ import annotations
 

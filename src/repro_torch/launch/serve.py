@@ -1,7 +1,8 @@
-"""Serving entry point for the dense decoder LMs: batched prefill, then
-greedy (or sampled) decoding against the KV cache.
+"""Serving entry point for the LMs of every family with a decode step
+(the decoders, Mamba2, RecurrentGemma and the LLaVA VLM): batched
+prefill, then greedy (or sampled) decoding against the cache.
 
-The prefill runs every layer's attention through the CUDA flash-attention
+The prefill runs every attention layer through the CUDA flash-attention
 kernel on the card; decode is plain PyTorch over the cache.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
@@ -20,6 +21,7 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.device import resolve_device
 from repro_torch.models import api
+from repro_torch.runtime import guard
 
 
 def _sync(dev: torch.device) -> None:
@@ -35,22 +37,24 @@ def generate(model: api.Model, params, batch: dict, *, max_context: int,
     """Prefill then decode ``n_steps`` tokens. Returns (tokens (B, n),
     stats).
 
-    ``batch["tokens"]`` (B, S) is an array or tensor; it is moved to
-    ``device`` (None: the card; raises without one), where ``params`` must
-    lie. A sequence whose logits go NaN/Inf stops decoding: its last good
-    token is frozen for the remaining steps. Stops are counted in
-    ``stats["nonfinite_stops"]``. The alive mask stays on the device, and
+    ``batch`` holds ``tokens`` (B, S) and the family's other inputs (the
+    VLM's ``patches``), arrays or tensors; each is moved to ``device``
+    (None: the card; raises without one), where ``params`` must lie. A
+    sequence whose logits go NaN/Inf stops decoding: its last good token
+    is frozen for the remaining steps. Stops are counted in
+    ``stats["nonfinite_stops"]`` and noted as ``serve.nonfinite_stops`` in
+    the guard's health counters. The alive mask stays on the device, and
     the loop syncs with the host once, at the end. ``generator`` draws the
     samples when ``greedy=False`` (None: a fresh one seeded 0).
     """
     dev = resolve_device(device)
     if not greedy and generator is None:
         generator = torch.Generator(dev).manual_seed(0)
-    tokens = torch.as_tensor(batch["tokens"], device=dev)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
 
     _sync(dev)
     t0 = time.perf_counter()
-    logits, cache = model.prefill(params, {"tokens": tokens}, max_context)
+    logits, cache = model.prefill(params, batch, max_context)
     _sync(dev)
     t_prefill = time.perf_counter() - t0
 
@@ -72,6 +76,8 @@ def generate(model: api.Model, params, batch: dict, *, max_context: int,
     _sync(dev)
     t_decode = time.perf_counter() - t0
     stops = int((~alive).sum())
+    if stops:
+        guard.health().note("serve.nonfinite_stops", stops)
     return torch.cat(out, dim=1), {
         "prefill_s": t_prefill,
         "decode_s_per_tok": t_decode / max(n_steps - 1, 1),
@@ -100,8 +106,11 @@ def main() -> None:
     rng = np.random.default_rng(0)
     batch = {"tokens": rng.integers(0, cfg.vocab, (args.batch,
                                                    args.prompt_len))}
-    toks, stats = generate(model, params, batch,
-                           max_context=args.prompt_len + args.gen,
+    if cfg.family == "vlm":
+        batch["patches"] = rng.standard_normal(
+            (args.batch, cfg.n_patches, cfg.vision_dim)).astype(np.float32)
+    max_ctx = args.prompt_len + args.gen + (cfg.n_patches or 0)
+    toks, stats = generate(model, params, batch, max_context=max_ctx,
                            n_steps=args.gen, device=dev)
     print(f"arch={cfg.name} device={dev} generated {tuple(toks.shape)} "
           f"tokens; prefill={stats['prefill_s']:.3f}s "

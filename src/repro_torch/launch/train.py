@@ -1,13 +1,14 @@
 """Training with the port's kernels, AdamW and checkpoint/restart: the
-decoder LMs (dense and MoE) and MinkUNet.
+model families of the API (the decoder LMs, dense and MoE, Mamba2,
+RecurrentGemma, the HuBERT encoder and the LLaVA VLM) and MinkUNet.
 
 :func:`make_train_step`, :func:`init_state` and :func:`make_stream` are
-the reference's LM step, state and data: the step is eager (there is no
-``jax.jit`` counterpart): ``lm_loss``, ``torch.autograd.grad`` over the
-parameters, then AdamW on the ``state_dict``. Its attention forward runs
-kernel 5 on the card; under the default remat mode each layer's forward
-is recomputed in the backward, so a step launches the kernel twice a
-layer.
+the reference's step, state and data: the step is eager (there is no
+``jax.jit`` counterpart): the family's loss, ``torch.autograd.grad`` over
+the parameters, then AdamW on the ``state_dict``. Its attention forward
+runs kernel 5 on the card; under the default remat mode each layer's (a
+RecurrentGemma group's) forward is recomputed in the backward, so a step
+launches the kernel twice an attention layer.
 
 MinkUNet steps run eagerly over prebuilt plans from a long-lived,
 content-keyed plan cache.
@@ -51,9 +52,9 @@ import torch
 from repro_torch.checkpoint import checkpoint
 from repro_torch.configs import get_config
 from repro_torch.core import plan as planlib
-from repro_torch.data.tokens import TokenStream
+from repro_torch.data.tokens import FrameStream, TokenStream
 from repro_torch.device import resolve_device
-from repro_torch.models import api, minkunet, transformer
+from repro_torch.models import api, minkunet
 from repro_torch.optim import adamw
 from repro_torch.runtime import fault as faultlib
 from repro_torch.runtime import feature_cache, guard, persist
@@ -77,16 +78,14 @@ def _sync(dev: torch.device) -> None:
 def lm_loss_and_grads(model: api.Model, params: dict, batch: dict, *,
                       impl: str = "kernel"):
     """``(loss, metrics, grads)`` of ``model.loss`` at ``params`` (a flat
-    :class:`~repro_torch.models.transformer.DecoderLM` ``state_dict``, not
-    modified) on ``batch`` (arrays or tensors: ``tokens``, optionally
-    ``loss_mask``, moved to the parameters' device); ``grads`` has the
-    keys of ``params``. ``impl`` goes to the attention (``"ref"``: the
-    plain version)."""
+    ``state_dict`` of ``model.module``, not modified) on ``batch`` (arrays
+    or tensors: the family's inputs, moved to the parameters' device);
+    ``grads`` has the keys of ``params``. ``impl`` goes to the attention
+    (``"ref"``: the plain version)."""
     dev = next(iter(params.values())).device
     batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
     leaves = {k: p.detach().requires_grad_() for k, p in params.items()}
-    loss, metrics = model.loss(transformer.nest_params(leaves), batch,
-                               impl=impl)
+    loss, metrics = model.loss(model.nest(leaves), batch, impl=impl)
     grads = torch.autograd.grad(loss, list(leaves.values()))
     return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
             dict(zip(leaves, grads)))
@@ -94,11 +93,11 @@ def lm_loss_and_grads(model: api.Model, params: dict, batch: dict, *,
 
 def make_train_step(model: api.Model, opt_cfg: adamw.AdamWConfig, *,
                     impl: str = "kernel", timings: list | None = None):
-    """``(state, batch) -> (state, metrics)`` of a decoder LM:
+    """``(state, batch) -> (state, metrics)`` of any model family:
     :func:`lm_loss_and_grads`, then AdamW.
 
     ``state`` is ``(params, opt_state)``: ``params`` a flat
-    ``DecoderLM`` ``state_dict`` and ``opt_state`` from
+    ``state_dict`` of ``model.module`` and ``opt_state`` from
     :func:`adamw.init`. The tensors of the old state are not modified.
     With ``timings`` (a list) it appends each step's forward+backward and
     optimizer ms (host clock around synchronized work).
@@ -125,24 +124,43 @@ def make_train_step(model: api.Model, opt_cfg: adamw.AdamWConfig, *,
 
 
 def init_state(model: api.Model, seed: int = 0):
-    """``(params, opt_state)``: the ``state_dict`` of a
-    :class:`~repro_torch.models.transformer.DecoderLM` drawn from a
-    generator on ``model.device`` seeded ``seed``, and zero AdamW
-    moments."""
-    lm = transformer.DecoderLM(
-        model.cfg, device=model.device,
-        generator=torch.Generator(model.device).manual_seed(seed))
-    params = dict(lm.state_dict())
+    """``(params, opt_state)``: the ``state_dict`` of ``model.module``
+    drawn from a generator on ``model.device`` seeded ``seed``, and zero
+    AdamW moments."""
+    module = model.module(torch.Generator(model.device).manual_seed(seed))
+    params = dict(module.state_dict())
     return params, adamw.init(params)
 
 
+class VLMStream:
+    """The reference's VLM batches: ``TokenStream``'s tokens plus float32
+    patch embeddings (B, n_patches, vision_dim) drawn from the seed
+    sequence ``[seed, step, 2]``."""
+
+    def __init__(self, cfg, batch: int, seq: int, seed: int = 0):
+        self.base = TokenStream(vocab=cfg.vocab, batch=batch, seq=seq,
+                                seed=seed)
+        self.shape = (batch, cfg.n_patches, cfg.vision_dim)
+        self.seed = seed
+
+    def batch_at(self, step: int) -> dict:
+        rng = np.random.default_rng(
+            np.random.SeedSequence([self.seed, step, 2]))
+        b = self.base.batch_at(step)
+        b["patches"] = rng.standard_normal(self.shape).astype(np.float32)
+        return b
+
+
 def make_stream(cfg, batch: int, seq: int, seed: int = 0):
-    """The reference's synthetic data of ``cfg``'s family: a
-    :class:`~repro_torch.data.tokens.TokenStream` for the decoders."""
-    if cfg.family in ("encoder", "vlm"):
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported yet "
-            f"(ROADMAP §1 item 5)")
+    """The reference's synthetic data of ``cfg``'s family, bit for bit:
+    :class:`~repro_torch.data.tokens.FrameStream` for the encoder,
+    :class:`VLMStream` for the VLM, a
+    :class:`~repro_torch.data.tokens.TokenStream` for the others."""
+    if cfg.family == "encoder":
+        return FrameStream(dim=cfg.frontend_dim, vocab=cfg.vocab,
+                           batch=batch, seq=seq, seed=seed)
+    if cfg.family == "vlm":
+        return VLMStream(cfg, batch, seq, seed)
     return TokenStream(vocab=cfg.vocab, batch=batch, seq=seq, seed=seed)
 
 
@@ -151,7 +169,7 @@ def run_lm(arch: str, *, steps: int, batch: int, seq: int, lr: float,
            full_config: bool = False, seed: int = 0,
            total_steps: int | None = None,
            device: str | torch.device | None = None) -> dict:
-    """Train decoder LM ``arch`` (its reduced config unless
+    """Train model ``arch`` of any family (its reduced config unless
     ``full_config``) for ``steps`` steps on ``make_stream``'s tokens under
     a :class:`~repro_torch.runtime.fault.TrainRunner`, resuming from the
     newest verified checkpoint in ``ckpt_dir`` (None: a temporary
@@ -397,8 +415,9 @@ def run_spconv_demo(steps: int = 2, *, voxels: int = 128,
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", required=True,
-                    help="minkunet or a decoder LM config (tinyllama-1.1b, "
-                         "mixtral-8x7b, ...)")
+                    help="minkunet or a model config (tinyllama-1.1b, "
+                         "mixtral-8x7b, mamba2-2.7b, recurrentgemma-2b, "
+                         "hubert-xlarge, llava-next-mistral-7b, ...)")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8,
                     help="LM sequences a step")

@@ -34,9 +34,9 @@ def init_attention(gen: torch.Generator, cfg, dtype) -> dict:
 def _qkv(params, x, cfg, positions):
     b, s, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
-    q = (x @ params["wq"]).reshape(b, s, h, hd)
-    k = (x @ params["wk"]).reshape(b, s, kv, hd)
-    v = (x @ params["wv"]).reshape(b, s, kv, hd)
+    q = common.dot(x, params["wq"]).reshape(b, s, h, hd)
+    k = common.dot(x, params["wk"]).reshape(b, s, kv, hd)
+    v = common.dot(x, params["wv"]).reshape(b, s, kv, hd)
     if cfg.qk_norm:
         q = common.rms_norm(q, params["q_norm"])
         k = common.rms_norm(k, params["k_norm"])
@@ -62,7 +62,7 @@ def attend_full(params, x, cfg, *, window: int | None = None,
         v.transpose(1, 2).contiguous(), causal=cfg.causal, window=w,
         impl=impl)
     o = o.transpose(1, 2).reshape(b, s, -1)
-    return o @ params["wo"], (k, v)
+    return common.dot(o, params["wo"]), (k, v)
 
 
 class KVCache(NamedTuple):

@@ -1,13 +1,32 @@
-"""Shared model building blocks: norms, activations, RoPE and the MLP.
+"""Shared model building blocks: norms, activations, RoPE and the MLP,
+and the parameter trees every family keeps.
 
 Parameters are plain tensors in nested dicts, keyed as in the reference.
 The reference's ``runtime.sharding.shard`` annotations have no counterpart
 on one card, so those calls are dropped.
+
+:class:`ParamTree` holds such a tree as an ``nn.Module`` whose
+``state_dict`` keys are its paths (a list's items under their index:
+``layers.3.attn.wq``); :func:`params_from_jax` builds that ``state_dict``
+from a reference tree and :func:`nest_params` turns one back into the
+nested dict. :data:`META` stands in for a generator to draw a tree's
+shapes on the ``meta`` device, where torch draws nothing.
 """
 from __future__ import annotations
 
+from collections.abc import Iterable, Mapping
+from types import SimpleNamespace
+
+import numpy as np
 import torch
 import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.device import resolve_device
+
+#: a stand-in for a ``torch.Generator``: :func:`normal` gives empty tensors
+#: on the ``meta`` device (torch's random functions take no generator there)
+META = SimpleNamespace(device=torch.device("meta"))
 
 
 def dtype_of(cfg) -> torch.dtype:
@@ -17,9 +36,37 @@ def dtype_of(cfg) -> torch.dtype:
 def normal(gen: torch.Generator, shape, std: float,
            dtype: torch.dtype) -> torch.Tensor:
     """Standard normal draws from ``gen`` on its device, in float32, times
-    ``std``, cast to ``dtype``."""
+    ``std``, cast to ``dtype`` (:data:`META`: an empty ``meta`` tensor)."""
+    if gen.device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     return (torch.randn(shape, generator=gen, device=gen.device,
                         dtype=torch.float32) * std).to(dtype)
+
+
+def generator_for(device, generator: torch.Generator | None):
+    """``(device, generator)`` of a model built on ``device`` (None: the
+    card; raises without one) from ``generator`` (None: a fresh one on the
+    device, seeded 0), which must lie on the device's type; :data:`META`
+    builds the model's shapes on the ``meta`` device, whatever
+    ``device``."""
+    if generator is META:
+        return META.device, META
+    dev = resolve_device(device)
+    gen = generator if generator is not None \
+        else torch.Generator(dev).manual_seed(0)
+    if gen.device.type != dev.type:
+        raise ValueError(f"generator on {gen.device}, model on {dev}")
+    return dev, gen
+
+
+def dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w``, a weight narrower than ``x`` cast up to ``x``'s dtype, as
+    the reference's type promotion computes a float32 input against bf16
+    weights (the encoder's frames, the VLM's patches)."""
+    if w.dtype != x.dtype and \
+            torch.promote_types(x.dtype, w.dtype) == x.dtype:
+        w = w.to(x.dtype)
+    return x @ w
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor,
@@ -103,9 +150,93 @@ def init_mlp(gen: torch.Generator, d: int, f: int, dtype,
 
 
 def mlp(params, x, act: str):
-    up = x @ params["w_up"]
+    up = dot(x, params["w_up"])
     if "w_gate" in params:
-        h = activation(x @ params["w_gate"], act) * up
+        h = activation(dot(x, params["w_gate"]), act) * up
     else:
         h = activation(up, act)
-    return h @ params["w_down"]
+    return dot(h, params["w_down"])
+
+
+# ---------------------------------------------------------------------------
+# parameter trees
+# ---------------------------------------------------------------------------
+
+class ParamTree(nn.Module):
+    """The tensors of a nested tree (dicts, lists of dicts, tensors) as
+    frozen parameters under their paths; :meth:`params` is the tree again,
+    sharing them."""
+
+    def __init__(self, tree: Mapping):
+        super().__init__()
+        for key, node in tree.items():
+            if isinstance(node, torch.Tensor):
+                self.register_parameter(
+                    key, nn.Parameter(node, requires_grad=False))
+            elif isinstance(node, list):
+                self.add_module(key, nn.ModuleList(ParamTree(n)
+                                                   for n in node))
+            else:
+                self.add_module(key, ParamTree(node))
+
+    def params(self) -> dict:
+        out: dict = dict(self._parameters)
+        for key, mod in self._modules.items():
+            out[key] = ([m.params() for m in mod]
+                        if isinstance(mod, nn.ModuleList) else mod.params())
+        return out
+
+
+def params_from_jax(tree: Mapping, stacked: Iterable[str] = ("layers",)
+                    ) -> dict[str, torch.Tensor]:
+    """The ``state_dict`` of a reference parameter tree (mapped through
+    ``np.asarray``): the leading axis of each top-level key in ``stacked``
+    is split into ``<key>.<i>``, and a list's items go under their index.
+    Values are float32; ``load_state_dict`` casts them to the model's
+    dtypes."""
+    out: dict[str, torch.Tensor] = {}
+    stacked = set(stacked)
+
+    def walk(prefix, node, split):
+        if isinstance(node, Mapping):
+            for k, v in node.items():
+                walk(f"{prefix}{k}.", v, split)
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                walk(f"{prefix}{i}.", v, split)
+        else:
+            a = np.array(node, dtype=np.float32)
+            if split is None:
+                out[prefix[:-1]] = torch.from_numpy(a)
+            else:
+                for i in range(a.shape[0]):
+                    out[f"{split}.{i}.{prefix[:-1]}"] = torch.from_numpy(a[i])
+
+    for key, node in tree.items():
+        if key in stacked:
+            walk("", node, key)
+        else:
+            walk(f"{key}.", node, None)
+    return out
+
+
+def nest_params(flat: Mapping[str, torch.Tensor]) -> dict:
+    """The nested parameter dict of a ``state_dict`` (``layers.3.attn.wq``
+    -> ``params["layers"][3]["attn"]["wq"]``), sharing its tensors: a
+    level whose keys are all indices becomes a list."""
+    out: dict = {}
+    for key, t in flat.items():
+        parts = key.split(".")
+        node = out
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = t
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        if node and all(k.isdigit() for k in node):
+            return [lists(node[str(i)]) for i in range(len(node))]
+        return {k: lists(v) for k, v in node.items()}
+
+    return lists(out)

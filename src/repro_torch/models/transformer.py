@@ -19,12 +19,9 @@ import functools
 from collections.abc import Mapping
 from typing import Any
 
-import numpy as np
 import torch
-from torch import nn
 from torch.utils import checkpoint as _checkpoint
 
-from repro_torch.device import resolve_device
 from repro_torch.models import attention, common, moe
 
 #: ops whose outputs a remat mode saves (None: save the layer input only):
@@ -87,12 +84,7 @@ def init_lm(cfg, gen: torch.Generator) -> dict:
     return params
 
 
-def _param_dict(tree: Mapping) -> nn.ParameterDict:
-    return nn.ParameterDict({k: nn.Parameter(v, requires_grad=False)
-                             for k, v in tree.items()})
-
-
-class DecoderLM(nn.Module):
+class DecoderLM(common.ParamTree):
     """The parameters of a decoder LM under the reference's names:
     ``embed``, ``layers.<i>.{ln1,ln2}.w``, ``layers.<i>.attn.{wq,wk,wv,wo}``
     (and ``q_norm``, ``k_norm``), ``layers.<i>.mlp.{w_up,w_gate,w_down}``
@@ -107,28 +99,9 @@ class DecoderLM(nn.Module):
 
     def __init__(self, cfg, *, device: str | torch.device | None = None,
                  generator: torch.Generator | None = None):
-        super().__init__()
-        dev = resolve_device(device)
+        _, gen = common.generator_for(device, generator)
+        super().__init__(init_lm(cfg, gen))
         self.cfg = cfg
-        gen = generator if generator is not None \
-            else torch.Generator(dev).manual_seed(0)
-        if gen.device.type != dev.type:
-            raise ValueError(f"generator on {gen.device}, model on {dev}")
-        tree = init_lm(cfg, gen)
-        self.embed = nn.Parameter(tree["embed"], requires_grad=False)
-        self.layers = nn.ModuleList(
-            nn.ModuleDict({k: _param_dict(v) for k, v in lp.items()})
-            for lp in tree["layers"])
-        self.final_norm = _param_dict(tree["final_norm"])
-        if "lm_head" in tree:
-            self.lm_head = nn.Parameter(tree["lm_head"], requires_grad=False)
-
-    def params(self) -> dict:
-        p = {"embed": self.embed, "layers": list(self.layers),
-             "final_norm": self.final_norm}
-        if not self.cfg.tie_embeddings:
-            p["lm_head"] = self.lm_head
-        return p
 
 
 def lm_params_from_jax(tree: Mapping) -> dict[str, torch.Tensor]:
@@ -137,46 +110,11 @@ def lm_params_from_jax(tree: Mapping) -> dict[str, torch.Tensor]:
     the leading layer axis of ``layers`` is split into ``layers.<i>``.
     Values are float32; ``load_state_dict`` casts them to the model's
     dtype (the router stays float32)."""
-    out: dict[str, torch.Tensor] = {}
-
-    def walk(prefix, node, layer=None):
-        if isinstance(node, Mapping):
-            for k, v in node.items():
-                walk(f"{prefix}{k}.", v, layer)
-            return
-        a = np.array(node, dtype=np.float32)
-        if layer is None:
-            out[prefix[:-1]] = torch.from_numpy(a)
-        else:
-            for i in range(a.shape[0]):
-                out[f"layers.{i}.{prefix[:-1]}"] = torch.from_numpy(a[i])
-
-    for key, node in tree.items():
-        if key == "layers":
-            walk("", node, layer=True)
-        else:
-            walk(f"{key}.", node)
-    return out
+    return common.params_from_jax(tree, stacked=("layers",))
 
 
-def nest_params(flat: Mapping[str, torch.Tensor]) -> dict:
-    """The nested parameter dict of a :class:`DecoderLM` ``state_dict``
-    (``layers.<i>.attn.wq`` -> ``params["layers"][i]["attn"]["wq"]``),
-    sharing its tensors."""
-    out: dict = {}
-    layers: dict[int, dict] = {}
-    for key, t in flat.items():
-        parts = key.split(".")
-        node = out
-        if parts[0] == "layers":
-            node = layers.setdefault(int(parts[1]), {})
-            parts = parts[2:]
-        for p in parts[:-1]:
-            node = node.setdefault(p, {})
-        node[parts[-1]] = t
-    if layers:
-        out["layers"] = [layers[i] for i in range(len(layers))]
-    return out
+#: the nested parameter dict of a ``state_dict`` (every family's)
+nest_params = common.nest_params
 
 
 # ---------------------------------------------------------------------------
@@ -222,7 +160,7 @@ def forward_embeds(params, h, cfg, *, collect_kv: bool = False,
 
 def logits_fn(params, h, cfg):
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return h @ w
+    return common.dot(h, w)
 
 
 def lm_loss(params, batch: dict[str, Any], cfg, *, impl: str = "kernel"):

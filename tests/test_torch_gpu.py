@@ -69,6 +69,12 @@ last, as the host hash does; the sorted search the first, as kernel 1
 does), and the dense search is never reached through the guard's chain.
 One NCCL rank under a 1-way mesh keeps kernel 1 by ``auto`` and its
 forced sharded search equals kernel 1's kmap on a 4,096-row LiDAR cloud.
+Narrow RecurrentGemma (D 256, MQA, past its window), HuBERT (D 80,
+non-causal) and LLaVA (D 128, GQA, patches) prefills launch the kernel
+once an attention layer and hold their output to the plain version's
+(1e-3 x max in float32, 2e-2 in bf16); a narrow Mamba2 on the card gives
+its CPU logits and decodes a 2-token prompt as its teacher-forced
+prefill.
 """
 from __future__ import annotations
 
@@ -903,6 +909,93 @@ def test_lm_prefill_kernel_vs_plain(cuda):
     assert cache["k"].shape == (4, 2, 128, 4, 64)
     scale = want.abs().max().item()
     assert (got - want).abs().max().item() <= 1e-3 * scale
+
+
+#: narrow configs of the families with attention, at their real head dims
+#: (RecurrentGemma 256 with MQA and a window the prompt passes, HuBERT 80
+#: non-causal, LLaVA 128 with GQA): (arch, replacements, launches a prefill)
+FAMILY_CARD_CFGS = [
+    ("recurrentgemma-2b", dict(n_layers=4, d_model=512, n_heads=2,
+                               n_kv_heads=1, d_ff=1024, vocab=1000,
+                               lru_width=512, local_window=64), 1),
+    ("hubert-xlarge", dict(n_layers=2, d_model=320, n_heads=4, n_kv_heads=4,
+                           d_ff=640, frontend_dim=64), 2),
+    ("llava-next-mistral-7b", dict(n_layers=2, d_model=512, n_heads=4,
+                                   n_kv_heads=2, d_ff=1024, vocab=1000,
+                                   n_patches=40, vision_dim=64), 2),
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch,repl,launches", FAMILY_CARD_CFGS)
+def test_family_prefill_kernel_vs_plain(cuda, arch, repl, launches, dtype):
+    """A narrow two-attention-layer (RecurrentGemma: one group and a tail
+    layer) model of each family with attention: the prefill (the
+    encoder's encode) through the kernel against the same through the
+    plain version, 1e-3 x max in float32, 2e-2 in bf16."""
+    import dataclasses
+    from repro_torch.models import api
+    cfg = dataclasses.replace(get_config(arch), dtype=dtype, **repl)
+    model = api.build_model(cfg, device=cuda)
+    params = model.init(torch.Generator(cuda).manual_seed(0))
+    rng = np.random.default_rng(0)
+    if cfg.family == "encoder":
+        batch = {"frames": torch.as_tensor(rng.standard_normal(
+            (2, 150, cfg.frontend_dim)), device=cuda).to(getattr(torch,
+                                                                 dtype))}
+    else:
+        batch = {"tokens": torch.as_tensor(rng.integers(
+            0, cfg.vocab, (2, 150)), device=cuda)}
+        if cfg.family == "vlm":
+            batch["patches"] = torch.as_tensor(rng.standard_normal(
+                (2, cfg.n_patches, cfg.vision_dim)), device=cuda).to(
+                getattr(torch, dtype))
+    before = fa_kernel.launches
+    got = model.prefill(params, batch, 256)
+    torch.cuda.synchronize()
+    assert fa_kernel.launches == before + launches
+    want = model.prefill(params, batch, 256, impl="ref")
+    assert fa_kernel.launches == before + launches
+    if cfg.family != "encoder":
+        got, want = got[0], want[0]
+    assert got.dtype == getattr(torch, dtype)
+    tol = 1e-3 if dtype == "float32" else 2e-2
+    scale = want.float().abs().max().item()
+    assert (got.float() - want.float()).abs().max().item() <= tol * scale
+
+
+def test_mamba2_on_card_matches_cpu_and_decodes_short_prompt(cuda):
+    """A narrow two-layer Mamba2 (64-token chunks) in float32: the card's
+    prefill of a 100-token prompt (not a chunk multiple) equals the CPU's
+    on the same weights (1e-4 x max), no kernel launches, and a 2-token
+    prompt decodes 3 steps, each held to the teacher-forced prefill."""
+    import dataclasses
+    from repro_torch.models import mamba2
+    cfg = dataclasses.replace(get_config("mamba2-2.7b"), n_layers=2,
+                              d_model=256, vocab=1000, ssm_state=64,
+                              ssm_chunk=64, dtype="float32")
+    lm = mamba2.Mamba2LM(cfg, device=cuda,
+                         generator=torch.Generator(cuda).manual_seed(0))
+    params = lm.params()
+    cpu = {k: v.cpu() for k, v in lm.state_dict().items()}
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 100)))
+    before = fa_kernel.launches
+    got, _ = mamba2.prefill(params, toks.to(cuda), cfg, max_context=128)
+    want, _ = mamba2.prefill(mamba2.common.nest_params(cpu), toks, cfg,
+                             max_context=128)
+    assert fa_kernel.launches == before
+    assert (got.cpu() - want).abs().max().item() <= \
+        1e-4 * want.abs().max().item()
+    seq = toks[:, :2].to(cuda)
+    logits, cache = mamba2.prefill(params, seq, cfg, max_context=8)
+    for _ in range(3):
+        nxt = logits.reshape(2, -1).argmax(-1)[:, None]
+        seq = torch.cat([seq, nxt], 1)
+        logits, cache = mamba2.decode_step(params, cache, nxt, cfg)
+        full, _ = mamba2.prefill(params, seq, cfg, max_context=8)
+        assert (logits[:, 0] - full).abs().max().item() <= \
+            1e-4 * full.abs().max().item()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

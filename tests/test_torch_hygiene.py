@@ -57,7 +57,9 @@ def test_port_never_imports_jax_or_repro():
                 "runtime/persist.py", "runtime/admission.py",
                 "launch/spconv_serve.py", "runtime/sharding.py",
                 "kernels/octent/sharded.py", "launch/spconv_sharded.py",
-                "models/moe.py", "data/tokens.py"):
+                "models/moe.py", "data/tokens.py", "models/mamba2.py",
+                "models/rglru.py", "models/encoder.py", "models/vlm.py",
+                "models/api.py"):
         assert PKG / mod in files, mod
     assert REPO / "examples" / "moe_ragged_torch.py" in files
     bad = {str(p.relative_to(REPO)): sorted(_imported_roots(p)
@@ -254,6 +256,15 @@ def test_lm_entry_points_raise_without_a_card(monkeypatch):
         api.build_model(cfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         api.build_model(get_config("mixtral-8x7b").reduced())
+    from repro_torch.models import encoder, mamba2, rglru, vlm
+    for cls, arch in ((mamba2.Mamba2LM, "mamba2-2.7b"),
+                      (rglru.RGLRULM, "recurrentgemma-2b"),
+                      (encoder.EncoderModel, "hubert-xlarge"),
+                      (vlm.VLMModel, "llava-next-mistral-7b")):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cls(get_config(arch).reduced())
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            api.build_model(get_config(arch).reduced())
     spec = importlib.util.spec_from_file_location(
         "moe_ragged_torch", REPO / "examples" / "moe_ragged_torch.py")
     example = importlib.util.module_from_spec(spec)

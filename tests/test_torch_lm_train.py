@@ -19,8 +19,8 @@ package, on the CPU at reduced sizes, float32.
   each loss and ``grad_norm`` within 1e-4 relative, the learning rate
   exact, and every parameter after the third step within 1e-4 x its
   tensor's max |p|.
-* ``TokenStream`` / ``FrameStream`` bit for bit; ``make_stream`` raises for
-  the unported families; a bf16 checkpoint the reference wrote restores
+* ``TokenStream`` / ``FrameStream`` bit for bit, and ``make_stream``'s
+  encoder and VLM streams; a bf16 checkpoint the reference wrote restores
   bit for bit; the LM CLI stopped after 2 of 4 steps and resumed reaches
   the uninterrupted run's digest.
 """
@@ -201,9 +201,17 @@ def test_token_streams_bit_equal():
                                    seed=seed).batch_at(step)
         for key in want:
             assert np.array_equal(got[key], want[key]), key
+    # make_stream: the encoder's frames and the VLM's patches and tokens
     for arch in ("hubert-xlarge", "llava-next-mistral-7b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP §1 item 5"):
-            train.make_stream(configs.get_config(arch).reduced(), 2, 8)
+        for step in (0, 3):
+            got = train.make_stream(configs.get_config(arch).reduced(), 2,
+                                    16, seed=4).batch_at(step)
+            want = jtrain.make_stream(jconfigs.get_config(arch).reduced(),
+                                      2, 16, seed=4).batch_at(step)
+            assert set(got) == set(want)
+            for key in want:
+                assert got[key].dtype == want[key].dtype, key
+                assert np.array_equal(got[key], want[key]), key
 
 
 @pytest.mark.parametrize("arch,repl", [ARCHS[0], ARCHS[2]])
