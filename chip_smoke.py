@@ -186,7 +186,37 @@ RecurrentGemma, HuBERT and LLaVA families served and trained:
 * ``moe_ragged``: kernel 3 on the router's rulebook
   (``examples/moe_ragged_torch.py``) at the example's sizes and at one
   Mixtral-8x7B ``w_gate`` product, against the dense per-expert loop and
-  its plain version, timed against its bound.
+  its plain version, timed against its bound;
+* ``gloo_probe``: each collective DTensor issues (``all_reduce``,
+  ``all_gather_into_tensor``, ``reduce_scatter_tensor``,
+  ``all_to_all_single``) on CUDA tensors over a 2-rank gloo world of its
+  own, recorded as it runs or fails;
+* ``lm_sharded``: the LM's tensor sharding. TinyLlama-1.1B at full width
+  and depth, float32 weights from the seed, with DTensor parameters
+  placed by ``param_shardings``, on one NCCL rank (``data`` 1, ``model``
+  1) and on two gloo ranks sharing the card (``model`` 2; the kinds of
+  collective that ``gloo_probe`` saw refused staged through host memory,
+  since gloo crashes in ``all_gather_into_tensor`` on CUDA tensors, and
+  that world's times marked host-staged): a 4 x 512 prefill with
+  kernel 5 on each rank's own heads (22 launches a rank) and one
+  training step, logits within 1e-3 x max |logit|, loss within 2e-3,
+  parameters within ``allclose(3e-2)``, the gradient norm within 1e-5
+  and each tensor's change within 1e-3 (relative) of the single-device
+  kernel path on the same card; Mixtral-8x7B at 2 of 32 layers on the
+  two ranks, its
+  ``shard_map`` dispatch held to ``einsum`` (logits, loss, each
+  gradient; routing pinned, flips counted);
+* ``dryrun``: the dry run of every (arch x shape x mesh) cell on both
+  production meshes, on ``meta`` tensors in fake worlds of 256 and 512
+  ranks, run on all the host's cores after the card's phases, so that
+  none of their host-paced readings shares the host: each cell's
+  status, ``fits``, bytes a device
+  and seconds; every applicable cell must be ``ok``. With it,
+  TinyLlama-1.1B's 4 x 512 prefill cell at a (1, 1) mesh, checked on the
+  card before any other phase: its argument bytes equal to
+  ``torch.cuda.memory_allocated``'s growth once they are placed, its
+  FLOPs to ``FlopCounterMode``'s count of the same step run through the
+  plain versions.
 
 Each path runs with its launch counts set to 0 just before and read just
 after (phase ``restart`` reads its workers' counts). The bound of kernels
@@ -343,6 +373,23 @@ HUBERT_TRAIN_BATCH, HUBERT_TRAIN_STEPS = 2, 2
 LLAVA_ARCH, LLAVA_BATCH, LLAVA_PROMPT, LLAVA_GEN = ("llava-next-mistral-7b",
                                                     2, 512, 32)
 LLAVA_TRAIN_LAYERS, LLAVA_TRAIN_BATCH, LLAVA_TRAIN_STEPS = 4, 1, 2
+# phase lm_sharded: TinyLlama-1.1B whole (float32) under DTensor
+# parameters on one NCCL rank ((data 1, model 1)) and two gloo ranks
+# sharing the card ((data 1, model 2)); Mixtral-8x7B at 2 of 32 layers on
+# the two ranks, its shard_map dispatch held to einsum
+LM_SHARDED_WORLDS = ((1, "nccl", (1, 1)), (2, "gloo", (1, 2)))
+
+LM_SHARDED_TIMEOUT_S = 600
+MOE_SHARDED_LAYERS, MOE_SHARDED_BATCH = 2, 2
+TOL_SHARDED_LOGITS = 1e-3      # x max |logit|, the families' float32 gate
+TOL_SHARDED_LOSS = 2e-3        # relative: the reference's sharded-step test
+TOL_SHARDED_PARAMS = 3e-2      # its assert_allclose(rtol, atol)
+TOL_SHARDED_GRAD_NORM = 1e-5   # relative, against one device's
+TOL_SHARDED_UPDATE = 1e-3      # |dp_shard - dp_one| / |dp_one|, each tensor
+TOL_SHARDED_GRAD = 1e-3        # |g_shard_map - g_einsum| / |g_einsum|, each
+# phase dryrun: the cross-check cell on the card (TinyLlama-1.1B, (1, 1))
+DRYRUN_CHECK = ("tinyllama-1.1b", "prefill", 4, 512)
+DRYRUN_TIMEOUT_S = 600         # the grid, on the host after the card phases
 # phase moe_ragged: (tokens, d, f, experts, top-k, bm) of one Mixtral-8x7B
 # w_gate product (the example's own sizes are its constants)
 MOE_RAGGED = (2048, 4096, 14336, 8, 2, 128)
@@ -4259,6 +4306,507 @@ def phase_sharded(serve_digests):
     return {"octent_query": launches[0], "spconv_gemm_fused": launches[1]}
 
 
+def _close_params(got: dict, want: dict, start: dict) -> tuple:
+    """The sharded step's parameters ``got`` (DTensors, gathered here: a
+    collective every rank joins) against one device's ``want`` from the
+    same ``start`` (both on the host). Returns (the max over tensors of
+    max |got - want| / (atol + rtol |want|) at TOL_SHARDED_PARAMS, <= 1
+    passing as ``assert_allclose``; the max over tensors of |dg - dw| /
+    |dw|, the norms of the two steps' changes dg = got - start and dw =
+    want - start). The first bound is wider than a whole AdamW step of
+    LM_TRAIN_LR; the second fails a step whose gradients are zero or
+    wrong."""
+    import torch
+    worst = update = 0.0
+    for k, w in want.items():
+        g = got[k].full_tensor().float()
+        w = w.to(g.device).float()
+        tol = TOL_SHARDED_PARAMS * (1 + w.abs())
+        worst = max(worst, float(((g - w).abs() / tol).max()))
+        z = start[k].to(g.device).float()
+        dw = w - z
+        update = max(update, float((g - w).norm())
+                     / max(float(dw.norm()), 1e-30))
+        del g, w, z, dw
+    torch.cuda.empty_cache()
+    return worst, update
+
+
+def _lm_sharded_tinyllama(dev, mesh, rank):
+    """TinyLlama-1.1B (float32) under ``mesh``: one prefill of LM_BATCH x
+    LM_PROMPT tokens and one ``make_train_step``, parameters placed by
+    ``param_shardings``, against the single-device kernel path on the same
+    card (rank 0 computes it first, the others wait)."""
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.launch import shardings
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models import api
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import sharding as rs
+    cfg = dataclasses.replace(get_config(LM_ARCH), dtype="float32")
+    model = api.build_model(cfg, device=dev)
+    flat = dict(model.module(torch.Generator(dev).manual_seed(SEED))
+                .state_dict())
+    tokens = torch.as_tensor(np.random.default_rng(SEED).integers(
+        0, cfg.vocab, (LM_BATCH, LM_PROMPT)), dtype=torch.int32, device=dev)
+    tb = {k: torch.as_tensor(v, device=dev) for k, v in TokenStream(
+        vocab=cfg.vocab, batch=LM_TRAIN_BATCH, seq=LM_TRAIN_SEQ,
+        seed=SEED).batch_at(0).items()}
+    opt_cfg = adamw.AdamWConfig(lr=LM_TRAIN_LR)
+    step = make_train_step(model, opt_cfg)
+    base = None
+    if rank == 0:
+        start = {k: v.cpu() for k, v in flat.items()}
+        logits, _ = model.prefill(model.nest(flat), {"tokens": tokens},
+                                  LM_PROMPT)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (p1, _), m1 = step((flat, adamw.init(flat)), tb)
+        torch.cuda.synchronize()
+        base = {"logits": logits, "loss": float(m1["loss"]),
+                "grad_norm": float(m1["grad_norm"]),
+                "step_ms": (time.perf_counter() - t0) * 1e3,
+                "params": {k: v.cpu() for k, v in p1.items()}}
+        del p1, m1
+        torch.cuda.empty_cache()
+    dist.barrier()
+    psh = shardings.param_shardings(flat, mesh)
+    params = shardings.distribute(flat, psh)
+    opt = adamw.init(flat)
+    opt = shardings.distribute(opt, shardings.opt_state_shardings(opt, mesh))
+    del flat
+    db = shardings.distribute({"tokens": tokens}, shardings.batch_shardings(
+        {"tokens": tokens}, mesh))
+    dtb = shardings.distribute(tb, shardings.batch_shardings(tb, mesh))
+    torch.cuda.empty_cache()
+    with rs.set_mesh(mesh):
+        model.prefill(model.nest(params), db, LM_PROMPT)     # warm-up
+        torch.cuda.synchronize()
+        fa_kernel.launches = 0
+        t0 = time.perf_counter()
+        logits, _ = model.prefill(model.nest(params), db, LM_PROMPT)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        launches = fa_kernel.launches
+        logits = logits.full_tensor()
+        t0 = time.perf_counter()
+        (p2, _), m2 = step((params, opt), dtb)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3
+        train_launches = fa_kernel.launches - launches
+    local_heads = tuple(params["layers.0.attn.wq"].to_local().shape)
+    rec = {"flash_launches_prefill": launches,
+           "flash_launches_step": train_launches,
+           "prefill_ms": prefill_ms, "step_ms": step_ms,
+           "wq_local_shape": local_heads,
+           "loss": float(m2["loss"].full_tensor()),
+           "grad_norm": float(m2["grad_norm"].full_tensor())}
+    if rank == 0:
+        worst, update = _close_params(p2, base["params"], start)
+        scale = float(base["logits"].abs().max())
+        rec.update(
+            logits_err=float((logits - base["logits"]).abs().max()),
+            max_abs_logit=scale,
+            loss_rel=abs(rec["loss"] - base["loss"]) / abs(base["loss"]),
+            grad_norm_rel=abs(rec["grad_norm"] - base["grad_norm"])
+            / base["grad_norm"], params_worst=worst, update_rel=update,
+            single_step_ms=base["step_ms"])
+    else:
+        _gather_only(p2)
+    return rec
+
+
+def _gather_only(params: dict) -> None:
+    """A non-zero rank's side of :func:`_close_params`' gathers."""
+    for v in params.values():
+        v.full_tensor()
+
+
+def _lm_sharded_mixtral(dev, mesh, rank):
+    """Mixtral-8x7B at MOE_SHARDED_LAYERS layers (float32) under ``mesh``:
+    a prefill and the loss and gradients of one training batch through
+    the ``einsum`` and the ``shard_map`` dispatch; the second run's
+    routing pinned to the first's (``moe.top_k`` hooked), flips counted
+    unpinned."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.launch import shardings
+    from repro_torch.launch.train import lm_loss_and_grads
+    from repro_torch.models import api, moe
+    from repro_torch.runtime import sharding as rs
+    cfg = dataclasses.replace(get_config(MOE_ARCH), dtype="float32",
+                              n_layers=MOE_SHARDED_LAYERS)
+    model = api.build_model(cfg, device=dev)
+    flat = dict(model.module(torch.Generator(dev).manual_seed(SEED))
+                .state_dict())
+    params = shardings.distribute(flat, shardings.param_shardings(flat,
+                                                                  mesh))
+    del flat
+    torch.cuda.empty_cache()
+    tokens = torch.as_tensor(np.random.default_rng(SEED).integers(
+        0, cfg.vocab, (MOE_SHARDED_BATCH, LM_PROMPT)), dtype=torch.int32,
+        device=dev)
+    tb = {k: torch.as_tensor(v, device=dev) for k, v in TokenStream(
+        vocab=cfg.vocab, batch=MOE_SHARDED_BATCH, seq=LM_TRAIN_SEQ,
+        seed=SEED).batch_at(0).items()}
+    db = shardings.distribute({"tokens": tokens}, shardings.batch_shardings(
+        {"tokens": tokens}, mesh))
+    dtb = shardings.distribute(tb, shardings.batch_shardings(tb, mesh))
+    out, choices = {}, None
+    for impl in ("einsum", "shard_map"):
+        moe.set_moe_impl(impl)
+        try:
+            with rs.set_mesh(mesh):
+                def run():
+                    lg, _ = model.prefill(model.nest(params), db, LM_PROMPT)
+                    loss, _, grads = lm_loss_and_grads(model, params, dtb)
+                    return lg, loss, grads
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                (lg, loss, grads), rec = _routing(run, pin=choices)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                if choices is None:
+                    choices = rec
+                    flips = 0
+                else:
+                    (_, _, _), free = _routing(run)
+                    flips = _flips(free, choices)
+        finally:
+            moe.set_moe_impl("einsum")
+        out[impl] = {"logits": lg.full_tensor(),
+                     "loss": float(loss.full_tensor()),
+                     "grads": grads, "ms": ms, "flips": flips}
+    a, b = out["einsum"], out["shard_map"]
+    scale = float(a["logits"].abs().max())
+    grad_worst = 0.0
+    for k, g in a["grads"].items():
+        ga, gb = g.full_tensor().float(), b["grads"][k].full_tensor().float()
+        grad_worst = max(grad_worst, float((gb - ga).norm())
+                         / max(float(ga.norm()), 1e-30))
+    return {"logits_err": float((b["logits"] - a["logits"]).abs().max()),
+            "max_abs_logit": scale,
+            "loss": {i: out[i]["loss"] for i in out},
+            "loss_rel": abs(b["loss"] - a["loss"]) / abs(a["loss"]),
+            "grad_worst": grad_worst, "unpinned_flips": b["flips"],
+            "ms": {i: out[i]["ms"] for i in out}}
+
+
+def _host_staged(kinds):
+    """A dispatch mode that runs the ``c10d_functional`` collectives of
+    ``kinds`` (op-name prefixes) on CUDA tensors through host memory: the
+    buffer copied to the host, the collective run there by gloo, the
+    result copied back to the card, each staged call counted by kind.
+    Only the gloo world of phase lm_sharded uses it, for the kinds phase
+    ``gloo_probe`` saw gloo refuse on CUDA tensors in the same run (under
+    torch 2.11.0+cu128: ``all_gather_into_tensor``, a SIGSEGV); NCCL takes
+    one rank a card. Every other collective, and every op of the model,
+    kernel 5 included, runs on the card."""
+    import collections
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_map
+
+    class HostStaged(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.staged = collections.Counter()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            from torch.distributed.tensor import DTensor
+            if any(issubclass(t, DTensor) for t in types):
+                return NotImplemented
+            kwargs = kwargs or {}
+            name = getattr(func, "_opname", "")
+            if getattr(func, "namespace", "") != "_c10d_functional" \
+                    or not name.startswith(tuple(kinds)):
+                return func(*args, **kwargs)
+            dev = next((a.device for a in args if isinstance(a, torch.Tensor)
+                        and a.is_cuda), None)
+            if dev is None:
+                return func(*args, **kwargs)
+            self.staged[name] += 1
+            out = func(*tree_map(lambda a: a.cpu() if isinstance(
+                a, torch.Tensor) else a, args), **kwargs)
+            out = tree_map(lambda o: torch.ops._c10d_functional.wait_tensor(o)
+                           if isinstance(o, torch.Tensor) else o, out)
+            return tree_map(lambda o: o.to(dev) if isinstance(
+                o, torch.Tensor) else o, out)
+
+    return HostStaged()
+
+
+def _lm_sharded_rank(rank, world, mesh_shape, staged):
+    """One rank of phase lm_sharded: TinyLlama under ``mesh_shape``
+    (``data`` x ``model``), and Mixtral on a 2-way ``model`` mesh; the
+    collectives of ``staged`` (kinds) through host memory
+    (:func:`_host_staged`)."""
+    import contextlib
+    import torch
+    from repro_torch.launch import mesh as meshlib
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = meshlib.make_test_mesh(*mesh_shape, device_type="cuda")
+    mode = _host_staged(staged) if staged else contextlib.nullcontext()
+    with mode:
+        rec = {"rank": rank, "mesh": mesh_shape,
+               "tinyllama": _lm_sharded_tinyllama(dev, mesh, rank)}
+        torch.cuda.empty_cache()
+        if mesh_shape[1] == 2:
+            rec["mixtral"] = _lm_sharded_mixtral(dev, mesh, rank)
+    rec["staged_collectives"] = dict(mode.staged) if staged else None
+    rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return rec
+
+
+def _gloo_probe_rank(rank, kind):
+    """One collective of ``kind`` on a CUDA tensor over gloo, as DTensor
+    issues it (``_functional_collectives``)."""
+    import torch
+    import torch.distributed as dist
+    import torch.distributed._functional_collectives as funcol
+    dev = torch.device("cuda", torch.cuda.current_device())
+    x = torch.arange(8, dtype=torch.float32, device=dev) + rank
+    group = dist.group.WORLD
+    if kind == "all_reduce":
+        out = funcol.all_reduce(x, "sum", group)
+    elif kind == "all_gather_into_tensor":
+        out = funcol.all_gather_tensor(x, 0, group)
+    elif kind == "reduce_scatter_tensor":
+        out = funcol.reduce_scatter_tensor(x, "sum", 0, group)
+    else:
+        out = funcol.all_to_all_single(x, None, None, group)
+    out = funcol.wait_tensor(out) if hasattr(funcol, "wait_tensor") else out
+    return out.cpu().tolist()
+
+
+def phase_gloo_probe():
+    """Which collectives gloo runs on CUDA tensors on this torch: each
+    kind in a 2-rank world of its own, the four at once (a crash kills
+    only its world). Returns ``{kind: "ok" or the failure}``."""
+    import os
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.launch.spconv_sharded import spawn_ranks
+    from concurrent.futures import ThreadPoolExecutor
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip-smoke-gloo-probe-")
+
+    def probe(kind):
+        try:
+            spawn_ranks(_gloo_probe_rank, 2, backend="gloo",
+                        init_file=os.path.join(root, kind), args=(kind,),
+                        timeout_s=120)
+            return "ok"
+        except Exception as e:                          # noqa: BLE001
+            return f"{type(e).__name__}: {e}"[:200]
+
+    kinds = ("all_reduce", "all_gather_into_tensor", "reduce_scatter_tensor",
+             "all_to_all_single")
+    try:
+        with ThreadPoolExecutor(len(kinds)) as pool:
+            res = dict(zip(kinds, pool.map(probe, kinds)))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit(phase="gloo_probe", torch=torch.__version__, cuda_tensors=res,
+         seconds=time.perf_counter() - t0)
+    return res
+
+
+def phase_lm_sharded(refused):
+    """The LM's tensor sharding on the card: ``spawn_ranks`` workers over
+    LM_SHARDED_WORLDS, each :func:`_lm_sharded_rank`; the gloo world
+    stages the collective kinds of ``refused`` (phase ``gloo_probe``)
+    through host memory. TinyLlama-1.1B's
+    sharded prefill logits within TOL_SHARDED_LOGITS x max |logit| of the
+    single-device kernel path, the step's loss within TOL_SHARDED_LOSS,
+    its parameters within TOL_SHARDED_PARAMS, its gradient norm within
+    TOL_SHARDED_GRAD_NORM and each tensor's change within
+    TOL_SHARDED_UPDATE of one device's; kernel 5 launched on each
+    rank's own heads, once a layer a prefill. Mixtral's ``shard_map``
+    dispatch held to ``einsum``. Returns kernel 5's launches on the
+    sharded prefills, summed over the ranks. The gloo world's times are
+    marked host-staged in the record: a departure from the rule that a
+    refused collective fails the phase, which would leave this card no
+    two-rank world (NCCL takes one rank a card)."""
+    import os
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.launch.spconv_sharded import spawn_ranks
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip-smoke-lm-sharded-")
+    worlds, launches = [], 0
+    n_layers = 22                          # TinyLlama-1.1B
+    try:
+        for world, backend, shape in LM_SHARDED_WORLDS:
+            t0 = time.perf_counter()
+            try:
+                ranks = spawn_ranks(
+                    _lm_sharded_rank, world, backend=backend,
+                    init_file=os.path.join(root, f"rendezvous-{world}"),
+                    args=(world, shape,
+                          tuple(refused) if backend == "gloo" else ()),
+                    timeout_s=LM_SHARDED_TIMEOUT_S)
+            except Exception as e:                      # noqa: BLE001
+                check(False, f"lm_sharded: {world} {backend} rank(s) failed "
+                      f"(torch {torch.__version__}): {e}")
+            for r in ranks:
+                t = r["tinyllama"]
+                check(t["flash_launches_prefill"] == n_layers,
+                      f"lm_sharded {shape} rank {r['rank']}: "
+                      f"{t['flash_launches_prefill']} flash launches a "
+                      f"prefill, want {n_layers}")
+                launches += t["flash_launches_prefill"]
+            t0r = ranks[0]["tinyllama"]
+            check(t0r["logits_err"] <= TOL_SHARDED_LOGITS
+                  * t0r["max_abs_logit"],
+                  f"lm_sharded {shape}: logits {t0r['logits_err']} vs "
+                  f"{TOL_SHARDED_LOGITS} x {t0r['max_abs_logit']}")
+            check(t0r["loss_rel"] <= TOL_SHARDED_LOSS,
+                  f"lm_sharded {shape}: loss rel {t0r['loss_rel']}")
+            check(t0r["params_worst"] <= 1.0,
+                  f"lm_sharded {shape}: params {t0r['params_worst']} of "
+                  f"the allclose bound")
+            check(t0r["grad_norm_rel"] <= TOL_SHARDED_GRAD_NORM,
+                  f"lm_sharded {shape}: grad_norm rel "
+                  f"{t0r['grad_norm_rel']}")
+            check(t0r["update_rel"] <= TOL_SHARDED_UPDATE,
+                  f"lm_sharded {shape}: the step's parameter change "
+                  f"{t0r['update_rel']} off one device's, relative")
+            for r in ranks:
+                m = r.get("mixtral")
+                if m is None:
+                    continue
+                check(m["logits_err"] <= TOL_SHARDED_LOGITS
+                      * m["max_abs_logit"] and m["loss_rel"]
+                      <= TOL_SHARDED_LOSS and m["grad_worst"]
+                      <= TOL_SHARDED_GRAD,
+                      f"lm_sharded mixtral rank {r['rank']}: shard_map vs "
+                      f"einsum {m}")
+            staged = backend == "gloo" and bool(refused)
+            worlds.append({"world": world, "backend": backend,
+                           "mesh": shape, "ranks": ranks,
+                           "times": (f"host-staged: each rank's "
+                                     f"{', '.join(sorted(refused))} calls "
+                                     f"ran through host memory "
+                                     f"(staged_collectives), so these are "
+                                     f"not tensor-parallel times")
+                           if staged else "card",
+                           "seconds": time.perf_counter() - t0})
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit(phase="lm_sharded", arch=LM_ARCH, dtype="float32",
+         gloo_staged=sorted(refused),
+         batch=LM_BATCH, prompt_len=LM_PROMPT, worlds=worlds,
+         flash_launches=launches, torch=torch.__version__,
+         seconds=time.perf_counter() - t_phase)
+    return launches
+
+
+def _dryrun_cross_check(dev):
+    """TinyLlama-1.1B's prefill cell (DRYRUN_CHECK) at a (1, 1) mesh: the
+    dry run's argument bytes against ``torch.cuda.memory_allocated``'s
+    growth once the parameters and tokens are placed on the card, and its
+    FLOP count against ``FlopCounterMode`` of the same step run on the
+    card through the plain versions."""
+    import dataclasses
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs import SHAPE_CELLS, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.models import api
+    arch, kind, b, s = DRYRUN_CHECK
+    cfg = get_config(arch)
+    cell = dataclasses.replace(SHAPE_CELLS["prefill_32k"], seq_len=s,
+                               global_batch=b)
+    rec = dryrun.run_cell(arch, "prefill_32k", "one", cell=cell)
+    check(rec["status"] == "ok", f"dryrun cross-check cell: {rec}")
+    model = api.build_model(cfg, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    params = dict(model.module(torch.Generator(dev).manual_seed(SEED))
+                  .state_dict())
+    tokens = torch.as_tensor(np.random.default_rng(SEED).integers(
+        0, cfg.vocab, (b, s)), dtype=torch.int32, device=dev)
+    torch.cuda.synchronize()
+    placed = torch.cuda.memory_allocated() - before
+    with FlopCounterMode(display=False) as fc:
+        model.prefill(model.nest(params), {"tokens": tokens}, s, impl="ref")
+    card_flops = fc.get_total_flops()
+    want = rec["argument_bytes"]
+    check(placed == want, f"dryrun: {want} argument bytes, the card grew "
+          f"{placed}")
+    check(card_flops == rec["hlo_flops"], f"dryrun: {rec['hlo_flops']} "
+          f"FLOPs counted, the card's run {card_flops}")
+    del params, tokens
+    torch.cuda.empty_cache()
+    return {"cell": f"{arch} {kind} {b}x{s} (1, 1)",
+            "argument_bytes": want, "memory_allocated_growth": placed,
+            "bytes_per_device": rec["bytes_per_device"],
+            "flops": rec["hlo_flops"], "card_flops": card_flops}
+
+
+def phase_dryrun(cross):
+    """The dry run of every (arch x shape x mesh) cell, single- and
+    multi-pod, after the card's phases: ``launch.dryrun.run_job`` on
+    ``meta`` tensors in fake worlds of 256 and 512 ranks, in a pool of
+    host processes, one a core. Each cell's status, ``fits``, bytes a
+    device and wall time; every applicable cell must be ``ok``. ``cross``
+    is the card's cross-check (:func:`_dryrun_cross_check`), run first of
+    all phases: the caching allocator's growth is exact only before other
+    phases leave cached segments whose free blocks a new tensor can take
+    whole."""
+    import multiprocessing as mp
+    import os
+    from repro_torch.configs import SHAPE_CELLS, list_archs
+    from repro_torch.launch import dryrun
+    t_phase = time.perf_counter()
+    knobs = {"remat": None, "moe_impl": None, "strategy": "tp",
+             "cache_shard": "kv"}
+    jobs = [(a, s, m, knobs) for a in list_archs() for s in SHAPE_CELLS
+            for m in ("single", "multi")]
+    n_proc = os.cpu_count() or 1
+    pool = mp.get_context("spawn").Pool(n_proc)
+    try:
+        recs = pool.map_async(dryrun.run_job, jobs, chunksize=1).get(
+            timeout=DRYRUN_TIMEOUT_S)
+    finally:
+        pool.terminate()
+        pool.join()
+    grid_s = time.perf_counter() - t_phase
+    for rec in recs:
+        emit(phase="dryrun.cell", **{k: rec.get(k) for k in (
+            "arch", "shape", "mesh", "status", "skip_reason", "error",
+            "fits", "bytes_per_device", "argument_bytes", "build_s",
+            "count_s", "hlo_flops", "hlo_bytes", "collective_bytes",
+            "collective_count_by_kind", "model_flops",
+            "useful_flops_ratio", "compute_s", "memory_s", "collective_s",
+            "dominant") if k in rec})
+    bad = [(r["arch"], r["shape"], r["mesh"], r.get("error"),
+            r.get("traceback", "")[-800:])
+           for r in recs if r["status"] == "fail"]
+    check(not bad, f"dryrun: cells failed: {bad}")
+    emit(phase="dryrun", cells=len(recs),
+         ok=sum(r["status"] == "ok" for r in recs),
+         skip=sum(r["status"] == "skip" for r in recs),
+         fit=sum(bool(r.get("fits")) for r in recs), processes=n_proc,
+         grid_seconds=grid_s,
+         cell_seconds=sum(r.get("build_s", 0) + r.get("count_s", 0)
+                          for r in recs), cross_check=cross,
+         seconds=time.perf_counter() - t_phase)
+
+
 def worker_serve(argv) -> int:
     """``chip_smoke.py --worker-serve``: one serving process over a
     persist dir, the body that phase restart SIGKILLs. It builds the
@@ -4527,6 +5075,7 @@ def main() -> int:
     cfg = minkunet.LARGE
 
     t0 = time.perf_counter()
+    cross = _dryrun_cross_check(dev)
     phase_device()
     scenes = _serve_scenes()
     lidar0 = scenes[0][1]
@@ -4585,6 +5134,10 @@ def main() -> int:
                        "hubert": phase_hubert(dev),
                        "llava": phase_llava(dev)}
     ragged, k3["moe_ragged_launches"] = phase_moe_ragged(dev)
+    probe = phase_gloo_probe()
+    sharded_launches = phase_lm_sharded(
+        [k for k, v in probe.items() if v != "ok"])
+    phase_dryrun(cross)
     k3["moe_ragged"] = {name: {key: r[key] for key in (
         "ms", "plain_ms", "bound_ms", "bound_by", "bound_ms_f32_cores",
         "share_of_bound", "max_abs_err", "dense_loop_err")}
@@ -4611,6 +5164,7 @@ def main() -> int:
           "moe_serve_launches": moe_launches,
           "lm_train_launches": train_launches,
           "family_launches": family_launches,
+          "lm_sharded_launches": sharded_launches,
           "timing": f"{n} launches of one {lm_cfg.name} prefill "
                     f"({LM_BATCH} x {LM_PROMPT} tokens, bf16), one per "
                     f"layer; max_abs_err over all shapes, bf16 and f32; "

@@ -184,10 +184,27 @@ def latest_step(directory: str) -> int | None:
     return None
 
 
-def restore(directory: str, step: int, like):
+def _sharding_leaves(tree) -> list:
+    """The leaves of a tree of ``launch.shardings.Sharding`` (a
+    NamedTuple, so a leaf here) in :func:`tree_leaves` order."""
+    if isinstance(tree, Mapping):
+        return [x for k in sorted(tree, key=_sort_key)
+                for x in _sharding_leaves(tree[k])]
+    if isinstance(tree, list) or (isinstance(tree, tuple)
+                                  and not hasattr(tree, "placements")):
+        return [x for node in tree for x in _sharding_leaves(node)]
+    return [tree]
+
+
+def restore(directory: str, step: int, like, *, shardings=None):
     """Rebuild a tree shaped like ``like``, each leaf a tensor of that
     leaf's dtype and device. Verifies the digest first and refuses corrupt
-    input (``ValueError``), or a checkpoint of another structure."""
+    input (``ValueError``), or a checkpoint of another structure.
+
+    ``shardings`` (a tree of ``launch.shardings.Sharding`` shaped like
+    ``like``, or one for every leaf) places each leaf onto the current
+    mesh, the reference's elastic placement: each rank keeps its own shard
+    of the full leaf as a DTensor, whatever mesh wrote the checkpoint."""
     if not verify(directory, step):
         raise ValueError(
             f"checkpoint step {step} in {directory!r} is corrupt or "
@@ -199,9 +216,22 @@ def restore(directory: str, step: int, like):
             raise ValueError(f"checkpoint has {len(data.files)} leaves, "
                              f"the tree wants {len(leaves_like)}")
         host = [data[f"leaf_{i}"] for i in range(len(leaves_like))]
+    if shardings is None:
+        placed = [None] * len(host)
+    elif hasattr(shardings, "placements"):
+        placed = [shardings] * len(host)
+    else:
+        placed = _sharding_leaves(shardings)
+        if len(placed) != len(host):
+            raise ValueError(f"{len(placed)} shardings for {len(host)} "
+                             f"leaves")
     out = []
-    for h, like_leaf in zip(host, leaves_like):
+    for h, like_leaf, sh in zip(host, leaves_like, placed):
         if tuple(h.shape) != tuple(like_leaf.shape):
             raise ValueError(f"leaf shape {h.shape} != {like_leaf.shape}")
-        out.append(_from_host(h, like_leaf))
+        t = _from_host(h, like_leaf)
+        if sh is not None:
+            from repro_torch.launch.shardings import place
+            t = place(t, sh)
+        out.append(t)
     return _unflatten(like, iter(out))

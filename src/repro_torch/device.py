@@ -3,7 +3,7 @@
 Entry points take ``device=None`` and resolve it here: None means the card.
 A host without one raises instead of silently running on the CPU; the CPU
 is used only when the caller asks for it (``device="cpu"``), as the tests
-do.
+do; ``device="meta"`` gives shapes without storage (the dry run).
 """
 from __future__ import annotations
 
@@ -22,6 +22,6 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
             "repro_torch entry points run on the GPU by default and no CUDA "
             "device is available; pass device='cpu' to run the plain "
             "PyTorch versions on the CPU")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {dev}")
     return dev

@@ -3,8 +3,10 @@
 paths.
 
 The full-sequence path dispatches through kernels/flash_attention/ops (the
-CUDA kernel on the card, its plain version on the CPU); the decode path is
-plain PyTorch over a (possibly rolling) KV cache, as in the reference.
+CUDA kernel on the card, its plain version on the CPU; under a mesh on
+each rank's own heads); the decode path is plain PyTorch over a (possibly
+rolling) KV cache, as in the reference. q, k, v and the output projection
+are pinned with ``runtime.sharding.shard`` where the reference pins them.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention import ops as attn_ops
 from repro_torch.models import common
+from repro_torch.runtime.sharding import is_dtensor, resolve, shard
 
 
 def init_attention(gen: torch.Generator, cfg, dtype) -> dict:
@@ -31,12 +34,24 @@ def init_attention(gen: torch.Generator, cfg, dtype) -> dict:
     return p
 
 
+def _heads(t, n: int, hd: int):
+    """(B, S, n*hd) -> (B, S, n, hd) pinned on its heads over ``model``.
+    A DTensor whose columns are sharded finer than whole heads (4 KV heads
+    on a 16-way axis: the reference's GQA trap) is gathered on them first:
+    DTensor reshapes only whole shards."""
+    b, s, _ = t.shape
+    if is_dtensor(t):
+        heads = resolve("batch", None, "model", None, shape=(b, s, n, hd),
+                        mesh=t.device_mesh)
+        t = shard(t, "batch", None, heads[2])
+    return shard(t.reshape(b, s, n, hd), "batch", None, "model", None)
+
+
 def _qkv(params, x, cfg, positions):
-    b, s, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
-    q = common.dot(x, params["wq"]).reshape(b, s, h, hd)
-    k = common.dot(x, params["wk"]).reshape(b, s, kv, hd)
-    v = common.dot(x, params["wv"]).reshape(b, s, kv, hd)
+    q = _heads(common.dot(x, params["wq"]), h, hd)
+    k = _heads(common.dot(x, params["wk"]), kv, hd)
+    v = _heads(common.dot(x, params["wv"]), kv, hd)
     if cfg.qk_norm:
         q = common.rms_norm(q, params["q_norm"])
         k = common.rms_norm(k, params["k_norm"])
@@ -62,7 +77,7 @@ def attend_full(params, x, cfg, *, window: int | None = None,
         v.transpose(1, 2).contiguous(), causal=cfg.causal, window=w,
         impl=impl)
     o = o.transpose(1, 2).reshape(b, s, -1)
-    return common.dot(o, params["wo"]), (k, v)
+    return shard(common.dot(o, params["wo"]), "batch", None, None), (k, v)
 
 
 class KVCache(NamedTuple):
@@ -126,6 +141,12 @@ def attend_decode(params, x, cfg, cache: KVCache, step: int, *,
     if w and w > 0:
         valid &= cache.pos > step - w
     group = h // kvh
+    if is_dtensor(q):
+        # q's heads keep 'model' only if the KV heads they split into do
+        kv_dim = resolve("batch", None, "model", None, None,
+                         shape=(b, 1, kvh, group, hd),
+                         mesh=q.device_mesh)[2]
+        q = shard(q, "batch", None, kv_dim, None)
     qh = q.reshape(b, 1, kvh, group, hd)
     # scores in float32, as the reference's preferred_element_type does
     s_ = torch.einsum("bqkgd,bckd->bkgqc", qh.float(),
@@ -135,4 +156,4 @@ def attend_decode(params, x, cfg, cache: KVCache, step: int, *,
     o = torch.einsum("bkgqc,bckd->bqkgd", p.to(cache.v.dtype).float(),
                      cache.v.float())
     o = o.reshape(b, 1, h * hd).to(x.dtype)
-    return o @ params["wo"], cache
+    return shard(o @ params["wo"], "batch", None, None), cache

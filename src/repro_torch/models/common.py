@@ -2,8 +2,9 @@
 and the parameter trees every family keeps.
 
 Parameters are plain tensors in nested dicts, keyed as in the reference.
-The reference's ``runtime.sharding.shard`` annotations have no counterpart
-on one card, so those calls are dropped.
+The reference's ``runtime.sharding.shard`` calls stand at the same places
+(``runtime/sharding.shard``): under a mesh, on DTensors, they fix where
+the collectives fall; anywhere else they are the identity.
 
 :class:`ParamTree` holds such a tree as an ``nn.Module`` whose
 ``state_dict`` keys are its paths (a list's items under their index:
@@ -23,6 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.device import resolve_device
+from repro_torch.runtime.sharding import is_dtensor, local_map, shard
 
 #: a stand-in for a ``torch.Generator``: :func:`normal` gives empty tensors
 #: on the ``meta`` device (torch's random functions take no generator there)
@@ -67,6 +69,26 @@ def dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
             torch.promote_types(x.dtype, w.dtype) == x.dtype:
         w = w.to(x.dtype)
     return x @ w
+
+
+def embed(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``table[ids]``. Under a mesh on each rank's rows of ``ids`` with the
+    table gathered whole (``runtime.sharding.local_map``): the vocab-sharded
+    lookup's backward (``index_put`` into a sharded table) has no working
+    DTensor strategy on every torch the port runs."""
+    return local_map(lambda t, i: t[i], (table, ids), free=((), (0,)),
+                     outs=(((1, 0),) + (None,) * ids.dim(),))
+
+
+def pad_front(x: torch.Tensor, n: int) -> torch.Tensor:
+    """x (B, S, ...) with n (a conv's width - 1) zero rows in front along
+    S: ``F.pad``; on a DTensor the same as a concatenation, which DTensor
+    takes on every torch the port runs (its ``constant_pad_nd`` fails on
+    torch 2.11)."""
+    if not is_dtensor(x):
+        return F.pad(x, (0, 0) * (x.dim() - 2) + (n, 0))
+    zeros = torch.zeros_like(x[:, :1])
+    return torch.cat([zeros] * n + [x], dim=1)
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor,
@@ -127,7 +149,17 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
     optional (a masked mean over ``max(mask.sum(), 1)``)."""
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
-    ll = logits.gather(-1, targets[..., None].long())[..., 0]
+    if is_dtensor(logits):
+        # vocab-sharded logits: DTensor's gather strategy fails here, so
+        # the target's logit is a masked sum over the (sharded) vocab,
+        # exact (one nonzero term), reduced once over the model axis
+        hit = torch.arange(logits.shape[-1], device=targets.device) == \
+            targets[..., None]
+        dims = ("batch",) + (None,) * (targets.dim() - 1)
+        ll = shard(torch.where(hit, logits, 0.0).sum(-1), *dims)
+        lse = shard(lse, *dims)
+    else:
+        ll = logits.gather(-1, targets[..., None].long())[..., 0]
     nll = lse - ll
     if mask is None:
         return nll.mean()
@@ -150,12 +182,13 @@ def init_mlp(gen: torch.Generator, d: int, f: int, dtype,
 
 
 def mlp(params, x, act: str):
-    up = dot(x, params["w_up"])
+    up = shard(dot(x, params["w_up"]), "batch", None, "model")
     if "w_gate" in params:
-        h = activation(dot(x, params["w_gate"]), act) * up
+        gate = shard(dot(x, params["w_gate"]), "batch", None, "model")
+        h = activation(gate, act) * up
     else:
         h = activation(up, act)
-    return dot(h, params["w_down"])
+    return shard(dot(h, params["w_down"]), "batch", None, None)
 
 
 # ---------------------------------------------------------------------------

@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models import common, transformer
+from repro_torch.runtime.sharding import shard
 
 
 def init_model(cfg, gen) -> dict:
@@ -57,7 +58,8 @@ def encode(params, frames: torch.Tensor, cfg, *, impl: str = "kernel"):
     dtype of the frames and the model; ``impl`` as in
     :func:`attention.attend_full`."""
     dt = torch.promote_types(frames.dtype, common.dtype_of(cfg))
-    h = common.dot(frames.to(dt), params["frontend_proj"])
+    h = shard(common.dot(frames.to(dt), params["frontend_proj"]),
+              "batch", None, None)
     h, _, _ = transformer.forward_embeds(params, h, cfg, impl=impl)
     return h
 
@@ -70,6 +72,7 @@ def masked_prediction_loss(params, batch: dict, cfg, *,
                          params["mask_emb"].to(batch["frames"].dtype),
                          batch["frames"])
     h = encode(params, frames, cfg, impl=impl)
-    logits = common.dot(h, params["pred_head"])
+    logits = shard(common.dot(h, params["pred_head"]), "batch", None,
+                   "model")
     loss = common.cross_entropy(logits, batch["targets"], batch["mask"])
     return loss, {"ce": loss}

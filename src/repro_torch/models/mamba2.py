@@ -17,6 +17,13 @@ pre-conv rows left-padded with zeros, the state the causal conv saw: equal
 to the reference's for prompts of at least ``conv_width - 1`` tokens, and
 right for shorter ones, where the reference's cache has too few rows and
 its next ``decode_step`` fails (ROADMAP §3 item 12).
+
+Under a mesh (DTensor parameters) the SSD scan and the decode step run on
+each rank's batch rows and heads (``runtime.sharding.local_map``): both
+are independent along them, and DTensor plans their batched matmuls over
+merged sharded dims for minutes; the ``in_proj`` output is gathered
+whole before its split into z, xBC and dt, which straddle its column
+shards.
 """
 from __future__ import annotations
 
@@ -28,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import common, transformer
+from repro_torch.runtime.sharding import is_dtensor, local_map, shard
 
 
 def dims(cfg):
@@ -160,7 +168,7 @@ def ssd_chunked(u, loga, b_mat, c_mat, chunk: int, init_state=None):
 def _causal_conv(x, w, b):
     """Depthwise causal conv1d: x (B, S, C), w (width, C)."""
     width = w.shape[0]
-    pad = F.pad(x, (0, 0, width - 1, 0))
+    pad = common.pad_front(x, width - 1)
     s = x.shape[1]
     out = pad[:, 0:s] * w[0]
     for i in range(1, width):
@@ -170,7 +178,8 @@ def _causal_conv(x, w, b):
 
 def _ssm_inputs(lp, x, cfg):
     d_inner, _, _, conv_dim = dims(cfg)
-    zxbcdt = x @ lp["in_proj"]
+    # whole before the split: z, xBC and dt straddle the column shards
+    zxbcdt = shard(x @ lp["in_proj"], "batch", None, None)
     z = zxbcdt[..., :d_inner]
     xbc = zxbcdt[..., d_inner:d_inner + conv_dim]
     dt_raw = zxbcdt[..., d_inner + conv_dim:]
@@ -197,7 +206,33 @@ def _finish(lp, y, xh, z, cfg):
     y = y + lp["D_skip"][None, None, :, None].to(y.dtype) * xh
     y = y.reshape(bsz, s, d_inner)
     y = common.rms_norm(y * F.silu(z), lp["norm_w"])
-    return y @ lp["out_proj"]
+    # the row-parallel input pinned and restrided: left to itself DTensor
+    # shards the sequence here on the multi-pod mesh and plans its strided
+    # shards for minutes (off-mesh y is contiguous already)
+    y = shard(y, "batch", None, "model")
+    if is_dtensor(y):
+        y = y.clone(memory_format=torch.contiguous_format)
+    return shard(y @ lp["out_proj"], "batch", None, None)
+
+
+def _pinned(u, loga, b_mat, c_mat):
+    """The SSD's inputs pinned as the reference pins u: batch rows over the
+    batch axes, heads over ``model`` (loga alike); B and C whole a row."""
+    return (shard(u, "batch", None, "model", None),
+            shard(loga, "batch", None, "model"),
+            shard(b_mat, "batch", None, None),
+            shard(c_mat, "batch", None, None))
+
+
+def _ssd(u, loga, b_mat, c_mat, cfg):
+    """:func:`ssd_chunked`; under a mesh on each rank's rows and heads
+    (``runtime.sharding.local_map``): the scan is independent along both,
+    and DTensor plans its batched matmuls over merged sharded dims for
+    minutes."""
+    return local_map(
+        functools.partial(ssd_chunked, chunk=cfg.ssm_chunk),
+        _pinned(u, loga, b_mat, c_mat), free=((0, 2), (0, 2), (0,), (0,)),
+        outs=(((0, 0), None, (0, 2), None), ((0, 0), (0, 2), None, None)))
 
 
 def _layer(lp, x, cfg):
@@ -206,12 +241,23 @@ def _layer(lp, x, cfg):
     z, xbc, dt_raw = _ssm_inputs(lp, x, cfg)
     xbc_c = _causal_conv(xbc, lp["conv_w"], lp["conv_b"])
     xh, u, loga, b_mat, c_mat = _post_conv(lp, xbc_c, dt_raw, cfg)
-    y, fin = ssd_chunked(u, loga, b_mat, c_mat, cfg.ssm_chunk)
+    y, fin = _ssd(u, loga, b_mat, c_mat, cfg)
     return _finish(lp, y, xh, z, cfg), xbc, fin
 
 
 def layer_full(lp, x, cfg):
     return _layer(lp, x, cfg)[0]
+
+
+def _ssm_step(u, loga, b_mat, c_mat, ssm_state):
+    """One recurrence step: u (B, 1, H, P), loga (B, 1, H), b_mat, c_mat
+    (B, 1, N), ssm_state (B, H, P, N) float32 -> (y (B, 1, H, P) in u's
+    dtype, the new state)."""
+    a = torch.exp(loga[:, 0])                                  # (B, H)
+    upd = u[:, 0].float()[..., None] * b_mat[:, 0].float()[:, None, None]
+    new_state = ssm_state * a[..., None, None] + upd           # (B,H,P,N)
+    y = (new_state @ c_mat[:, 0].float()[:, None, :, None])[..., 0]
+    return y[:, None].to(u.dtype), new_state
 
 
 def layer_decode(lp, x, cfg, conv_state, ssm_state):
@@ -221,13 +267,12 @@ def layer_decode(lp, x, cfg, conv_state, ssm_state):
     conv_out = (window * lp["conv_w"][None]).sum(1, keepdim=True) \
         + lp["conv_b"]
     xh, u, loga, b_mat, c_mat = _post_conv(lp, conv_out, dt_raw, cfg)
-    # one recurrence step
-    a = torch.exp(loga[:, 0])                                  # (B, H)
-    upd = u[:, 0].float()[..., None] * b_mat[:, 0].float()[:, None, None]
-    new_state = ssm_state * a[..., None, None] + upd           # (B,H,P,N)
-    y = (new_state @ c_mat[:, 0].float()[:, None, :, None])[..., 0]
-    y = y[:, None].to(x.dtype)                                 # (B,1,H,P)
-    return _finish(lp, y, xh, z, cfg), window[:, 1:], new_state
+    y, new_state = local_map(
+        _ssm_step, (*_pinned(u, loga, b_mat, c_mat),
+                    shard(ssm_state, "batch", "model", None, None)),
+        free=((0, 2), (0, 2), (0,), (0,), (0, 1)),
+        outs=(((0, 0), None, (0, 2), None), ((4, 0), (4, 1), None, None)))
+    return _finish(lp, y.to(x.dtype), xh, z, cfg), window[:, 1:], new_state
 
 
 # ---------------------------------------------------------------------------
@@ -244,11 +289,11 @@ def lm_loss(params, batch: dict, cfg, *, impl: str = "kernel"):
     is accepted for the API's sake: no attention runs here."""
     del impl
     inputs, targets = common.shift_labels(batch["tokens"])
-    h = params["embed"][inputs]
+    h = shard(common.embed(params["embed"], inputs), "batch", None, None)
     for lp in params["layers"]:
         h = transformer._remat(functools.partial(_residual, cfg=cfg), lp, h)
     h = common.norm(h, params["final_norm"], cfg.norm)
-    logits = h @ params["lm_head"]
+    logits = shard(h @ params["lm_head"], "batch", None, "model")
     mask = batch.get("loss_mask")
     loss = common.cross_entropy(logits, targets,
                                 mask[:, 1:] if mask is not None else None)
@@ -277,12 +322,12 @@ def prefill(params, tokens: torch.Tensor, cfg, *, max_context: int,
     del max_context, impl
     s = tokens.shape[1]
     keep = cfg.conv_width - 1
-    h = params["embed"][tokens]
+    h = common.embed(params["embed"], tokens)
     convs, ssms = [], []
     for lp in params["layers"]:
         out, xbc, fin = _layer(lp, common.norm(h, lp["ln"], cfg.norm), cfg)
         h = h + out
-        convs.append(F.pad(xbc, (0, 0, keep, 0))[:, s:])
+        convs.append(common.pad_front(xbc, keep)[:, s:])
         ssms.append(fin)
     h = common.norm(h, params["final_norm"], cfg.norm)
     logits = (h[:, -1:] @ params["lm_head"])[:, 0]
@@ -295,7 +340,7 @@ def decode_step(params, cache: dict, tokens: torch.Tensor, cfg):
     """tokens (B, 1) -> (logits (B, 1, V), cache). The cache's conv and ssm
     states are updated in place; the returned dict shares them, with
     ``step`` advanced by one."""
-    h = params["embed"][tokens]
+    h = shard(common.embed(params["embed"], tokens), "batch", None, None)
     for i, lp in enumerate(params["layers"]):
         out, conv, ssm = layer_decode(lp, common.norm(h, lp["ln"], cfg.norm),
                                       cfg, cache["conv"][i], cache["ssm"][i])
@@ -303,4 +348,5 @@ def decode_step(params, cache: dict, tokens: torch.Tensor, cfg):
         cache["conv"][i] = conv
         cache["ssm"][i] = ssm
     h = common.norm(h, params["final_norm"], cfg.norm)
-    return h @ params["lm_head"], {**cache, "step": cache["step"] + 1}
+    return shard(h @ params["lm_head"], "batch", None, "model"), \
+        {**cache, "step": cache["step"] + 1}

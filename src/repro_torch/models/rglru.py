@@ -15,6 +15,10 @@ of ``{rec0, rec1, attn}`` dicts where the reference stacks them, ``tail``
 a list; ``lam`` stays float32. :class:`RGLRULM` holds them as an
 ``nn.Module`` and :func:`params_from_jax` turns a reference tree into its
 ``state_dict``.
+
+Under a mesh the block-diagonal gates run on each rank's batch rows with
+the width whole (``runtime.sharding.local_map``): 10 heads do not split
+over a 16-way ``model`` axis, and DTensor reshapes only whole shards.
 """
 from __future__ import annotations
 
@@ -25,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import attention, common, transformer
+from repro_torch.runtime.sharding import local_map, shard
 
 C_RGLRU = 8.0
 
@@ -116,16 +121,24 @@ def params_from_jax(tree: Mapping) -> dict[str, torch.Tensor]:
 # RG-LRU
 # ---------------------------------------------------------------------------
 
-def _gates(lp, x, cfg):
-    """Block-diagonal per-head gates. x (..., W) -> (r, i) in float32."""
-    h = cfg.n_heads
-    bh = x.shape[-1] // h
-    xh = x.reshape(*x.shape[:-1], h, bh)
-    r = torch.sigmoid(torch.einsum("...hc,hcd->...hd", xh, lp["gate_r"])
+def _gate_values(x, gate_r, gate_i, h: int):
+    xh = x.reshape(*x.shape[:-1], h, x.shape[-1] // h)
+    r = torch.sigmoid(torch.einsum("...hc,hcd->...hd", xh, gate_r)
                       .reshape(x.shape).float())
-    i = torch.sigmoid(torch.einsum("...hc,hcd->...hd", xh, lp["gate_i"])
+    i = torch.sigmoid(torch.einsum("...hc,hcd->...hd", xh, gate_i)
                       .reshape(x.shape).float())
     return r, i
+
+
+def _gates(lp, x, cfg):
+    """Block-diagonal per-head gates. x (..., W) -> (r, i) in float32.
+    Under a mesh on each rank's batch rows with W whole
+    (``runtime.sharding.local_map``): W sharded finer than whole heads (10
+    heads on a 16-way axis) cannot be split into heads by DTensor."""
+    whole = (None,) * (x.dim() - 1)
+    return local_map(functools.partial(_gate_values, h=cfg.n_heads),
+                     (x, lp["gate_r"], lp["gate_i"]), free=((0,), (), ()),
+                     outs=(((0, 0),) + whole, ((0, 0),) + whole))
 
 
 def _linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -178,11 +191,11 @@ def _gelu(x):
 def _rec_temporal_full(lp, x, cfg, h0=None, conv_state=None):
     """The recurrent temporal block over the whole sequence: (out, h_last,
     the last ``conv_width - 1`` conv inputs)."""
-    bx = x @ lp["w_x"]
-    gate = _gelu(x @ lp["w_gate_branch"])
+    bx = shard(x @ lp["w_x"], "batch", None, "model")
+    gate = _gelu(shard(x @ lp["w_gate_branch"], "batch", None, "model"))
     width = lp["conv_w"].shape[0]
     if conv_state is None:
-        pad = F.pad(bx, (0, 0, width - 1, 0))
+        pad = common.pad_front(bx, width - 1)
     else:
         pad = torch.cat([conv_state, bx], dim=1)
     s = x.shape[1]
@@ -191,7 +204,7 @@ def _rec_temporal_full(lp, x, cfg, h0=None, conv_state=None):
         conv = conv + pad[:, i:i + s] * lp["conv_w"][i]
     conv = conv + lp["conv_b"]
     y, h_last = rg_lru_full(lp, conv, cfg, h0)
-    out = (y * gate) @ lp["w_out"]
+    out = shard((y * gate) @ lp["w_out"], "batch", None, None)
     return out, h_last, pad[:, pad.shape[1] - (width - 1):]
 
 
@@ -251,14 +264,14 @@ def lm_loss(params, batch: dict, cfg, *, impl: str = "kernel"):
     under ``transformer._remat`` (the tail does not, as in the reference);
     ``impl`` as in :func:`attention.attend_full`."""
     inputs, targets = common.shift_labels(batch["tokens"])
-    h = params["embed"][inputs]
+    h = shard(common.embed(params["embed"], inputs), "batch", None, None)
     body = functools.partial(_group_full, cfg=cfg, impl=impl)
     for gp in params["groups"]:
         h = transformer._remat(lambda g, x: body(g, x)[0], gp, h)
     for lp in params.get("tail", ()):
         h, _ = rec_layer_full(lp, h, cfg)
     h = common.norm(h, params["final_norm"], cfg.norm)
-    logits = h @ params["embed"].T
+    logits = shard(h @ params["embed"].T, "batch", None, "model")
     mask = batch.get("loss_mask")
     loss = common.cross_entropy(logits, targets,
                                 mask[:, 1:] if mask is not None else None)
@@ -299,7 +312,7 @@ def prefill(params, tokens: torch.Tensor, cfg, *, max_context: int,
     :func:`attention.attend_full`."""
     s = tokens.shape[1]
     cap = min(max_context, cfg.local_window)
-    h = params["embed"][tokens]
+    h = common.embed(params["embed"], tokens)
     rec_h, rec_conv, ks, vs = [], [], [], []
     pos = None
     for gp in params["groups"]:
@@ -314,10 +327,14 @@ def prefill(params, tokens: torch.Tensor, cfg, *, max_context: int,
     if params["groups"]:
         cache.update(rec_h=torch.stack(rec_h), rec_conv=torch.stack(rec_conv),
                      k=torch.stack(ks), v=torch.stack(vs), pos=pos)
-    for i, lp in enumerate(params.get("tail", ())):
+    tail_h, tail_conv = [], []
+    for lp in params.get("tail", ()):
         h, (hl, cl) = rec_layer_full(lp, h, cfg)
-        cache["tail_h"][i] = hl
-        cache["tail_conv"][i] = cl
+        tail_h.append(hl)
+        tail_conv.append(cl)
+    if tail_h:
+        cache.update(tail_h=torch.stack(tail_h),
+                     tail_conv=torch.stack(tail_conv))
     h = common.norm(h, params["final_norm"], cfg.norm)
     logits = (h[:, -1:] @ params["embed"].T)[:, 0]
     cache["step"] = s
@@ -331,7 +348,7 @@ def decode_step(params, cache: dict, tokens: torch.Tensor, cfg):
     dict shares them, with ``step`` advanced by one."""
     step = cache["step"]
     cap = cache["k"].shape[2]
-    h = params["embed"][tokens]
+    h = common.embed(params["embed"], tokens)
     cache["pos"][step % cap] = step          # shared by all groups: once
     for g, gp in enumerate(params["groups"]):
         for j, name in enumerate(("rec0", "rec1")):
@@ -349,4 +366,5 @@ def decode_step(params, cache: dict, tokens: torch.Tensor, cfg):
         cache["tail_h"][i] = rh
         cache["tail_conv"][i] = rc
     h = common.norm(h, params["final_norm"], cfg.norm)
-    return h @ params["embed"].T, {**cache, "step": step + 1}
+    return shard(h @ params["embed"].T, "batch", None, "model"), \
+        {**cache, "step": step + 1}

@@ -23,6 +23,7 @@ import torch
 from torch.utils import checkpoint as _checkpoint
 
 from repro_torch.models import attention, common, moe
+from repro_torch.runtime.sharding import shard
 
 #: ops whose outputs a remat mode saves (None: save the layer input only):
 #: "dots" is ``checkpoint_dots`` (every matmul), "dots_no_batch"
@@ -136,7 +137,7 @@ def _layer_full(lp, h, cfg, impl: str = "kernel"):
     h = h + a_out
     m_in = common.norm(h, lp["ln2"], cfg.norm)
     m_out, aux, drop = _ffn(lp, m_in, cfg)
-    return h + m_out, aux, drop, kv
+    return shard(h + m_out, "batch", None, None), aux, drop, kv
 
 
 def forward_embeds(params, h, cfg, *, collect_kv: bool = False,
@@ -144,6 +145,7 @@ def forward_embeds(params, h, cfg, *, collect_kv: bool = False,
     """h (B, S, D) embeddings -> (hidden, aux, per-layer (k, v) list |
     None); aux holds ``moe_aux`` and ``moe_drop_frac`` averaged over the
     layers (zeros for a dense model)."""
+    h = shard(h, "batch", None, None)
     aux = drop = torch.zeros((), dtype=torch.float32, device=h.device)
     kvs = []
     for lp in params["layers"]:
@@ -160,7 +162,7 @@ def forward_embeds(params, h, cfg, *, collect_kv: bool = False,
 
 def logits_fn(params, h, cfg):
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return common.dot(h, w)
+    return shard(common.dot(h, w), "batch", None, "model")
 
 
 def lm_loss(params, batch: dict[str, Any], cfg, *, impl: str = "kernel"):
@@ -168,7 +170,7 @@ def lm_loss(params, batch: dict[str, Any], cfg, *, impl: str = "kernel"):
     tensors on the parameters' device. Returns (loss, {"ce", "moe_aux",
     "moe_drop_frac"}); ``impl`` as in :func:`attention.attend_full`."""
     inputs, targets = common.shift_labels(batch["tokens"])
-    h = params["embed"][inputs]
+    h = common.embed(params["embed"], inputs)
     h, aux, _ = forward_embeds(params, h, cfg, impl=impl)
     logits = logits_fn(params, h, cfg)
     mask = batch.get("loss_mask")
@@ -209,7 +211,7 @@ def prefill(params, tokens: torch.Tensor, cfg, *, max_context: int,
     """
     s = tokens.shape[1]
     cap = cache_capacity(cfg, max_context)
-    h = params["embed"][tokens]
+    h = common.embed(params["embed"], tokens)
     h, _, kvs = forward_embeds(params, h, cfg, collect_kv=True, impl=impl)
     logits = logits_fn(params, h[:, -1:], cfg)[:, 0]
     caches = [attention.cache_from_prefill(k, v, cap) for k, v in kvs]
@@ -228,7 +230,7 @@ def decode_step(params, cache: dict, tokens: torch.Tensor, cfg):
     """
     step = cache["step"]
     cap = cache["k"].shape[2]
-    h = params["embed"][tokens]
+    h = shard(common.embed(params["embed"], tokens), "batch", None, None)
     cache["pos"][step % cap] = step          # shared by all layers: once
     for i, lp in enumerate(params["layers"]):
         a_in = common.norm(h, lp["ln1"], cfg.norm)

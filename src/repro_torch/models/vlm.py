@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import attention, common, transformer
+from repro_torch.runtime.sharding import shard
 
 
 def init_model(cfg, gen) -> dict:
@@ -57,12 +58,12 @@ def project_patches(params, patches: torch.Tensor, cfg) -> torch.Tensor:
     dt = torch.promote_types(patches.dtype, common.dtype_of(cfg))
     h = F.gelu(common.dot(patches.to(dt), params["proj_in"]),
                approximate="tanh")
-    return common.dot(h, params["proj_out"])
+    return shard(common.dot(h, params["proj_out"]), "batch", None, None)
 
 
 def _sequence(params, patches, tokens, cfg):
     pe = project_patches(params, patches, cfg)
-    te = params["embed"][tokens].to(pe.dtype)
+    te = common.embed(params["embed"], tokens).to(pe.dtype)
     return torch.cat([pe, te], dim=1), pe.shape[1]
 
 

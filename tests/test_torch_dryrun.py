@@ -1,0 +1,130 @@
+"""The port's dry run (``launch/dryrun.py``, ``launch/hlo_analysis.py``)
+against the JAX package's, on the CPU.
+
+* ``param_count`` and ``model_flops`` equal the reference's for every
+  arch x shape cell (arithmetic, so exactly).
+* ``roofline_terms`` gives the expected terms on hand-made inputs, at the
+  H100's constants.
+* The eager count at full depth equals the reference's depth-1/2
+  extrapolation ``d1 + (units - 1)(d2 - d1)`` (FLOPs, bytes accessed,
+  collective bytes by kind), on a dense, an MoE and a RecurrentGemma
+  config (reduced widths, three depth units each, RecurrentGemma's with
+  its two-layer tail; on a fake (2, 4) mesh, the train cell below, and
+  for RecurrentGemma, whose log-depth scans take thrice the ops, its
+  prefill).
+* ``run_cell`` on a fake (2, 4) mesh at a reduced TinyLlama train cell
+  (seq 64, batch 8, the reference's slow dry-run test) returns ``"status":
+  "ok"``, ``impl`` ``ref``, ``temp_bytes`` None, and each device's
+  parameter, optimizer and batch bytes those of the cell's build, which
+  ``tests/test_torch_shardings.py`` holds to the reference's
+  ``NamedSharding`` shard shapes on 8 host devices.
+* The fake world is left on exit: no process group stays initialized.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+
+import pytest
+import torch.distributed as dist
+
+from repro import configs as jconfigs
+from repro.launch import hlo_analysis as jhlo
+from repro_torch import configs
+from repro_torch.launch import dryrun, hlo_analysis
+from repro_torch.launch import mesh as meshlib
+from repro_torch.models import api
+
+
+def test_param_count_and_model_flops_equal_reference():
+    for arch in configs.list_archs():
+        cfg, jcfg = configs.get_config(arch), jconfigs.get_config(arch)
+        for active in (False, True):
+            assert hlo_analysis.param_count(cfg, active) == \
+                jhlo.param_count(jcfg, active), arch
+        for name, cell in configs.SHAPE_CELLS.items():
+            assert hlo_analysis.model_flops(cfg, cell) == \
+                jhlo.model_flops(jcfg, jconfigs.SHAPE_CELLS[name]), \
+                (arch, name)
+
+
+def test_roofline_terms_at_h100_constants():
+    assert hlo_analysis.PEAK_FLOPS_BF16 == 989e12
+    assert hlo_analysis.HBM_BW == 3.35e12
+    assert hlo_analysis.NVLINK_BW == 450e9
+    n = 4
+    t = hlo_analysis.roofline_terms(flops=2 * n * 989e12,
+                                    hbm_bytes=0.25 * n * 3.35e12,
+                                    collective_bytes=3 * n * 450e9,
+                                    n_chips=n)
+    assert t["compute_s"] == pytest.approx(2.0)
+    assert t["memory_s"] == pytest.approx(0.25)
+    assert t["collective_s"] == pytest.approx(3.0)
+    assert t["dominant"] == "collective_s"
+    assert t["roofline_fraction"] == pytest.approx(2 / 3)
+    z = hlo_analysis.roofline_terms(0.0, 0.0, 0.0, 1)
+    assert z["roofline_fraction"] == 0.0
+
+
+def _small(shape):
+    """``shape``'s cell at the reference's slow dry-run test's size."""
+    return dataclasses.replace(configs.SHAPE_CELLS[shape], seq_len=64,
+                               global_batch=8)
+
+
+def _cfg(arch, layers):
+    return dataclasses.replace(configs.get_config(arch).reduced(),
+                               n_layers=layers)
+
+
+@functools.lru_cache(maxsize=None)
+def _small_cell(arch, layers, shape="train_4k"):
+    """``run_cell`` of ``_small(shape)`` on the fake (2, 4) mesh (one
+    record shared by the tests that read it)."""
+    return dryrun.run_cell(arch, shape, "test", cfg=_cfg(arch, layers),
+                           cell=_small(shape))
+
+
+@pytest.mark.parametrize("arch,layers,shape", [
+    pytest.param("tinyllama-1.1b", 3, "train_4k", id="tinyllama-1.1b"),
+    pytest.param("mixtral-8x7b", 3, "train_4k", id="mixtral-8x7b"),
+    pytest.param("recurrentgemma-2b", 11, "prefill_32k",
+                 id="recurrentgemma-2b")])
+def test_full_depth_count_equals_depth_extrapolation(arch, layers, shape):
+    cfg = _cfg(arch, layers)
+    rec = _small_cell(arch, layers, shape)
+    assert rec["status"] == "ok", rec
+    assert rec["depth_units"] == 3
+    with meshlib.fake_world(8):
+        mesh = meshlib.make_test_mesh(2, 4)
+        ext = dryrun.measure_costs(cfg, _small(shape), mesh)
+    assert not dist.is_initialized()
+    assert ext["depth_units"] == rec["depth_units"]
+    assert rec["hlo_flops"] == ext["flops"] > 0
+    assert rec["hlo_bytes"] == ext["bytes"] > 0
+    assert rec["collective_bytes"] == ext["collective_bytes"] > 0
+    assert rec["collective_bytes_by_kind"] == \
+        ext["collective_bytes_by_kind"]
+
+
+def test_run_cell_on_a_fake_test_mesh():
+    cfg = configs.get_config("tinyllama-1.1b").reduced()
+    assert _cfg("tinyllama-1.1b", cfg.n_layers) == cfg
+    rec = _small_cell("tinyllama-1.1b", cfg.n_layers)
+    assert not dist.is_initialized()
+    # the cell's build, whose bytes a device tests/test_torch_shardings.py
+    # holds to the reference's shard shapes
+    with meshlib.fake_world(8):
+        want = dryrun.device_bytes(dryrun.build_cell(
+            api.build_model(cfg, device="meta"), _small("train_4k"),
+            meshlib.make_test_mesh(2, 4)))
+    assert rec["status"] == "ok" and rec["impl"] == "ref"
+    assert rec["n_chips"] == 8 and rec["temp_bytes"] is None
+    assert rec["bytes_per_device"] == want
+    assert rec["argument_bytes"] == sum(want.values()) and rec["fits"]
+    assert rec["hlo_flops"] > rec["model_flops"] > 0
+    assert 0 < rec["useful_flops_ratio"] < 1
+    # a (2, 4) mesh's tensor parallelism reduces over 'model'
+    assert rec["collective_count_by_kind"].get("all-reduce", 0) > 0
+    skip = dryrun.run_cell("hubert-xlarge", "decode_32k", "single")
+    assert skip["status"] == "skip" and "decode" in skip["skip_reason"]

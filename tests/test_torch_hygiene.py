@@ -59,7 +59,8 @@ def test_port_never_imports_jax_or_repro():
                 "kernels/octent/sharded.py", "launch/spconv_sharded.py",
                 "models/moe.py", "data/tokens.py", "models/mamba2.py",
                 "models/rglru.py", "models/encoder.py", "models/vlm.py",
-                "models/api.py"):
+                "models/api.py", "launch/mesh.py", "launch/shardings.py",
+                "launch/hlo_analysis.py", "launch/dryrun.py"):
         assert PKG / mod in files, mod
     assert REPO / "examples" / "moe_ragged_torch.py" in files
     bad = {str(p.relative_to(REPO)): sorted(_imported_roots(p)
@@ -73,6 +74,8 @@ def test_import_needs_no_nvcc_and_no_card():
             for p in sorted(PKG.rglob("*.py"))]
     mods = [m[:-len(".__init__")] if m.endswith(".__init__") else m
             for m in mods]
+    for m in ("mesh", "shardings", "hlo_analysis", "dryrun"):
+        assert f"repro_torch.launch.{m}" in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "assert 'jax' not in sys.modules and 'repro' not in sys.modules\n"

@@ -131,9 +131,21 @@ def test_moe_ffn_grads_match_reference(cf):
 
 
 def test_set_moe_impl():
+    """Both of the reference's dispatches are accepted (``shard_map`` no
+    longer raises); off-mesh ``shard_map`` is the ``einsum`` function, bit
+    for bit (under a mesh: ``tests/test_torch_lm_sharded.py``)."""
+    cfg, _, p, x = _setup(1.25)
+    tp, tx = _t(p), torch.from_numpy(x)
     moe.set_moe_impl("einsum")
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 5"):
+    want, wm = moe.moe_ffn(tp, tx, cfg)
+    try:
         moe.set_moe_impl("shard_map")
+        assert moe.moe_impl() == "shard_map"
+        got, gm = moe.moe_ffn(tp, tx, cfg)
+    finally:
+        moe.set_moe_impl("einsum")
+    assert torch.equal(got, want)
+    assert all(torch.equal(gm[k], wm[k]) for k in wm)
     with pytest.raises(ValueError):
         moe.set_moe_impl("dense")
 
