@@ -187,36 +187,52 @@ RecurrentGemma, HuBERT and LLaVA families served and trained:
   (``examples/moe_ragged_torch.py``) at the example's sizes and at one
   Mixtral-8x7B ``w_gate`` product, against the dense per-expert loop and
   its plain version, timed against its bound;
-* ``gloo_probe``: each collective DTensor issues (``all_reduce``,
+* ``gloo_probe``: each collective DTensor and the pipeline issue
+  (``all_reduce``: float32 SUM and MAX, int32 SUM;
   ``all_gather_into_tensor``, ``reduce_scatter_tensor``,
-  ``all_to_all_single``) on CUDA tensors over a 2-rank gloo world of its
-  own, recorded as it runs or fails;
-* ``lm_sharded``: the LM's tensor sharding. TinyLlama-1.1B at full width
-  and depth, float32 weights from the seed, with DTensor parameters
-  placed by ``param_shardings``, on one NCCL rank (``data`` 1, ``model``
-  1) and on two gloo ranks sharing the card (``model`` 2; the kinds of
-  collective that ``gloo_probe`` saw refused staged through host memory,
-  since gloo crashes in ``all_gather_into_tensor`` on CUDA tensors, and
-  that world's times marked host-staged): a 4 x 512 prefill with
-  kernel 5 on each rank's own heads (22 launches a rank) and one
-  training step, logits within 1e-3 x max |logit|, loss within 2e-3,
-  parameters within ``allclose(3e-2)``, the gradient norm within 1e-5
-  and each tensor's change within 1e-3 (relative) of the single-device
-  kernel path on the same card; Mixtral-8x7B at 2 of 32 layers on the
-  two ranks, its
-  ``shard_map`` dispatch held to ``einsum`` (logits, loss, each
-  gradient; routing pinned, flips counted);
+  ``all_to_all_single``: even splits and a ``permute_tensor``) on CUDA
+  tensors over a 2-rank gloo world of its own, recorded as it runs or
+  fails;
+* ``lm_sharded``: the LM's tensor sharding. TinyLlama-1.1B at full width,
+  float32 weights from the seed, with DTensor parameters placed by
+  ``param_shardings``, on one NCCL rank (``data`` 1, ``model`` 1; full
+  depth) and on two gloo ranks sharing the card (``model`` 2; at 4 of 22
+  layers; the kinds of collective that ``gloo_probe`` saw refused staged
+  through host memory, since gloo crashes in ``all_gather_into_tensor``
+  on CUDA tensors, and that world's times marked host-staged): a 4 x 512
+  prefill with kernel 5 on each rank's own heads (one launch a layer a
+  rank) and one training step, logits within 1e-3 x max |logit|, loss
+  within 2e-3, parameters within ``allclose(3e-2)``, the gradient norm
+  within 1e-5 and each tensor's change within 1e-3 (relative) of the
+  single-device kernel path on the same card; Mixtral-8x7B at 2 of 32
+  layers on the two ranks, its ``shard_map`` dispatch held to ``einsum``
+  (logits, loss, each gradient; routing pinned, flips counted);
+* ``lm_pipeline``: in the same two gloo ranks, over a 2-way ``pod`` mesh,
+  TinyLlama-1.1B at full width and depth (float32, seeded), its 22 layers
+  in 2 GPipe stages of 11 (``runtime/pipeline.py``), each rank holding its
+  stage plus the embedding and head: the 4 x 512 batch as 4 microbatches
+  of 1 x 512 (kernel 5 44 times a rank), logits within 1e-3 x max |logit|
+  of the single-device kernel path; the pipelined loss (2e-3 relative),
+  gradient norm (1e-5) and each gradient (1e-3 of its norm) against one
+  device's; then data parallel over ``pod``: each rank's 2 x 512 half of
+  the batch through kernel 5, its gradients averaged by
+  ``compress.grad_allreduce_compressed`` within scale / 2 of the exact
+  mean, which is held to one device's gradient (1e-3 of each norm);
+  prefill and step ms (host-staged where anything was), the bubble
+  share, bytes a hand-off and a compressed all-reduce, peak memory;
 * ``dryrun``: the dry run of every (arch x shape x mesh) cell on both
   production meshes, on ``meta`` tensors in fake worlds of 256 and 512
   ranks, run on all the host's cores after the card's phases, so that
   none of their host-paced readings shares the host: each cell's
-  status, ``fits``, bytes a device
-  and seconds; every applicable cell must be ``ok``. With it,
-  TinyLlama-1.1B's 4 x 512 prefill cell at a (1, 1) mesh, checked on the
-  card before any other phase: its argument bytes equal to
+  status, ``fits`` (arguments plus temporaries), bytes a device,
+  temporaries and seconds; every applicable cell must be ``ok``. With
+  it, TinyLlama-1.1B's 4 x 512 prefill cell at a (1, 1) mesh, checked on
+  the card before any other phase: its argument bytes equal to
   ``torch.cuda.memory_allocated``'s growth once they are placed, its
   FLOPs to ``FlopCounterMode``'s count of the same step run through the
-  plain versions.
+  plain versions, and its ``temp_bytes`` to the growth of
+  ``torch.cuda.max_memory_allocated`` over the placed arguments in that
+  run, within the allocator's rounding (:data:`TEMP_SLACK_BLOCK`).
 
 Each path runs with its launch counts set to 0 just before and read just
 after (phase ``restart`` reads its workers' counts). The bound of kernels
@@ -373,11 +389,19 @@ HUBERT_TRAIN_BATCH, HUBERT_TRAIN_STEPS = 2, 2
 LLAVA_ARCH, LLAVA_BATCH, LLAVA_PROMPT, LLAVA_GEN = ("llava-next-mistral-7b",
                                                     2, 512, 32)
 LLAVA_TRAIN_LAYERS, LLAVA_TRAIN_BATCH, LLAVA_TRAIN_STEPS = 4, 1, 2
-# phase lm_sharded: TinyLlama-1.1B whole (float32) under DTensor
-# parameters on one NCCL rank ((data 1, model 1)) and two gloo ranks
-# sharing the card ((data 1, model 2)); Mixtral-8x7B at 2 of 32 layers on
-# the two ranks, its shard_map dispatch held to einsum
-LM_SHARDED_WORLDS = ((1, "nccl", (1, 1)), (2, "gloo", (1, 2)))
+# phase lm_sharded: TinyLlama-1.1B (float32) under DTensor parameters on
+# one NCCL rank ((data 1, model 1), all 22 layers) and two gloo ranks
+# sharing the card ((data 1, model 2), at LM_SHARDED_GLOO_LAYERS: that
+# world is host-staged and paced by its staged all-gathers, which grow
+# with depth, ROADMAP §3 item 13); Mixtral-8x7B at 2 of 32 layers on
+# the two ranks, its shard_map dispatch held to einsum. (world, backend,
+# mesh, TinyLlama layers)
+LM_SHARDED_GLOO_LAYERS = 4
+LM_SHARDED_WORLDS = ((1, "nccl", (1, 1), 22),
+                     (2, "gloo", (1, 2), LM_SHARDED_GLOO_LAYERS))
+# phase lm_pipeline, in the gloo world: TinyLlama-1.1B whole in 2 stages
+# over ("pod",), the 4 x 512 batch in LM_PIPE_MICRO microbatches
+LM_PIPE_MICRO = 4
 
 LM_SHARDED_TIMEOUT_S = 600
 MOE_SHARDED_LAYERS, MOE_SHARDED_BATCH = 2, 2
@@ -389,6 +413,12 @@ TOL_SHARDED_UPDATE = 1e-3      # |dp_shard - dp_one| / |dp_one|, each tensor
 TOL_SHARDED_GRAD = 1e-3        # |g_shard_map - g_einsum| / |g_einsum|, each
 # phase dryrun: the cross-check cell on the card (TinyLlama-1.1B, (1, 1))
 DRYRUN_CHECK = ("tinyllama-1.1b", "prefill", 4, 512)
+# the caching allocator's most over the walk's exact bytes, a block live
+# at the peak: each block rounded up to 512 B, and a cached block handed
+# out whole when cutting it would leave under 1 MiB (the large pool's
+# split rule); plus op-internal scratch (reductions) at most TEMP_SLACK
+TEMP_SLACK_BLOCK = 2 ** 20 + 512
+TEMP_SLACK = 32 * 2 ** 20
 DRYRUN_TIMEOUT_S = 600         # the grid, on the host after the card phases
 # phase moe_ragged: (tokens, d, f, experts, top-k, bm) of one Mixtral-8x7B
 # w_gate product (the example's own sizes are its constants)
@@ -4332,31 +4362,28 @@ def _close_params(got: dict, want: dict, start: dict) -> tuple:
     return worst, update
 
 
-def _lm_sharded_tinyllama(dev, mesh, rank):
-    """TinyLlama-1.1B (float32) under ``mesh``: one prefill of LM_BATCH x
-    LM_PROMPT tokens and one ``make_train_step``, parameters placed by
-    ``param_shardings``, against the single-device kernel path on the same
-    card (rank 0 computes it first, the others wait)."""
+def _lm_sharded_tinyllama(dev, mesh, rank, n_layers):
+    """TinyLlama-1.1B (float32) at ``n_layers`` of its 22 under ``mesh``:
+    one prefill of LM_BATCH x LM_PROMPT tokens and one
+    ``make_train_step``, parameters placed by ``param_shardings``, against
+    the single-device kernel path on the same card (rank 0 computes it
+    first, the others wait)."""
     import dataclasses
     import torch
     import torch.distributed as dist
     from repro_torch.configs import get_config
-    from repro_torch.data.tokens import TokenStream
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.launch import shardings
     from repro_torch.launch.train import make_train_step
     from repro_torch.models import api
     from repro_torch.optim import adamw
     from repro_torch.runtime import sharding as rs
-    cfg = dataclasses.replace(get_config(LM_ARCH), dtype="float32")
+    cfg = dataclasses.replace(get_config(LM_ARCH), dtype="float32",
+                              n_layers=n_layers)
     model = api.build_model(cfg, device=dev)
     flat = dict(model.module(torch.Generator(dev).manual_seed(SEED))
                 .state_dict())
-    tokens = torch.as_tensor(np.random.default_rng(SEED).integers(
-        0, cfg.vocab, (LM_BATCH, LM_PROMPT)), dtype=torch.int32, device=dev)
-    tb = {k: torch.as_tensor(v, device=dev) for k, v in TokenStream(
-        vocab=cfg.vocab, batch=LM_TRAIN_BATCH, seq=LM_TRAIN_SEQ,
-        seed=SEED).batch_at(0).items()}
+    tokens, tb = _lm_batches(cfg, dev)
     opt_cfg = adamw.AdamWConfig(lr=LM_TRAIN_LR)
     step = make_train_step(model, opt_cfg)
     base = None
@@ -4400,7 +4427,7 @@ def _lm_sharded_tinyllama(dev, mesh, rank):
         step_ms = (time.perf_counter() - t0) * 1e3
         train_launches = fa_kernel.launches - launches
     local_heads = tuple(params["layers.0.attn.wq"].to_local().shape)
-    rec = {"flash_launches_prefill": launches,
+    rec = {"n_layers": n_layers, "flash_launches_prefill": launches,
            "flash_launches_step": train_launches,
            "prefill_ms": prefill_ms, "step_ms": step_ms,
            "wq_local_shape": local_heads,
@@ -4418,6 +4445,154 @@ def _lm_sharded_tinyllama(dev, mesh, rank):
             single_step_ms=base["step_ms"])
     else:
         _gather_only(p2)
+    return rec
+
+
+def _lm_batches(cfg, dev):
+    """The LM phases' batches: LM_BATCH x LM_PROMPT prompt tokens and the
+    first LM_TRAIN_BATCH x LM_TRAIN_SEQ ``TokenStream`` training batch,
+    from SEED, on ``dev``."""
+    import torch
+    from repro_torch.data.tokens import TokenStream
+    tokens = torch.as_tensor(np.random.default_rng(SEED).integers(
+        0, cfg.vocab, (LM_BATCH, LM_PROMPT)), dtype=torch.int32, device=dev)
+    tb = {k: torch.as_tensor(v, device=dev) for k, v in TokenStream(
+        vocab=cfg.vocab, batch=LM_TRAIN_BATCH, seq=LM_TRAIN_SEQ,
+        seed=SEED).batch_at(0).items()}
+    return tokens, tb
+
+
+def _grad_rel(got, want) -> float:
+    """|got - want| / |want| (norms, in float32 on the card)."""
+    return float((got.float() - want.float()).norm()) / max(
+        float(want.float().norm()), 1e-30)
+
+
+def _lm_pipeline(dev, mesh, rank, cfg, n_micro):
+    """TinyLlama (``cfg``) in S = 2 GPipe stages over ``mesh``'s ``pod``
+    dimension, and data parallel over it with the int8-compressed
+    gradient mean, each against this rank's own single-device kernel path
+    (every rank builds the whole model from SEED, computes that path, then
+    keeps only its stage's layers). Returns the record and the errors
+    the phase gates."""
+    import torch
+    import torch.distributed._functional_collectives as funcol
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.launch.train import lm_loss_and_grads
+    from repro_torch.models import api, common, transformer
+    from repro_torch.runtime import compress
+    from repro_torch.runtime import pipeline as pp
+    t_start = time.perf_counter()
+    group = mesh.get_group("pod")
+    s = mesh.size(0)
+    cuda = dev.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    model = api.build_model(cfg, device=dev)
+    flat = dict(model.module(torch.Generator(dev).manual_seed(SEED))
+                .state_dict())
+    tokens, tb = _lm_batches(cfg, dev)
+    # one device: the whole forward's logits, the loss and gradients
+    with torch.no_grad():
+        p = model.nest(flat)
+        h, _, _ = transformer.forward_embeds(
+            p, common.embed(p["embed"], tokens), cfg)
+        want_logits = transformer.logits_fn(p, h, cfg)
+        del p, h
+    loss1, _, g1 = lm_loss_and_grads(model, flat, tb)
+    loss1 = float(loss1)
+    norm_1 = sum(float(v.float().square().sum()) for v in g1.values()) ** 0.5
+    # data parallel over pod: this rank's rows, the compressed mean
+    rows = tb["tokens"].shape[0] // s
+    half = {k: v[rank * rows:(rank + 1) * rows] for k, v in tb.items()}
+    sync()
+    t0 = time.perf_counter()
+    _, _, gh = lm_loss_and_grads(model, flat, half)
+    sync()
+    dp_grad_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    mean = compress.grad_allreduce_compressed(gh, mesh, "pod")
+    sync()
+    dp_comp_ms = (time.perf_counter() - t0) * 1e3
+    eps = float(torch.finfo(torch.float32).eps)
+    q_worst = dp_single = 0.0
+    for k in list(gh):
+        exact = funcol.wait_tensor(funcol.all_reduce(gh[k], "sum", group)) / s
+        scale = funcol.wait_tensor(funcol.all_reduce(
+            compress.scale_of(gh[k]).reshape(1), "max", group))[0]
+        # each rank's rounding is at most scale / 2; float32 rounding of
+        # values up to 127 x scale on top
+        bound = float(scale) * (0.5 + 4 * 127 * eps)
+        q_worst = max(q_worst, float((mean[k] - exact).abs().max()) / bound)
+        dp_single = max(dp_single, _grad_rel(exact, g1[k]))
+        del exact, gh[k], mean[k]
+    comp_bytes = sum(compress.payload_bytes(v) for v in flat.values())
+    # the pipeline: this rank keeps its stage's layers and the shared ones
+    params, keys = pp.lm_stage_params(flat, cfg.n_layers, mesh)
+    own = set(keys.values())
+    flat = {k: v for k, v in flat.items() if k in own}
+    g1 = {k: v for k, v in g1.items() if k in own}
+    del model
+    if cuda:
+        torch.cuda.empty_cache()
+    fa_kernel.launches = 0
+    sync()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits = pp.lm_pipeline_logits(params, tokens, cfg, mesh=mesh,
+                                       n_micro=n_micro)
+    sync()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    fwd_launches = fa_kernel.launches
+    # a hand-off carries one microbatch's hidden states; the hand-back
+    # all-reduces all M
+    handoff = tokens.numel() // n_micro * cfg.d_model \
+        * flat["embed"].element_size()
+    logits_err = float((logits - want_logits).abs().max())
+    max_abs = float(want_logits.abs().max())
+    del logits, want_logits
+    fa_kernel.launches = 0
+    sync()
+    t0 = time.perf_counter()
+    loss_p, gp = pp.lm_pipeline_loss_and_grads(flat, tb, cfg, mesh=mesh,
+                                                n_micro=n_micro)
+    sync()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    step_launches = fa_kernel.launches
+    grad_worst = max(_grad_rel(gp[k], g1[k]) for k in gp)
+    shared = [k for k in gp if not k.startswith("layers.")]
+    sq_shared = sum(float(gp[k].float().square().sum()) for k in shared)
+    sq_own = torch.tensor([sum(float(gp[k].float().square().sum())
+                               for k in gp if k not in shared)],
+                          dtype=torch.float64, device=dev)
+    sq_layers = float(funcol.wait_tensor(funcol.all_reduce(
+        sq_own, "sum", group))[0])
+    norm_p = (sq_shared + sq_layers) ** 0.5
+    rec = {"stage": pp.stage_index(mesh), "stages": s, "n_micro": n_micro,
+           "layers_held": len({k.split(".")[1] for k in own
+                               if k.startswith("layers.")}),
+           "flash_launches_forward": fwd_launches,
+           "flash_launches_step": step_launches,
+           "prefill_ms": prefill_ms, "step_ms": step_ms,
+           "bubble_share": pp.bubble_share(n_micro, s),
+           "handoff_bytes": handoff,
+           "handoff_bytes_forward": handoff * (n_micro + s - 1),
+           "hand_back_bytes": handoff * n_micro,
+           "logits_err": logits_err, "max_abs_logit": max_abs,
+           "loss": float(loss_p), "single_loss": loss1,
+           "loss_rel": abs(float(loss_p) - loss1) / abs(loss1),
+           "grad_norm": norm_p, "single_grad_norm": norm_1,
+           "grad_norm_rel": abs(norm_p - norm_1) / norm_1,
+           "grad_worst": grad_worst,
+           "dp": {"rows": rows, "grad_ms": dp_grad_ms,
+                  "compressed_allreduce_ms": dp_comp_ms,
+                  "compressed_bytes": comp_bytes,
+                  "compressed_of_bound": q_worst,
+                  "exact_vs_single": dp_single},
+           "seconds": time.perf_counter() - t_start}
     return rec
 
 
@@ -4543,14 +4718,18 @@ def _host_staged(kinds):
     return HostStaged()
 
 
-def _lm_sharded_rank(rank, world, mesh_shape, staged):
-    """One rank of phase lm_sharded: TinyLlama under ``mesh_shape``
-    (``data`` x ``model``), and Mixtral on a 2-way ``model`` mesh; the
-    collectives of ``staged`` (kinds) through host memory
-    (:func:`_host_staged`)."""
+def _lm_sharded_rank(rank, world, mesh_shape, staged, n_layers):
+    """One rank of phase lm_sharded: TinyLlama at ``n_layers`` under
+    ``mesh_shape`` (``data`` x ``model``), and on a 2-way ``model`` mesh
+    Mixtral, then phase lm_pipeline's work (:func:`_lm_pipeline`) over a
+    ``pod`` mesh of the same ranks; the collectives of ``staged`` (kinds)
+    through host memory (:func:`_host_staged`)."""
+    import collections
     import contextlib
     import torch
+    from repro_torch.configs import get_config
     from repro_torch.launch import mesh as meshlib
+    from repro_torch.launch.spconv_sharded import make_mesh
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", torch.cuda.current_device())
@@ -4558,18 +4737,33 @@ def _lm_sharded_rank(rank, world, mesh_shape, staged):
     mode = _host_staged(staged) if staged else contextlib.nullcontext()
     with mode:
         rec = {"rank": rank, "mesh": mesh_shape,
-               "tinyllama": _lm_sharded_tinyllama(dev, mesh, rank)}
+               "tinyllama": _lm_sharded_tinyllama(dev, mesh, rank,
+                                                  n_layers)}
         torch.cuda.empty_cache()
         if mesh_shape[1] == 2:
             rec["mixtral"] = _lm_sharded_mixtral(dev, mesh, rank)
-    rec["staged_collectives"] = dict(mode.staged) if staged else None
-    rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        rec["staged_collectives"] = dict(mode.staged) if staged else None
+        rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        if mesh_shape[1] == 2:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            before = collections.Counter(mode.staged) if staged else None
+            pod = make_mesh((world,), ("pod",), device="cuda")
+            cfg = dataclasses.replace(get_config(LM_ARCH), dtype="float32")
+            pipe = _lm_pipeline(dev, pod, rank, cfg, LM_PIPE_MICRO)
+            pipe["staged_collectives"] = dict(mode.staged - before) \
+                if staged else None
+            pipe["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            rec["pipeline"] = pipe
     return rec
 
 
 def _gloo_probe_rank(rank, kind):
-    """One collective of ``kind`` on a CUDA tensor over gloo, as DTensor
-    issues it (``_functional_collectives``)."""
+    """The collectives of ``kind`` on CUDA tensors over gloo, as DTensor,
+    the pipeline and the compressed all-reduce issue them
+    (``_functional_collectives``): ``all_reduce`` as float32 SUM and MAX
+    and int32 SUM, ``all_to_all_single`` with even splits and as
+    ``permute_tensor`` (one peer's whole buffer)."""
     import torch
     import torch.distributed as dist
     import torch.distributed._functional_collectives as funcol
@@ -4577,15 +4771,17 @@ def _gloo_probe_rank(rank, kind):
     x = torch.arange(8, dtype=torch.float32, device=dev) + rank
     group = dist.group.WORLD
     if kind == "all_reduce":
-        out = funcol.all_reduce(x, "sum", group)
+        outs = [funcol.all_reduce(x, "sum", group),
+                funcol.all_reduce(x, "max", group),
+                funcol.all_reduce(x.to(torch.int32), "sum", group)]
     elif kind == "all_gather_into_tensor":
-        out = funcol.all_gather_tensor(x, 0, group)
+        outs = [funcol.all_gather_tensor(x, 0, group)]
     elif kind == "reduce_scatter_tensor":
-        out = funcol.reduce_scatter_tensor(x, "sum", 0, group)
+        outs = [funcol.reduce_scatter_tensor(x, "sum", 0, group)]
     else:
-        out = funcol.all_to_all_single(x, None, None, group)
-    out = funcol.wait_tensor(out) if hasattr(funcol, "wait_tensor") else out
-    return out.cpu().tolist()
+        outs = [funcol.all_to_all_single(x, None, None, group),
+                funcol.permute_tensor(x, [1, 0], group)]
+    return [funcol.wait_tensor(o).cpu().tolist() for o in outs]
 
 
 def phase_gloo_probe():
@@ -4633,11 +4829,14 @@ def phase_lm_sharded(refused):
     TOL_SHARDED_GRAD_NORM and each tensor's change within
     TOL_SHARDED_UPDATE of one device's; kernel 5 launched on each
     rank's own heads, once a layer a prefill. Mixtral's ``shard_map``
-    dispatch held to ``einsum``. Returns kernel 5's launches on the
-    sharded prefills, summed over the ranks. The gloo world's times are
-    marked host-staged in the record: a departure from the rule that a
-    refused collective fails the phase, which would leave this card no
-    two-rank world (NCCL takes one rank a card)."""
+    dispatch held to ``einsum``. The gloo world's ranks then run phase
+    lm_pipeline (:func:`_lm_pipeline`, gated by
+    :func:`_lm_pipeline_gates`). Returns kernel 5's launches on the
+    sharded prefills and on the pipelined forward, each summed over the
+    ranks. The gloo world's times are marked host-staged in the record: a
+    departure from the rule that a refused collective fails the phase,
+    which would leave this card no two-rank world (NCCL takes one rank a
+    card)."""
     import os
     import shutil
     import tempfile
@@ -4645,17 +4844,17 @@ def phase_lm_sharded(refused):
     from repro_torch.launch.spconv_sharded import spawn_ranks
     t_phase = time.perf_counter()
     root = tempfile.mkdtemp(prefix="chip-smoke-lm-sharded-")
-    worlds, launches = [], 0
-    n_layers = 22                          # TinyLlama-1.1B
+    worlds, launches, pipeline = [], 0, None
     try:
-        for world, backend, shape in LM_SHARDED_WORLDS:
+        for world, backend, shape, n_layers in LM_SHARDED_WORLDS:
             t0 = time.perf_counter()
             try:
                 ranks = spawn_ranks(
                     _lm_sharded_rank, world, backend=backend,
                     init_file=os.path.join(root, f"rendezvous-{world}"),
                     args=(world, shape,
-                          tuple(refused) if backend == "gloo" else ()),
+                          tuple(refused) if backend == "gloo" else (),
+                          n_layers),
                     timeout_s=LM_SHARDED_TIMEOUT_S)
             except Exception as e:                      # noqa: BLE001
                 check(False, f"lm_sharded: {world} {backend} rank(s) failed "
@@ -4703,6 +4902,8 @@ def phase_lm_sharded(refused):
                                      f"not tensor-parallel times")
                            if staged else "card",
                            "seconds": time.perf_counter() - t0})
+            if backend == "gloo":
+                pipeline = [r.pop("pipeline") for r in ranks]
     finally:
         shutil.rmtree(root, ignore_errors=True)
     emit(phase="lm_sharded", arch=LM_ARCH, dtype="float32",
@@ -4710,21 +4911,75 @@ def phase_lm_sharded(refused):
          batch=LM_BATCH, prompt_len=LM_PROMPT, worlds=worlds,
          flash_launches=launches, torch=torch.__version__,
          seconds=time.perf_counter() - t_phase)
-    return launches
+    check(pipeline is not None, "lm_pipeline: the gloo world never ran")
+    return launches, _lm_pipeline_gates(pipeline)
+
+
+def _lm_pipeline_gates(ranks) -> int:
+    """Phase lm_pipeline's gates on the records of :func:`_lm_pipeline`,
+    one a rank of the gloo world; emits the phase. Returns kernel 5's
+    launches in the pipelined forward, summed over the ranks."""
+    n_layers = 22                          # TinyLlama-1.1B
+    s = len(ranks)
+    want = LM_PIPE_MICRO * n_layers // s
+    check(sorted(r["stage"] for r in ranks) == list(range(s)),
+          f"lm_pipeline: stages {[r['stage'] for r in ranks]}")
+    for r in ranks:
+        tag = f"lm_pipeline stage {r['stage']}"
+        check(r["layers_held"] == n_layers // s,
+              f"{tag}: holds {r['layers_held']} layers")
+        check(r["flash_launches_forward"] == want,
+              f"{tag}: {r['flash_launches_forward']} flash launches a "
+              f"forward, want {want}")
+        check(r["flash_launches_step"] == 2 * want,
+              f"{tag}: {r['flash_launches_step']} flash launches a step "
+              f"(forward and the backward's recompute), want {2 * want}")
+        check(r["logits_err"] <= TOL_SHARDED_LOGITS * r["max_abs_logit"],
+              f"{tag}: logits {r['logits_err']} vs {TOL_SHARDED_LOGITS} x "
+              f"{r['max_abs_logit']}")
+        check(r["loss_rel"] <= TOL_SHARDED_LOSS,
+              f"{tag}: loss rel {r['loss_rel']}")
+        check(r["grad_norm_rel"] <= TOL_SHARDED_GRAD_NORM,
+              f"{tag}: grad_norm rel {r['grad_norm_rel']}")
+        check(r["grad_worst"] <= TOL_SHARDED_GRAD,
+              f"{tag}: a gradient {r['grad_worst']} of its norm off one "
+              f"device's")
+        check(r["dp"]["compressed_of_bound"] <= 1.0,
+              f"{tag}: the compressed mean {r['dp']['compressed_of_bound']}"
+              f" of its scale / 2 bound off the exact mean")
+        check(r["dp"]["exact_vs_single"] <= TOL_SHARDED_GRAD,
+              f"{tag}: the exact data-parallel mean "
+              f"{r['dp']['exact_vs_single']} of a norm off one device's "
+              f"gradient")
+    staged = {k: v for r in ranks
+              for k, v in (r["staged_collectives"] or {}).items()}
+    emit(phase="lm_pipeline", arch=LM_ARCH, dtype="float32", stages=s,
+         microbatches=LM_PIPE_MICRO, batch=LM_BATCH, prompt_len=LM_PROMPT,
+         ranks=ranks,
+         times=("host-staged: " + ", ".join(sorted(staged))
+                + " ran through host memory") if staged else
+         "card (gloo's collectives on CUDA tensors, two ranks sharing "
+         "the card)",
+         seconds=max(r["seconds"] for r in ranks))
+    return sum(r["flash_launches_forward"] for r in ranks)
 
 
 def _dryrun_cross_check(dev):
     """TinyLlama-1.1B's prefill cell (DRYRUN_CHECK) at a (1, 1) mesh: the
     dry run's argument bytes against ``torch.cuda.memory_allocated``'s
-    growth once the parameters and tokens are placed on the card, and its
+    growth once the parameters and tokens are placed on the card, its
     FLOP count against ``FlopCounterMode`` of the same step run on the
-    card through the plain versions."""
+    card through the plain versions, and its ``temp_bytes`` against the
+    growth of ``torch.cuda.max_memory_allocated`` in that run over the
+    placed arguments: at least the walk's bytes less 1 MiB, at most
+    TEMP_SLACK_BLOCK more a storage live at the walk's peak plus
+    TEMP_SLACK (the allocator's rounding)."""
     import dataclasses
     import torch
     from torch.utils.flop_counter import FlopCounterMode
     from repro_torch.configs import SHAPE_CELLS, get_config
     from repro_torch.launch import dryrun
-    from repro_torch.models import api
+    from repro_torch.models import api, common
     arch, kind, b, s = DRYRUN_CHECK
     cfg = get_config(arch)
     cell = dataclasses.replace(SHAPE_CELLS["prefill_32k"], seq_len=s,
@@ -4741,20 +4996,42 @@ def _dryrun_cross_check(dev):
         0, cfg.vocab, (b, s)), dtype=torch.int32, device=dev)
     torch.cuda.synchronize()
     placed = torch.cuda.memory_allocated() - before
+    # cuBLAS (and cuBLASLt) allocate their workspaces at a handle's first
+    # product and keep them: taken here, outside the measured growth
+    for dt in (common.dtype_of(cfg), torch.float32):
+        a = torch.ones(8, 8, dtype=dt, device=dev)
+        (a @ a, torch.bmm(a[None], a[None]), torch.addmm(a, a, a))
+    torch.cuda.synchronize()
+    del a
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     with FlopCounterMode(display=False) as fc:
-        model.prefill(model.nest(params), {"tokens": tokens}, s, impl="ref")
+        out = model.prefill(model.nest(params), {"tokens": tokens}, s,
+                            impl="ref")
+    torch.cuda.synchronize()
+    growth = torch.cuda.max_memory_allocated() - base
+    del out
     card_flops = fc.get_total_flops()
     want = rec["argument_bytes"]
     check(placed == want, f"dryrun: {want} argument bytes, the card grew "
           f"{placed}")
     check(card_flops == rec["hlo_flops"], f"dryrun: {rec['hlo_flops']} "
           f"FLOPs counted, the card's run {card_flops}")
+    temp = rec["temp_bytes"]
+    slack = rec["temp_storages"] * TEMP_SLACK_BLOCK + TEMP_SLACK
+    check(temp - 2 ** 20 <= growth <= temp + slack,
+          f"dryrun: {temp} bytes of temporaries ({rec['temp_storages']} "
+          f"storages at the peak), the card's peak grew {growth} over the "
+          f"placed arguments (allowed -1 MiB to +{slack})")
     del params, tokens
     torch.cuda.empty_cache()
     return {"cell": f"{arch} {kind} {b}x{s} (1, 1)",
             "argument_bytes": want, "memory_allocated_growth": placed,
             "bytes_per_device": rec["bytes_per_device"],
-            "flops": rec["hlo_flops"], "card_flops": card_flops}
+            "flops": rec["hlo_flops"], "card_flops": card_flops,
+            "temp_bytes": temp, "temp_storages": rec["temp_storages"],
+            "max_memory_allocated_growth": growth,
+            "growth_over_temp": growth - temp, "allowed_over": slack}
 
 
 def phase_dryrun(cross):
@@ -4788,7 +5065,8 @@ def phase_dryrun(cross):
     for rec in recs:
         emit(phase="dryrun.cell", **{k: rec.get(k) for k in (
             "arch", "shape", "mesh", "status", "skip_reason", "error",
-            "fits", "bytes_per_device", "argument_bytes", "build_s",
+            "fits", "bytes_per_device", "argument_bytes", "temp_bytes",
+            "build_s",
             "count_s", "hlo_flops", "hlo_bytes", "collective_bytes",
             "collective_count_by_kind", "model_flops",
             "useful_flops_ratio", "compute_s", "memory_s", "collective_s",
@@ -4800,7 +5078,11 @@ def phase_dryrun(cross):
     emit(phase="dryrun", cells=len(recs),
          ok=sum(r["status"] == "ok" for r in recs),
          skip=sum(r["status"] == "skip" for r in recs),
-         fit=sum(bool(r.get("fits")) for r in recs), processes=n_proc,
+         fit=sum(bool(r.get("fits")) for r in recs),
+         unfit=[{k: r[k] for k in ("arch", "shape", "mesh",
+                                   "argument_bytes", "temp_bytes")}
+                for r in recs if r["status"] == "ok" and not r["fits"]],
+         processes=n_proc,
          grid_seconds=grid_s,
          cell_seconds=sum(r.get("build_s", 0) + r.get("count_s", 0)
                           for r in recs), cross_check=cross,
@@ -5135,7 +5417,7 @@ def main() -> int:
                        "llava": phase_llava(dev)}
     ragged, k3["moe_ragged_launches"] = phase_moe_ragged(dev)
     probe = phase_gloo_probe()
-    sharded_launches = phase_lm_sharded(
+    sharded_launches, pipeline_launches = phase_lm_sharded(
         [k for k, v in probe.items() if v != "ok"])
     phase_dryrun(cross)
     k3["moe_ragged"] = {name: {key: r[key] for key in (
@@ -5165,6 +5447,7 @@ def main() -> int:
           "lm_train_launches": train_launches,
           "family_launches": family_launches,
           "lm_sharded_launches": sharded_launches,
+          "lm_pipeline_launches": pipeline_launches,
           "timing": f"{n} launches of one {lm_cfg.name} prefill "
                     f"({LM_BATCH} x {LM_PROMPT} tokens, bf16), one per "
                     f"layer; max_abs_err over all shapes, bf16 and f32; "

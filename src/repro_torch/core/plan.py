@@ -42,6 +42,7 @@ serves a geometry it has seen with no search. The plan builders check the
 from __future__ import annotations
 
 import functools
+import os
 from collections import OrderedDict
 from typing import NamedTuple
 
@@ -229,6 +230,12 @@ class _Entry(NamedTuple):
 ALIAS_CAP = 8
 
 
+def _content_enabled() -> bool:
+    """``REPRO_PLANCACHE_CONTENT`` (``runtime/flags.py``): ``"0"`` turns
+    content keys off process-wide; read when a cache is built."""
+    return os.environ.get("REPRO_PLANCACHE_CONTENT", "1") != "0"
+
+
 class PlanCache:
     """Content-addressed FIFO memo of ConvPlans with an identity fast path.
 
@@ -239,7 +246,8 @@ class PlanCache:
     Args:
       capacity: canonical entries kept (FIFO eviction).
       content: key identity misses by content (False: identity keys
-        only, and no pinned tables).
+        only, and no pinned tables; None: ``REPRO_PLANCACHE_CONTENT``,
+        on unless it is ``"0"``).
       verify: on every content hit, compare the key tensors element-wise
         with an anchored alias's; a mismatch counts as a ``collision`` and
         rebuilds instead of serving a stale plan. Pinned tables are then
@@ -259,12 +267,12 @@ class PlanCache:
     (see :meth:`stats`).
     """
 
-    def __init__(self, capacity: int = 64, *, content: bool = True,
+    def __init__(self, capacity: int = 64, *, content: bool | None = None,
                  verify: bool = False,
                  pinned: feature_cache.PinnedStore | None = None,
                  persist=None):
         self.capacity = capacity
-        self.content = content
+        self.content = _content_enabled() if content is None else content
         self.verify = verify
         self.pinned = pinned if pinned is not None \
             else feature_cache.default_store()

@@ -39,7 +39,8 @@ query targets sit in unchanged blocks, so its kmap row is kept.
 Every ``.at[...].set(mode="drop")`` of the reference is a scatter into a
 buffer with one more row, which every dropped index writes and which is
 cut off (``mapsearch.set_drop``); the reference's counting sorts are one
-stable ``torch.sort`` of the same keys. Flags: ``REPRO_STREAM`` ('0'
+stable ``torch.sort`` of the same keys. Flags (``runtime/flags.py``
+lists all of the port's): ``REPRO_STREAM`` ('0'
 turns the delta path off: every frame from scratch) and
 ``REPRO_STREAM_MAX_DIRTY`` (the dirty-row share above which a level is
 rebuilt, default 0.5).

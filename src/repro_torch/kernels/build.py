@@ -39,7 +39,8 @@ _LOADED: dict[str, ctypes.CDLL] = {}
 
 
 def build_dir() -> Path:
-    """``REPRO_TORCH_BUILD_DIR`` or ``build/repro_torch`` at the repo root."""
+    """``REPRO_TORCH_BUILD_DIR`` (``runtime/flags.py``) or
+    ``build/repro_torch`` at the repo root."""
     env = os.environ.get("REPRO_TORCH_BUILD_DIR")
     if env:
         return Path(env)

@@ -27,6 +27,7 @@ the tap-scan path.
 """
 from __future__ import annotations
 
+import os
 from typing import NamedTuple
 
 import torch
@@ -46,6 +47,14 @@ from repro_torch.runtime import guard as _guard
 GRP = 8
 
 _I32 = torch.int32
+
+
+def spac_block_enabled() -> bool:
+    """``REPRO_SPAC_BLOCK`` (``runtime/flags.py``): ``"0"`` turns the
+    Cin-block grain of SPAC off, leaving tile-grain skipping only. Re-read
+    on every call; the output is bit-identical either way, only the
+    skipped work changes."""
+    return os.environ.get("REPRO_SPAC_BLOCK", "1") != "0"
 
 
 class TapTiles(NamedTuple):
@@ -249,7 +258,9 @@ def kernel_inputs(feats: torch.Tensor, weights: torch.Tensor,
     ``row_nz`` refreshes tile liveness for SPAC; ``act`` threads the
     previous layer's epilogue-emitted masks instead (block grain without a
     sweep when its groups align with this layer's Cin blocks); with both
-    None the geometry ``tile_nz`` is used as is. Weights are zero-padded to
+    None the geometry ``tile_nz`` is used as is. With
+    :func:`spac_block_enabled` false, ``tile_bk_nz`` is the tile liveness
+    widened over the Cin blocks. Weights are zero-padded to
     128 output columns; the epilogue's scale/shift/valid are padded alike.
     """
     feats = feats.float().contiguous()
@@ -269,7 +280,7 @@ def kernel_inputs(feats: torch.Tensor, weights: torch.Tensor,
         tile_nz = tiles.tile_nz
     else:
         tile_nz = tile_liveness(tiles, row_nz)
-        if n_k > 1:
+        if n_k > 1 and spac_block_enabled():
             if act is not None:
                 blk_nz = act.block_liveness(c_in, bk)
             if blk_nz is None:

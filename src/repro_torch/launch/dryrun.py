@@ -9,8 +9,12 @@ DTensors placed by ``launch/shardings.py`` on the (16, 16) single-pod or
 touched. It records, per cell:
 
 * each device's argument bytes, split into params, optimizer, batch and
-  cache: exact, from the shard shapes; ``fits`` compares their sum with
-  one H100's 80 GB;
+  cache: exact, from the shard shapes;
+* ``temp_bytes``, the counterpart of XLA's ``temp_size_in_bytes``: the
+  peak of the bytes live on rank 0 above the arguments while the step
+  runs (``hlo_analysis.CostMode``'s walk of the storages each op makes
+  and frees, the step's outputs included); ``fits`` compares arguments
+  plus temporaries with one H100's 80 GB;
 * FLOPs, bytes accessed and collective bytes and counts by kind, counted
   on rank 0's local ops by ``hlo_analysis.CostMode`` and scaled by the
   mesh size to whole-program totals, as the reference scales XLA's
@@ -18,12 +22,13 @@ touched. It records, per cell:
 * ``model_flops``, ``useful_flops_ratio`` and the roofline terms at the
   H100's constants (``hlo_analysis.roofline_terms``).
 
-Temporaries are not measured: XLA's ``temp_size_in_bytes`` has no
-counterpart on ``meta`` tensors, so the record says ``"temp_bytes":
-null``. The count is eager, so it sees every layer: it runs at full depth
+The count is eager, so it sees every layer: it runs at full depth
 where the reference counts depths 1 and 2 and extrapolates (XLA counts a
-loop body once); :func:`measure_costs` keeps that extrapolation to check
-the two agree. No kernel runs on ``meta``: the step takes the plain
+loop body once); :func:`measure_costs` keeps that extrapolation, the
+peak of live bytes included, to check the two agree. The walk counts
+each storage's exact bytes; a card's caching allocator rounds blocks up,
+so its peak lies a little above (phase ``dryrun``'s cross-check on the
+card holds the two together). No kernel runs on ``meta``: the step takes the plain
 versions (``impl="ref"``), recorded as ``"impl": "ref"``. The counted path
 has no host read of a tensor (``.item()``, ``int(t)``, ``torch.nonzero``),
 which ``meta`` tensors refuse: every size it uses is a host integer of the
@@ -158,6 +163,7 @@ def _depth_variants(cfg):
 def _totals(cm: hlo_analysis.CostMode, n: int) -> dict:
     coll = cm.collectives
     return {"flops": float(cm.flops) * n, "bytes": float(cm.bytes) * n,
+            "temp": float(cm.peak_bytes),
             "coll": float(coll.total_bytes) * n,
             "coll_by_kind": {k: v * n for k, v in coll.bytes_by_kind.items()}}
 
@@ -165,7 +171,10 @@ def _totals(cm: hlo_analysis.CostMode, n: int) -> dict:
 def measure_costs(cfg, cell, mesh, *, strategy: str = "tp",
                   kv_layout: str = "kv") -> dict:
     """The reference's depth-1/2 extrapolation of FLOPs, bytes and
-    collective bytes to the full depth (whole-program totals)."""
+    collective bytes to the full depth (whole-program totals), and of the
+    peak of live bytes a device (``temp_bytes``): each depth unit holds
+    the same saved activations and caches, so the peak grows by one
+    unit's bytes a unit as the counts do."""
     c1, c2, units = _depth_variants(cfg)
     b1, b2 = (build_cell(api.build_model(c, device="meta"), cell, mesh,
                          strategy=strategy, kv_layout=kv_layout)
@@ -180,6 +189,7 @@ def measure_costs(cfg, cell, mesh, *, strategy: str = "tp",
     kinds = set(meas["d1"]["coll_by_kind"]) | set(meas["d2"]["coll_by_kind"])
     return {"flops": extrap(meas["d1"]["flops"], meas["d2"]["flops"]),
             "bytes": extrap(meas["d1"]["bytes"], meas["d2"]["bytes"]),
+            "temp_bytes": extrap(meas["d1"]["temp"], meas["d2"]["temp"]),
             "collective_bytes": extrap(meas["d1"]["coll"],
                                        meas["d2"]["coll"]),
             "collective_bytes_by_kind": {
@@ -226,12 +236,14 @@ def run_cell(arch: str, shape: str, mesh_kind: str, *, strategy: str = "tp",
             rs.set_batch_axes(("pod", "data"))
     tot = _totals(cm, n_chips)
     arg_bytes = sum(per_dev.values())
+    temp = cm.peak_bytes
     mf = hlo_analysis.model_flops(cfg, cell)
     rec.update({
         "status": "ok", "n_chips": n_chips,
         "build_s": t_build, "count_s": t_count,
         "bytes_per_device": per_dev, "argument_bytes": arg_bytes,
-        "temp_bytes": None, "fits": arg_bytes <= H100_HBM_BYTES,
+        "temp_bytes": temp, "temp_storages": cm.peak_storages,
+        "fits": arg_bytes + temp <= H100_HBM_BYTES,
         "hlo_flops": tot["flops"], "hlo_bytes": tot["bytes"],
         "collective_bytes": tot["coll"],
         "collective_bytes_by_kind": tot["coll_by_kind"],
@@ -296,6 +308,7 @@ def _summary(rec: dict) -> str:
     b = rec["bytes_per_device"]
     return (f"fits={rec['fits']} GB/device "
             + " ".join(f"{k}={v / 1e9:.3f}" for k, v in b.items())
+            + f" temp={rec['temp_bytes'] / 1e9:.3f}"
             + f" compute={rec['compute_s']:.3e}s memory={rec['memory_s']:.3e}s"
             f" coll={rec['collective_s']:.3e}s count={rec['count_s']:.1f}s")
 

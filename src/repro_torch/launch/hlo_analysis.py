@@ -17,7 +17,18 @@ then counts, per device:
 * collectives: each ``c10d_functional`` collective DTensor issues (and
   DTensor's own ``shard_dim_alltoall``), by the reference's kind names,
   with its result bytes: the payload a device materializes, as the
-  reference sizes its collectives' results (:class:`CollectiveStats`).
+  reference sizes its collectives' results (:class:`CollectiveStats`);
+* live bytes, the counterpart of XLA's ``temp_size_in_bytes``: each op
+  that is not a view adds the bytes of the storages it makes (its
+  outputs' storages that none of its inputs holds; a collective's
+  wrapper and ``wait_tensor``, which hand their input on, make none),
+  and a storage's bytes
+  leave when it is freed (a ``weakref.finalize`` on the storage, whose
+  Python object torch keeps unique). :attr:`CostMode.peak_bytes` is the
+  most that were live at once: the step's peak above its arguments, its
+  outputs included. Tensors made before the mode (the arguments) are not
+  counted. A caching allocator rounds each block up, so a card's
+  ``max_memory_allocated`` grows by somewhat more.
 
 ``param_count`` and ``model_flops`` are the reference's arithmetic, copied.
 ``roofline_terms`` keeps the reference's form with the constants of the
@@ -27,6 +38,7 @@ counterpart.
 """
 from __future__ import annotations
 
+import weakref
 from dataclasses import dataclass, field
 
 import torch
@@ -94,12 +106,33 @@ def _is_fake(args) -> bool:
 
 _NO_TRAFFIC = {"empty", "empty_like", "empty_strided", "new_empty",
                "new_empty_strided", "detach", "alias", "lift_fresh"}
+#: ``c10d_functional`` ops that hand their input on (a wrapper or the
+#: waited tensor) where their ``meta`` kernel makes a new tensor: no
+#: allocation in the walk of live bytes
+_ALIAS_OPS = {"_wrap_tensor_autograd", "wait_tensor"}
+
+
+def _storages(tree) -> dict:
+    """``{key: storage}`` of the tensors in ``tree`` (key: the storage's
+    address in torch, stable across its Python wrappers)."""
+    from torch.utils._pytree import tree_leaves
+    out = {}
+    for x in tree_leaves(tree):
+        if isinstance(x, torch.Tensor):
+            try:
+                st = x.untyped_storage()
+            except (NotImplementedError, RuntimeError):
+                continue
+            out[st._cdata] = st
+    return out
 
 
 class CostMode(TorchDispatchMode):
     """Per-device counts of the ops run under it: :attr:`flops`,
     :attr:`bytes` and :attr:`collectives`; :attr:`n_ops` the local ops
-    counted. See the module docstring."""
+    counted; :attr:`live_bytes` now and :attr:`peak_bytes` at most, with
+    :attr:`peak_storages` the storages live at that peak. See the module
+    docstring."""
 
     def __init__(self):
         super().__init__()
@@ -109,6 +142,26 @@ class CostMode(TorchDispatchMode):
         self.bytes = 0
         self.n_ops = 0
         self.collectives = CollectiveStats()
+        self.live_bytes = 0
+        self.peak_bytes = 0
+        self.peak_storages = 0
+        self._live: dict[int, int] = {}      # storage key -> bytes
+
+    def _made(self, args, kwargs, out) -> None:
+        inputs = _storages((args, kwargs))
+        for key, st in _storages(out).items():
+            if key in inputs or key in self._live:
+                continue
+            n = st.nbytes()
+            self._live[key] = n
+            self.live_bytes += n
+            weakref.finalize(st, self._freed, key)
+        if self.live_bytes > self.peak_bytes:
+            self.peak_bytes = self.live_bytes
+            self.peak_storages = len(self._live)
+
+    def _freed(self, key: int) -> None:
+        self.live_bytes -= self._live.pop(key, 0)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -121,6 +174,8 @@ class CostMode(TorchDispatchMode):
             # DTensor's shape propagation runs ops on fake tensors: not
             # the program's
             return out
+        if not func.is_view and func._opname not in _ALIAS_OPS:
+            self._made(args, kwargs, out)
         kind = _collective_kind(func)
         if kind is not None:
             b = _tensor_bytes(out)

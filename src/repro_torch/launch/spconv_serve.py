@@ -80,6 +80,12 @@ class ServeResult:
 LADDER_MAX = 3
 
 
+def serve_max_batch() -> int:
+    """``REPRO_SERVE_MAX_BATCH`` (``runtime/flags.py``): requests a tick
+    drains when the engine is built with ``max_batch=None`` (default 8)."""
+    return int(os.environ.get("REPRO_SERVE_MAX_BATCH", "8"))
+
+
 class ServeEngine:
     """Continuous-batching engine over a :class:`MinkUNet`.
 
@@ -92,7 +98,8 @@ class ServeEngine:
         the card.
       queue: an AdmissionQueue (None: one built from the flags, with the
         model's grid contract).
-      max_batch: requests drained per tick.
+      max_batch: requests drained per tick (None:
+        :func:`serve_max_batch`, read here).
       clock: injectable time source.
       verify_cache: content hits of the plan cache compare the key tensors
         (an injected fingerprint collision is then rebuilt).
@@ -110,7 +117,7 @@ class ServeEngine:
                  device: str | torch.device | None = None,
                  impl: str = "kernel",
                  queue: admission.AdmissionQueue | None = None,
-                 max_batch: int = 8, clock=time.monotonic,
+                 max_batch: int | None = None, clock=time.monotonic,
                  verify_cache: bool = False, recover_after: int = 2,
                  persist_dir: str | None = None):
         self.device = resolve_device(device)
@@ -122,7 +129,8 @@ class ServeEngine:
             else admission.AdmissionQueue(grid_bits=self.cfg.grid_bits,
                                           batch_bits=self.cfg.batch_bits,
                                           clock=clock)
-        self.max_batch = max_batch
+        self.max_batch = serve_max_batch() if max_batch is None \
+            else max_batch
         self.persist = self.journal = None
         pinned = None
         if persist_dir:
@@ -455,8 +463,9 @@ def main(argv=None) -> None:
     ap.add_argument("--requests", type=int, default=4)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None)
-    ap.add_argument("--max-batch", type=int, default=8,
-                    help="requests drained per tick")
+    ap.add_argument("--max-batch", type=int, default=None,
+                    help="requests drained per tick (default: "
+                         "REPRO_SERVE_MAX_BATCH, else 8)")
     ap.add_argument("--deadline-s", type=float, default=None,
                     help="per-request deadline (default: "
                          "REPRO_SERVE_DEADLINE_MS)")

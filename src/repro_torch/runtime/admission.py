@@ -24,7 +24,8 @@ fault is retried and the request admitted; a persistent one isolates that
 request alone (:data:`ISOLATED_FAULT`). Every outcome counts ``admit.*``
 in :func:`repro_torch.runtime.guard.health`.
 
-Flags (read per queue construction): ``REPRO_SERVE_BUCKETS``,
+Flags (read per queue construction; ``runtime/flags.py`` lists all of the
+port's): ``REPRO_SERVE_BUCKETS``,
 ``REPRO_SERVE_QUEUE_CAP``, ``REPRO_SERVE_DEADLINE_MS``,
 ``REPRO_SERVE_VALIDATE``.
 """

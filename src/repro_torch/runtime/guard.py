@@ -34,7 +34,8 @@
   eagerly, so the overflow always surfaces as the raise; there is no
   post-trace overflow flag to read.
 
-Flags (read per call): ``REPRO_GUARD_VALIDATE``, ``REPRO_GUARD_REPLAN``,
+Flags (read per call; all of the port's are in ``runtime/flags.py``):
+``REPRO_GUARD_VALIDATE``, ``REPRO_GUARD_REPLAN``,
 ``REPRO_GUARD_FALLBACK``, ``REPRO_GUARD_COOLDOWN``.
 """
 from __future__ import annotations

@@ -35,7 +35,8 @@ absorbed: a skipped write or a cold read, counted in ``persist.fault``.
 The ``kill`` site sits in :meth:`put` between the temporary write and the
 rename.
 
-Flags: ``REPRO_PERSIST_DIR`` (the default store of the launch entry
+Flags (``runtime/flags.py`` lists all of the port's):
+``REPRO_PERSIST_DIR`` (the default store of the launch entry
 points), ``REPRO_PERSIST_MAX_BYTES`` (the on-disk budget, oldest evicted
 first), ``REPRO_PERSIST_VERIFY`` (``0`` skips the checksum on load;
 version, salt and key are always checked), ``REPRO_PERSIST_SALT`` (salt

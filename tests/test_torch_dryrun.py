@@ -12,12 +12,22 @@ against the JAX package's, on the CPU.
   its two-layer tail; on a fake (2, 4) mesh, the train cell below, and
   for RecurrentGemma, whose log-depth scans take thrice the ops, its
   prefill).
+  The peak of live bytes (``temp_bytes``) extrapolates exactly where
+  one phase sets it at every depth (TinyLlama's train cell: the layer
+  inputs remat saves; RecurrentGemma's prefill); Mixtral's train cell is
+  not held to it, since there the phase that peaks at depths 1 and 2 is
+  not the one that peaks at full depth (a max of terms growing at
+  different rates is not linear in depth).
 * ``run_cell`` on a fake (2, 4) mesh at a reduced TinyLlama train cell
   (seq 64, batch 8, the reference's slow dry-run test) returns ``"status":
-  "ok"``, ``impl`` ``ref``, ``temp_bytes`` None, and each device's
-  parameter, optimizer and batch bytes those of the cell's build, which
+  "ok"``, ``impl`` ``ref``, a positive ``temp_bytes`` that ``fits`` adds
+  to the arguments, and each device's parameter, optimizer and batch
+  bytes those of the cell's build, which
   ``tests/test_torch_shardings.py`` holds to the reference's
   ``NamedSharding`` shard shapes on 8 host devices.
+* ``CostMode``'s walk of live bytes on a hand-counted chain of ``meta``
+  ops: views, in-place ops and the arguments add nothing, a storage
+  leaves when its last tensor (a view included) is freed.
 * The fake world is left on exit: no process group stays initialized.
 """
 from __future__ import annotations
@@ -26,6 +36,7 @@ import dataclasses
 import functools
 
 import pytest
+import torch
 import torch.distributed as dist
 
 from repro import configs as jconfigs
@@ -85,12 +96,13 @@ def _small_cell(arch, layers, shape="train_4k"):
                            cell=_small(shape))
 
 
-@pytest.mark.parametrize("arch,layers,shape", [
-    pytest.param("tinyllama-1.1b", 3, "train_4k", id="tinyllama-1.1b"),
-    pytest.param("mixtral-8x7b", 3, "train_4k", id="mixtral-8x7b"),
-    pytest.param("recurrentgemma-2b", 11, "prefill_32k",
+@pytest.mark.parametrize("arch,layers,shape,exact_peak", [
+    pytest.param("tinyllama-1.1b", 3, "train_4k", True, id="tinyllama-1.1b"),
+    pytest.param("mixtral-8x7b", 3, "train_4k", False, id="mixtral-8x7b"),
+    pytest.param("recurrentgemma-2b", 11, "prefill_32k", True,
                  id="recurrentgemma-2b")])
-def test_full_depth_count_equals_depth_extrapolation(arch, layers, shape):
+def test_full_depth_count_equals_depth_extrapolation(arch, layers, shape,
+                                                     exact_peak):
     cfg = _cfg(arch, layers)
     rec = _small_cell(arch, layers, shape)
     assert rec["status"] == "ok", rec
@@ -105,6 +117,9 @@ def test_full_depth_count_equals_depth_extrapolation(arch, layers, shape):
     assert rec["collective_bytes"] == ext["collective_bytes"] > 0
     assert rec["collective_bytes_by_kind"] == \
         ext["collective_bytes_by_kind"]
+    assert rec["temp_bytes"] > 0 and ext["temp_bytes"] > 0
+    if exact_peak:
+        assert rec["temp_bytes"] == ext["temp_bytes"]
 
 
 def test_run_cell_on_a_fake_test_mesh():
@@ -119,12 +134,34 @@ def test_run_cell_on_a_fake_test_mesh():
             api.build_model(cfg, device="meta"), _small("train_4k"),
             meshlib.make_test_mesh(2, 4)))
     assert rec["status"] == "ok" and rec["impl"] == "ref"
-    assert rec["n_chips"] == 8 and rec["temp_bytes"] is None
+    assert rec["n_chips"] == 8 and rec["temp_bytes"] > 0
     assert rec["bytes_per_device"] == want
     assert rec["argument_bytes"] == sum(want.values()) and rec["fits"]
+    assert rec["fits"] == (rec["argument_bytes"] + rec["temp_bytes"]
+                           <= dryrun.H100_HBM_BYTES)
     assert rec["hlo_flops"] > rec["model_flops"] > 0
     assert 0 < rec["useful_flops_ratio"] < 1
     # a (2, 4) mesh's tensor parallelism reduces over 'model'
     assert rec["collective_count_by_kind"].get("all-reduce", 0) > 0
     skip = dryrun.run_cell("hubert-xlarge", "decode_32k", "single")
     assert skip["status"] == "skip" and "decode" in skip["skip_reason"]
+
+
+def test_live_bytes_walk_of_a_hand_counted_chain():
+    a = torch.empty(1000, device="meta")              # an argument: 0
+    with hlo_analysis.CostMode() as cm:
+        b = a * 2                                     # 4000
+        c = b + 1                                     # 8000 (the peak)
+        del b                                         # 4000
+        d = c.view(10, 100)                           # a view: 4000
+        c.add_(1)                                     # in place: 4000
+        a.mul_(3)                                     # the argument's: 4000
+        e = torch.ones(500, device="meta")            # 6000
+        f = d.sum(0)                                  # 6400
+        del c                                         # d holds it: 6400
+        assert cm.live_bytes == 6400
+        del d                                         # 2400
+        g = torch.cat([e, e])                         # 6400
+        del e, f, g                                   # 0
+    assert cm.live_bytes == 0
+    assert cm.peak_bytes == 8000
