@@ -21,8 +21,12 @@ RecurrentGemma, HuBERT and LLaVA families served and trained:
   shape's CTAs and split blocks), then MinkUNet-large served through
   ``ServeEngine`` (4 requests, then the first one re-submitted, which
   must hit the engine's content-keyed plan cache: no search, no kernel-1
-  launch, the same logits), the launch counts, and the logits against
-  the plain-version forward;
+  launch, the same logits), the launch counts (a CUDA graph's replays
+  counted), one executable a bucket class in each of its two engines,
+  each request's logits bit-equal to an eager forward of its tensors and
+  plans, a tick of two scenes bit-equal to their solo servings, forward
+  ms eager against replayed and the graphs' memory, and the logits
+  against the plain-version forward;
 * ``spconv_gemm``: the materialized backend at the 20 distinct layer
   shapes, the kernel against its plain version, then ``apply_kmap``
   against the fused ``apply_tiles``, with peak device memory per shape;
@@ -141,7 +145,11 @@ RecurrentGemma, HuBERT and LLaVA families served and trained:
   it, the kernel's share of its bound and its time over SDPA's;
 * ``lm_serve``: TinyLlama-1.1B at full width and depth (bf16, seeded
   random weights) serving 4 x 512-token prompts for 32 generated tokens
-  through ``generate``, 22 flash launches per prefill;
+  through ``generate``, 22 flash launches per prefill, the decode step
+  replayed from a CUDA graph; its tokens equal to an eager
+  ``decode_step`` loop's and ``generate``'s, the per-step max |logit
+  difference|, and decode ms a token eager against replayed (every
+  family's ``generate`` below replays its step too);
 * ``lm_reference``: the kernel prefill's logits against the plain-version
   prefill in bf16 and float32, and the first decode step against a
   teacher-forced prefill;
@@ -462,6 +470,20 @@ def time_ms(fn, iters: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def wall_ms(fn, iters: int) -> float:
+    """Mean host-clock time of ``fn`` followed by a device sync, over
+    ``iters`` calls after one warm-up call: what a caller waits for,
+    host launch work included."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / iters
 
 
 def _kernel_name(mangled: str) -> str:
@@ -1320,6 +1342,7 @@ def phase_lm_serve(dev):
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.launch import serve
     from repro_torch.models import api
+    t_phase = time.perf_counter()
     cfg = get_config(LM_ARCH)
     model = api.build_model(cfg, device=dev)
     torch.cuda.synchronize()
@@ -1338,6 +1361,9 @@ def phase_lm_serve(dev):
     check(launches == cfg.n_layers,
           f"one prefill launched flash_attention {launches} times, want "
           f"{cfg.n_layers}")
+    check(stats["graphed"], "lm_serve: the decode step was not replayed "
+                            "from a graph")
+    decode_graph = _decode_graph_check(model, params, batch, max_ctx, toks)
     check(stats["nonfinite_stops"] == 0,
           f"{stats['nonfinite_stops']} sequences went non-finite")
     check(tuple(toks.shape) == (LM_BATCH, LM_GEN)
@@ -1355,8 +1381,61 @@ def phase_lm_serve(dev):
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
          flash_launches_per_prefill=launches,
          nonfinite_stops=stats["nonfinite_stops"],
-         first_tokens=toks[0, :8].tolist(), profile=prof)
+         capture_ms=stats["capture_s"] * 1e3, decode_graph=decode_graph,
+         first_tokens=toks[0, :8].tolist(), profile=prof,
+         seconds=time.perf_counter() - t_phase)
     return cfg, params, launches
+
+
+def _decode_graph_check(model, params, batch, max_ctx, served):
+    """The decode step replayed from a CUDA graph against an eager
+    ``decode_step`` loop, greedy from the same prefill: the tokens of
+    each, and of ``generate`` (``served``), equal, with the largest
+    per-step |logit difference| (expected 0: the same ops on the same
+    card); decode ms a token of each, the capture left out."""
+    import torch
+    from repro_torch.runtime import graph
+    dev = model.device
+    b = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    n_steps = served.shape[1]
+
+    def run(graphed):
+        logits, cache = model.prefill(params, b, max_ctx)
+        tok = logits.argmax(-1)[:, None].int()
+        toks, outs, g, t_cap = [tok], [], None, 0.0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n_steps - 1):
+            if not graphed:
+                logits, cache = model.decode_step(params, cache, tok)
+            elif g is None:
+                g = graph.Graph(
+                    lambda t: model.decode_step(params, cache, t)[0], dev)
+                logits = g.warm_up(tok)
+                t1 = time.perf_counter()
+                g.capture(tok)
+                t_cap = time.perf_counter() - t1
+            else:
+                logits = g(tok)
+            outs.append(logits[:, -1].float())
+            tok = logits[:, -1].argmax(-1)[:, None].int()
+            toks.append(tok)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0 - t_cap) * 1e3 / (n_steps - 1)
+        return torch.cat(toks, 1), outs, ms
+
+    eager_toks, eager_logits, eager_ms = run(False)
+    graph_toks, graph_logits, graph_ms = run(True)
+    diffs = [float((a - e).abs().max())
+             for a, e in zip(graph_logits, eager_logits)]
+    check(torch.equal(graph_toks, eager_toks),
+          f"lm_serve: graphed decode tokens differ from the eager loop's "
+          f"(max |logit diff| {max(diffs)})")
+    check(torch.equal(served.to(dev).int(), eager_toks),
+          "lm_serve: generate's tokens differ from the eager loop's")
+    return {"steps": n_steps - 1, "tokens_equal": True,
+            "max_logit_diff_per_step": diffs,
+            "eager_ms_per_token": eager_ms, "replayed_ms_per_token": graph_ms}
 
 
 def _profile_lm(model, params, batch, max_ctx, stats):
@@ -1538,6 +1617,8 @@ def phase_moe_serve(dev):
         check(n == cfg.n_layers, f"moe_serve {label}: one prefill launched "
                                  f"flash_attention {n} times, want "
                                  f"{cfg.n_layers}")
+        check(stats["graphed"], f"moe_serve {label}: the decode step was "
+                                f"not replayed from a graph")
         check(stats["nonfinite_stops"] == 0,
               f"moe_serve {label}: {stats['nonfinite_stops']} sequences "
               f"went non-finite")
@@ -1849,6 +1930,8 @@ def _served(dev, model, params, batch, gen, label, want_launches):
     check(n == want_launches, f"{label}: one prefill launched "
                               f"flash_attention {n} times, want "
                               f"{want_launches}")
+    check(stats["graphed"] or gen < 2,
+          f"{label}: the decode step was not replayed from a graph")
     check(stats["nonfinite_stops"] == 0,
           f"{label}: {stats['nonfinite_stops']} sequences went non-finite")
     check(tuple(toks.shape) == (n_b, gen)
@@ -2427,6 +2510,7 @@ def phase_serve(dev, cfg, scenes, warm):
     import torch
     from repro_torch.launch.spconv_serve import ServeEngine
     from repro_torch.runtime import admission
+    t_phase = time.perf_counter()
     model = _seeded_model(cfg, dev)
     fused = _seeded_model(dataclasses.replace(cfg, fused_epilogue=True), dev)
     fused.load_state_dict(model.state_dict())
@@ -2470,6 +2554,11 @@ def phase_serve(dev, cfg, scenes, warm):
     check(again.digest == results[0][2].digest,
           f"{rid} re-submitted: logits differ from the first serving")
     counts = _counts()
+    # one executable a bucket class: serve_replay's compiled gate
+    for name, eng in zip(("unfused", "fused"), engines):
+        check(eng.compiled == 1 and eng.stats()["compiled"] == 1,
+              f"serve {name}: {eng.compiled} executables for one bucket")
+    graphs = _serve_graphs(dev, engines, results, scenes)
     lat = [r.latency_s for _, _, r, _ in results[:len(scenes)]]
     vox = sum(int(sc.valid.sum()) for _, sc, _, _ in results[:len(scenes)])
     emit(phase="serve", config=cfg.name, bucket=BUCKET,
@@ -2486,8 +2575,94 @@ def phase_serve(dev, cfg, scenes, warm):
          launches_per_request={"octent_query": want_per_req[0],
                                "spconv_gemm_fused": want_per_req[1],
                                "mapsearch": want_per_req[2]},
-         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+         compiled=[eng.compiled for eng in engines], graphs=graphs,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+         seconds=time.perf_counter() - t_phase)
     return model, [r[:3] for r in results], counts
+
+
+def _served_request(dev, sc):
+    """The request's tensors as the engine serves them: the queue's
+    quantization of the scene into BUCKET, on the card."""
+    import torch
+    from repro_torch.core.spconv import SparseTensor
+    from repro_torch.runtime import admission
+    arrays = admission.quantize_to_bucket(sc.coords, sc.batch, sc.valid,
+                                          sc.feats, BUCKET)[:4]
+    return SparseTensor(*(torch.as_tensor(a, device=dev) for a in arrays))
+
+
+def _serve_graphs(dev, engines, results, scenes):
+    """The engines' CUDA graphs against eager forwards with the same
+    kernels: each served request's logits bit-equal to an eager
+    ``minkunet.forward`` of its tensors and its cached plans; one tick of
+    two scenes (``max_batch`` 2, both replays before either copy-out) each
+    equal to its solo digest; a request's forward ms eager against
+    replayed (host clock with a sync, and device time); the memory the
+    graphs hold (static buffers and private pools), freed at the end."""
+    import gc
+    import torch
+    from repro_torch.models import minkunet
+    for rid, sc, res, _ in results:
+        eng = engines[1] if rid.startswith("fused-") else engines[0]
+        st = _served_request(dev, sc)
+        plans = minkunet.build_plans(st.coords, st.batch, st.valid, eng.cfg,
+                                     cache=eng.cache, n_max=BUCKET,
+                                     device=dev)
+        want = minkunet.forward(eng.model, st, plans=plans).cpu().numpy()
+        check(np.array_equal(res.logits, want),
+              f"{rid}: replayed logits differ from the eager forward, max "
+              f"{float(np.abs(res.logits - want).max())}")
+    eng = engines[0]
+    solo = {rid: res.digest for rid, _, res, _ in results}
+    eng.max_batch = 2
+    for rid, sc in scenes[:2]:
+        eng.submit(rid + "-pair", *(np.array(a) for a in (
+            sc.coords, sc.batch, sc.valid, sc.feats)))
+    pair = eng.step()
+    eng.max_batch = 1
+    check([r.rid for r in pair] == [rid + "-pair" for rid, _ in scenes[:2]]
+          and all(r.status == "completed" and
+                  r.digest == solo[r.rid[:-len("-pair")]] for r in pair),
+          f"a tick of two scenes: {[(r.rid, r.status) for r in pair]} "
+          f"differ from their solo digests")
+    check(eng.compiled == 1, f"serve: {eng.compiled} executables after the "
+                             f"batched tick")
+    st = _served_request(dev, scenes[0][1])
+    plans = minkunet.build_plans(st.coords, st.batch, st.valid, eng.cfg,
+                                 cache=eng.cache, n_max=BUCKET, device=dev)
+
+    def eager():
+        return minkunet.forward(eng.model, st, plans=plans)
+
+    def replayed():
+        return eng._forward_fn(eng.model, st, plans)
+
+    (entry,) = eng._exec.values()
+    check(entry.graph is not None and entry.graph.launches, "serve: the "
+          "entry holds no captured graph")
+    per_replay = {f"{mod.__name__.split('.')[-2]}.{c}": n
+                  for (mod, c), n in entry.graph.launches.items()}
+    times = {"eager_wall_ms": wall_ms(eager, 5),
+             "replayed_wall_ms": wall_ms(replayed, 5),
+             "eager_device_ms": time_ms(eager, 5),
+             "replayed_device_ms": time_ms(replayed, 5)}
+    times["replayed_wall_ms_2"] = wall_ms(replayed, 5)
+    times["eager_wall_ms_2"] = wall_ms(eager, 5)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    for e in engines:
+        e._exec.clear()
+    del entry
+    gc.collect()
+    torch.cuda.empty_cache()
+    freed = (held[0] - torch.cuda.memory_allocated(),
+             held[1] - torch.cuda.memory_reserved())
+    return {"bit_equal_to_eager": len(results),
+            "pair_tick": {r.rid: r.digest[:16] for r in pair},
+            "launches_per_replay": per_replay, **times,
+            "graphs_allocated_gb": freed[0] / 1e9,
+            "graphs_reserved_gb": freed[1] / 1e9}
 
 
 def phase_reference(dev, cfg, model, results):
@@ -3610,7 +3785,9 @@ def phase_chaos(dev, cfg, scenes, victim, serve_digests):
           "ladder: back at level 0 the logits differ from the clean replay")
     if dev.type == "cuda":
         check(ln == repeat, f"ladder: level-0 request launched {ln}")
+    # serve.compile: the engine's one entry, made at its first request
     want = {"admit.ok": 7, "fault.plan": 6, "serve.isolated": 3,
+            "serve.compile": 1,
             "serve.completed": 3, "serve.degraded": 1, "serve.shed": 1,
             "admit.shed.overload": 1, "serve.degrade.enter": 3,
             "serve.degrade.level1": 1, "serve.degrade.level2": 1,

@@ -6,6 +6,10 @@ cores: bf16 through ``wgmma``, float32 as split-precision 3xTF32
 ``mma.sync``), or runs the plain version (ref.py) on CPU tensors. There is
 no fallback: a CUDA input launches the kernel or raises.
 ``launches`` counts kernel launches.
+A CUDA graph launches the kernels it captured at each replay, and
+``runtime/graph.py`` adds them to these counters then: they count what
+the card ran, replays included, and a capture, which runs nothing,
+leaves them as they were. :data:`COUNTERS` names them.
 """
 from __future__ import annotations
 
@@ -19,6 +23,8 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 
 #: number of times the CUDA kernel was launched
 launches = 0
+#: the launch counters above
+COUNTERS = ("launches",)
 
 #: head dims the kernel is instantiated for: those of the repo's configs
 HEAD_DIMS = (64, 80, 128, 256)

@@ -4,6 +4,10 @@
 kernel on CUDA tensors, or runs the plain version (ref.py) on CPU tensors.
 There is no fallback: a CUDA input launches the kernel or raises.
 ``launches`` counts kernel launches.
+A CUDA graph launches the kernels it captured at each replay, and
+``runtime/graph.py`` adds them to these counters then: they count what
+the card ran, replays included, and a capture, which runs nothing,
+leaves them as they were. :data:`COUNTERS` names them.
 """
 from __future__ import annotations
 
@@ -17,6 +21,8 @@ from repro_torch.kernels.masked_matmul.ref import masked_matmul_ref
 
 #: number of times the CUDA kernel was launched
 launches = 0
+#: the launch counters above
+COUNTERS = ("launches",)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int

@@ -6,6 +6,10 @@ There is no fallback: a CUDA input launches the kernel or raises.
 ``launches`` counts calls that launched it: each launches an index pass
 over the table and the blocks, then the query kernel. ``row_launches``
 counts those of them in row-list mode (``rows=``).
+A CUDA graph launches the kernels it captured at each replay, and
+``runtime/graph.py`` adds them to these counters then: they count what
+the card ran, replays included, and a capture, which runs nothing,
+leaves them as they were. :data:`COUNTERS` names them.
 """
 from __future__ import annotations
 
@@ -24,6 +28,8 @@ LANE = 128
 launches = 0
 #: of those, launches in row-list mode
 row_launches = 0
+#: the launch counters above
+COUNTERS = ("launches", "row_launches")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int

@@ -13,6 +13,10 @@ with the fused BN/ReLU epilogue, ``plan_launches`` those of the planning
 kernel that precedes each of them, ``reduce_launches`` those of the
 split-sum kernel that follows a fused launch whose grid has spare CTAs,
 ``materialized_launches`` those of the materialized kernel.
+A CUDA graph launches the kernels it captured at each replay, and
+``runtime/graph.py`` adds them to these counters then: they count what
+the card ran, replays included, and a capture, which runs nothing,
+leaves them as they were. :data:`COUNTERS` names them.
 
 The fused kernel's work plan (:func:`plan_shape` for the static grid,
 :func:`split_plan` / :func:`split_plan_ref` for which blocks and tiles each
@@ -43,6 +47,9 @@ materialized_launches = 0
 reduce_launches = 0
 #: number of times the planning kernel ran (once per fused launch)
 plan_launches = 0
+#: the launch counters above
+COUNTERS = ("launches", "epilogue_launches", "materialized_launches",
+            "reduce_launches", "plan_launches")
 
 #: most CTAs that share one output block's run on the card (1: blocks are
 #: never split); splitting changes the output only by float32 rounding

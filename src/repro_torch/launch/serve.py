@@ -3,7 +3,15 @@
 prefill, then greedy (or sampled) decoding against the cache.
 
 The prefill runs every attention layer through the CUDA flash-attention
-kernel on the card; decode is plain PyTorch over the cache.
+kernel on the card; decode is plain PyTorch over the cache. On the card
+:func:`generate` runs the first decode step eagerly, captures the step
+into a CUDA graph (``runtime/graph.py``, the counterpart of the
+reference's ``jax.jit`` of ``decode_step``) and replays it for the rest:
+the cache, its ``step`` an int32 scalar on the device, is updated in place
+by each replay. The capture covers the step alone; the alive mask, the
+argmax and the sampling stay outside it. Under a ``torch.distributed``
+mesh (a DTensor cache) the step runs eagerly: gloo's host-staged
+collectives cannot be captured.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
         --full-config                      # on the card
@@ -21,7 +29,8 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.device import resolve_device
 from repro_torch.models import api
-from repro_torch.runtime import guard
+from repro_torch.runtime import graph, guard
+from repro_torch.runtime.sharding import is_dtensor
 
 
 def _sync(dev: torch.device) -> None:
@@ -46,6 +55,11 @@ def generate(model: api.Model, params, batch: dict, *, max_context: int,
     the guard's health counters. The alive mask stays on the device, and
     the loop syncs with the host once, at the end. ``generator`` draws the
     samples when ``greedy=False`` (None: a fresh one seeded 0).
+
+    On the card the decode step after the first is a replay of a CUDA
+    graph captured after that first step (``stats["graphed"]``); the
+    capture's time (``stats["capture_s"]``) is left out of
+    ``decode_s_per_tok``. A capture that fails raises.
     """
     dev = resolve_device(device)
     if not greedy and generator is None:
@@ -61,9 +75,24 @@ def generate(model: api.Model, params, batch: dict, *, max_context: int,
     alive = torch.isfinite(logits).all(-1)                  # (B,)
     tok = torch.argmax(torch.nan_to_num(logits), -1)[:, None].int()
     out = [tok]
+    graphed = dev.type == "cuda" and not any(
+        is_dtensor(t) for t in cache.values())
+    step = None
+    t_capture = 0.0
     t0 = time.perf_counter()
     for _ in range(n_steps - 1):
-        logits, cache = model.decode_step(params, cache, tok)
+        if not graphed:
+            logits, cache = model.decode_step(params, cache, tok)
+        elif step is None:
+            # the cache is updated in place: the graph closes over it
+            step = graph.Graph(
+                lambda t: model.decode_step(params, cache, t)[0], dev)
+            logits = step.warm_up(tok)
+            t1 = time.perf_counter()
+            step.capture(tok)
+            t_capture = time.perf_counter() - t1
+        else:
+            logits = step(tok)
         last = logits[:, -1]
         alive = alive & torch.isfinite(last).all(-1)
         if greedy:
@@ -74,14 +103,15 @@ def generate(model: api.Model, params, batch: dict, *, max_context: int,
         tok = torch.where(alive[:, None], nxt, tok)         # freeze dead seqs
         out.append(tok)
     _sync(dev)
-    t_decode = time.perf_counter() - t0
+    t_decode = time.perf_counter() - t0 - t_capture
     stops = int((~alive).sum())
     if stops:
         guard.health().note("serve.nonfinite_stops", stops)
     return torch.cat(out, dim=1), {
         "prefill_s": t_prefill,
         "decode_s_per_tok": t_decode / max(n_steps - 1, 1),
-        "nonfinite_stops": stops}
+        "nonfinite_stops": stops, "graphed": step is not None,
+        "capture_s": t_capture}
 
 
 def main() -> None:

@@ -225,7 +225,7 @@ def batch_shardings(abstract_batch: dict, mesh) -> dict[str, Sharding]:
 
 def cache_shardings(abstract_cache: dict, mesh,
                     kv_layout: str = "kv") -> dict[str, Sharding]:
-    """Per cache tensor (the host integer ``step`` is left out)."""
+    """Per cache tensor, ``step`` (a scalar) replicated."""
     rules = dict(_CACHE_RULES)
     rules.update(_CACHE_RULES_CTX if kv_layout == "ctx" else _CACHE_RULES_KV)
     out = {}

@@ -6,10 +6,25 @@ sanitizer by default); each tick drains up to ``max_batch`` of them,
 builds each request's plans through one long-lived, content-keyed
 :class:`~repro_torch.core.plan.PlanCache` (map search on the card through
 the OCTENT kernel; a re-submitted scene hits by content and costs no
-search) and runs the forward through the gather-GEMM kernel. PyTorch runs
-eagerly, so there is no per-bucket compiled executable; each request's
-logits come back to the host with a sha256 digest and its
-submit-to-result latency.
+search) and runs the forward through the gather-GEMM kernel, as a
+**per-bucket executable**: the plans split into their tensors and a
+hashable skeleton (:func:`split_plans`, the reference's), and the engine
+keeps one entry per ``(skeleton, impl)``, so it "compiles" once per bucket
+class, never once per request geometry (``compiled`` in :meth:`ServeEngine.
+stats`, noted as ``serve.compile``). On the card an entry is a CUDA graph
+of ``minkunet.forward`` (``runtime/graph.py``, the port's ``jax.jit``),
+captured at its first request after a warm-up and replayed for every
+request of its class: the request's tensors are copied into the graph's
+static buffers and its logits cloned out. On the CPU an entry runs the
+eager forward, counted the same way. Each request's logits come back to
+the host with a sha256 digest and its submit-to-result latency.
+
+While a :class:`~repro_torch.runtime.fault.FaultPlan` is installed or the
+ladder is above level 0, the card runs the entry's forward eagerly, with
+the same kernels: the fault sites and ``guard.dispatch`` are Python, which
+a replay does not run, so a graph would fire them once, at capture. The
+reference's trace-time semantics differ there; phase ``chaos`` of
+``chip_smoke.py`` expects a fault per request.
 
 Robustness, as the reference's engine (``src/repro/launch/
 spconv_serve.py``):
@@ -58,7 +73,96 @@ from repro_torch.core import plan as planlib
 from repro_torch.core.spconv import SparseTensor
 from repro_torch.device import resolve_device
 from repro_torch.models import minkunet
-from repro_torch.runtime import admission, fault, guard
+from repro_torch.runtime import admission, fault, graph, guard
+
+# ---------------------------------------------------------------------------
+# Plan splitting: tensors vs static skeleton
+# ---------------------------------------------------------------------------
+
+
+def _flatten(node, leaves: list):
+    """The treedef of ``node``, a tree of tuples (NamedTuples among them),
+    its leaves appended to ``leaves``; None is an empty subtree, as in
+    ``jax.tree_util``. A treedef is nested tuples: hashable."""
+    if node is None:
+        return None
+    if isinstance(node, tuple):
+        return type(node), tuple(_flatten(c, leaves) for c in node)
+    leaves.append(node)
+    return "*"
+
+
+def _unflatten(treedef, leaves):
+    if treedef is None:
+        return None
+    if treedef == "*":
+        return next(leaves)
+    typ, children = treedef
+    vals = [_unflatten(c, leaves) for c in children]
+    return typ(*vals) if hasattr(typ, "_fields") else typ(vals)
+
+
+def split_plans(plans):
+    """Partition a :class:`~repro_torch.models.minkunet.MinkPlans` tree into
+    its tensors and a hashable static skeleton, as the reference's.
+
+    Returns ``(dyn, treedef, static, skeleton)``: ``dyn`` the leaf list with
+    every other leaf replaced by None, ``static`` the complement (the
+    Python values: each plan's ``kind``, ``n_out``, ``n_taps``, the tiles'
+    ``bo``); ``skeleton`` a hashable key, the treedef, the static leaves
+    and the tensors' shapes and dtypes, the same for every geometry of one
+    padding bucket, which holds the engine's entry count to the bucket
+    classes.
+    """
+    leaves: list = []
+    treedef = _flatten(plans, leaves)
+    dyn = [lf if isinstance(lf, torch.Tensor) else None for lf in leaves]
+    static = tuple(None if isinstance(lf, torch.Tensor) else lf
+                   for lf in leaves)
+    shapes = tuple((tuple(lf.shape), str(lf.dtype)) for lf in leaves
+                   if isinstance(lf, torch.Tensor))
+    return dyn, treedef, static, (treedef, static, shapes)
+
+
+def merge_plans(treedef, static, dyn):
+    """Inverse of :func:`split_plans`. Leaves are never None (None is an
+    empty subtree), so None marks where ``dyn`` holds the tensor."""
+    return _unflatten(treedef, iter(s if d is None else d
+                                    for d, s in zip(dyn, static)))
+
+
+class _Executable:
+    """One bucket class's forward: :func:`minkunet.forward` over plans
+    merged from a request's tensors and the class's skeleton. On the card
+    a CUDA graph, captured at the first call that is not ``eager``; on the
+    CPU, or with ``eager``, the eager forward with the same kernels."""
+
+    def __init__(self, model, treedef, static, impl: str):
+        self.model, self.treedef, self.static = model, treedef, static
+        self.impl = impl
+        self.graph: graph.Graph | None = None
+
+    def _forward(self, st: SparseTensor, dyn):
+        return minkunet.forward(self.model, st, impl=self.impl,
+                                plans=merge_plans(self.treedef, self.static,
+                                                  dyn))
+
+    def _run(self, coords, batch, valid, feats, *tensors):
+        it = iter(tensors)
+        dyn = [next(it) if s is None else None for s in self.static]
+        return self._forward(SparseTensor(coords, batch, valid, feats), dyn)
+
+    def __call__(self, st: SparseTensor, dyn, *, eager: bool):
+        dev = st.coords.device
+        if dev.type != "cuda" or eager:
+            return self._forward(st, dyn)
+        args = (*st, *(d for d in dyn if d is not None))
+        if self.graph is None:
+            g = graph.Graph(self._run, dev)
+            g.warm_up(*args)
+            g.capture(*args)
+            self.graph = g
+        return self.graph(*args)
 
 
 @dataclasses.dataclass
@@ -148,6 +252,8 @@ class ServeEngine:
         self.recover_after = recover_after
         self.level = 0
         self._healthy_ticks = 0
+        self._exec: dict = {}    # (skeleton, impl) -> _Executable
+        self.compiled = 0
         self._ewma: dict[int, float] = {}    # bucket -> service seconds
         self.results: list[ServeResult] = []
         self.ticks = 0
@@ -225,8 +331,24 @@ class ServeEngine:
             return "ref"
         return self.impl
 
+    def _executable(self, skeleton, treedef, static,
+                    impl: str) -> _Executable:
+        """The entry of ``(skeleton, impl)``, made (``compiled`` + 1,
+        ``serve.compile``) at the key's first request."""
+        key = (skeleton, impl)
+        fn = self._exec.get(key)
+        if fn is None:
+            fn = self._exec[key] = _Executable(self.model, treedef, static,
+                                               impl)
+            self.compiled += 1
+            guard.health().note("serve.compile")
+        return fn
+
     def _forward_fn(self, model, st: SparseTensor, plans):
-        return minkunet.forward(model, st, plans=plans, impl=self._impl_now())
+        dyn, treedef, static, skeleton = split_plans(plans)
+        fn = self._executable(skeleton, treedef, static, self._impl_now())
+        return fn(st, dyn,
+                  eager=fault.active() is not None or self.level > 0)
 
     def _note_service(self, bucket: int, dt: float) -> None:
         prev = self._ewma.get(bucket)
@@ -397,6 +519,7 @@ class ServeEngine:
         return {
             "requests": len(self.results), **by, "degraded": degraded,
             "ticks": self.ticks, "level": self.level,
+            "compiled": self.compiled,
             "latency_p50_s": float(np.percentile(lat, 50)) if lat else None,
             "latency_p99_s": float(np.percentile(lat, 99)) if lat else None,
             "cache": self.cache.stats(),

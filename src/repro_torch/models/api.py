@@ -129,5 +129,6 @@ def input_specs(cfg: ModelConfig, cell: ShapeCell) -> dict:
 
 def abstract_cache(model: Model, cell: ShapeCell) -> dict:
     """The decode cache of ``cell`` (context length ``cell.seq_len``) as
-    ``meta`` tensors; ``step`` is the host integer 0."""
+    ``meta`` tensors, ``step`` an int32 scalar among them, as the
+    reference's."""
     return model.init_cache(cell.global_batch, cell.seq_len, device="meta")

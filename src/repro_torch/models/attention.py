@@ -116,10 +116,19 @@ def cache_from_prefill(k: torch.Tensor, v: torch.Tensor,
                                   device=dev)]))
 
 
-def attend_decode(params, x, cfg, cache: KVCache, step: int, *,
+def decode_slot(step: torch.Tensor, capacity: int) -> torch.Tensor:
+    """The cache slot of position ``step`` (an int32 scalar on the
+    device): ``step % capacity`` as a (1,) int64 index, on the device."""
+    return (step % capacity).reshape(1).long()
+
+
+def attend_decode(params, x, cfg, cache: KVCache, step: torch.Tensor, *,
                   window: int | None = None):
     """One-token decode against the cache. x (B, 1, D); ``step`` is the
-    absolute position, a host integer.
+    absolute position, an int32 scalar on the cache's device, as the
+    reference's: the slot, the position and the masks are computed on the
+    device, so a captured step (``launch/serve.generate``) reads its
+    position at each replay.
 
     Returns (out, cache). Unlike the reference, which returns a new cache,
     the cache's k and v are updated in place (slot ``step % C``) and the
@@ -129,12 +138,11 @@ def attend_decode(params, x, cfg, cache: KVCache, step: int, *,
     """
     b = x.shape[0]
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
-    positions = torch.full((1,), step, dtype=torch.int32, device=x.device)
-    q, k_new, v_new = _qkv(params, x, cfg, positions)
+    q, k_new, v_new = _qkv(params, x, cfg, step.reshape(1))
 
-    slot = step % cache.k.shape[1]
-    cache.k[:, slot] = k_new[:, 0]
-    cache.v[:, slot] = v_new[:, 0]
+    slot = decode_slot(step, cache.k.shape[1])
+    common.write_at(cache.k, 1, slot, k_new)
+    common.write_at(cache.v, 1, slot, v_new)
 
     w = cfg.swa_window if window is None else window
     valid = (cache.pos >= 0) & (cache.pos <= step)

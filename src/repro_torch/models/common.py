@@ -80,6 +80,29 @@ def embed(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
                      outs=(((1, 0),) + (None,) * ids.dim(),))
 
 
+def write_at(buf: torch.Tensor, dim: int, index: torch.Tensor,
+             src: torch.Tensor) -> None:
+    """``buf.index_copy_(dim, index, src)``, in place: the reference's
+    ``dynamic_update_slice`` at a position held on the device (``index``
+    (1,) int64), so no host read fixes it. DTensor has no ``index_copy_``
+    strategy on every torch the port runs: a DTensor whole along ``dim``
+    writes each rank's own shard (``src`` placed as ``buf`` first), one
+    sharded along it takes ``src`` where a one-hot mask of ``dim`` is
+    set."""
+    src = src.to(buf.dtype)
+    if is_dtensor(buf):
+        if any(p.is_shard(dim) for p in buf.placements):
+            hit = torch.arange(buf.shape[dim], device=index.device) == index
+            hit = hit.reshape((-1,) + (1,) * (buf.dim() - dim - 1))
+            buf.copy_(torch.where(hit, src, buf))
+            return
+        if is_dtensor(src):
+            src = src.redistribute(buf.device_mesh, buf.placements)
+        buf, index, src = (t.to_local() if is_dtensor(t) else t
+                           for t in (buf, index, src))
+    buf.index_copy_(dim, index, src)
+
+
 def pad_front(x: torch.Tensor, n: int) -> torch.Tensor:
     """x (B, S, ...) with n (a conv's width - 1) zero rows in front along
     S: ``F.pad``; on a DTensor the same as a concatenation, which DTensor
@@ -143,22 +166,68 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+class _SumOverRanks(torch.autograd.Function):
+    """All-reduce SUM over ``group`` forward; the identity backward, for a
+    sum whose result every rank of the group uses alike (its gradient is
+    the same on every rank, the gradient of each summand)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        from torch.distributed import _functional_collectives as funcol
+        return funcol.wait_tensor(funcol.all_reduce(x, "sum", group))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def _sharded_logsumexp(logits: torch.Tensor) -> torch.Tensor:
+    """``logsumexp`` over the last dim of a DTensor, without gathering it
+    where that dim is sharded: each rank takes the max and the sum of
+    exponentials of its own vocab shard, reduced by two all-reduces of the
+    leading dims over each mesh dim that shards the vocab (MAX, then SUM).
+    The max is a constant of the gradient, as in ``torch.logsumexp``."""
+    mesh, vdim = logits.device_mesh, logits.dim() - 1
+    groups = [(mesh, m) for m, p in enumerate(logits.placements)
+              if p.is_shard(vdim)]
+    if not groups:
+        return torch.logsumexp(logits, dim=-1)
+
+    def lse(x):
+        from torch.distributed import _functional_collectives as funcol
+        m = x.detach().amax(-1)
+        for g in groups:
+            m = funcol.wait_tensor(funcol.all_reduce(m, "max", g))
+        # an all -inf row: the reference's logsumexp is -inf there too
+        m = torch.where(torch.isfinite(m), m, 0.0)
+        s = torch.exp(x - m[..., None]).sum(-1)
+        for g in groups:
+            s = _SumOverRanks.apply(s, g)
+        return m + torch.log(s)
+
+    return local_map(lse, (logits,), free=(tuple(range(vdim + 1)),),
+                     outs=(tuple((0, d) for d in range(vdim)),))
+
+
 def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
                   mask: torch.Tensor | None = None) -> torch.Tensor:
     """Mean token CE in float32; logits (..., V), targets int (...), mask
-    optional (a masked mean over ``max(mask.sum(), 1)``)."""
+    optional (a masked mean over ``max(mask.sum(), 1)``).
+
+    Logits sharded on the vocab (a DTensor) are never gathered: the
+    log-sum-exp reduces each rank's max and sum of exponentials
+    (:func:`_sharded_logsumexp`), and the target's logit is a masked sum
+    over the sharded vocab, exact (one nonzero term), reduced once over
+    the model axis."""
     logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
     if is_dtensor(logits):
-        # vocab-sharded logits: DTensor's gather strategy fails here, so
-        # the target's logit is a masked sum over the (sharded) vocab,
-        # exact (one nonzero term), reduced once over the model axis
         hit = torch.arange(logits.shape[-1], device=targets.device) == \
             targets[..., None]
         dims = ("batch",) + (None,) * (targets.dim() - 1)
         ll = shard(torch.where(hit, logits, 0.0).sum(-1), *dims)
-        lse = shard(lse, *dims)
+        lse = shard(_sharded_logsumexp(logits), *dims)
     else:
+        lse = torch.logsumexp(logits, dim=-1)
         ll = logits.gather(-1, targets[..., None].long())[..., 0]
     nll = lse - ll
     if mask is None:

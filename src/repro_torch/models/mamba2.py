@@ -309,7 +309,7 @@ def init_cache(cfg, batch: int, max_context: int, device=None) -> dict:
                              conv_dim), dtype=dtype, device=device),
         "ssm": torch.zeros((cfg.n_layers, batch, h, cfg.ssm_headdim, n),
                            dtype=torch.float32, device=device),
-        "step": 0,
+        "step": transformer.step_tensor(0, device),
     }
 
 
@@ -318,7 +318,8 @@ def prefill(params, tokens: torch.Tensor, cfg, *, max_context: int,
             impl: str = "kernel"):
     """tokens (B, S) -> (last-token logits (B, V), cache): conv (L, B,
     conv_width - 1, C) the pre-conv rows the conv saw last (zeros before
-    the prompt), ssm (L, B, H, P, N) float32, ``step`` a host integer."""
+    the prompt), ssm (L, B, H, P, N) float32, ``step`` an int32 scalar on
+    the device."""
     del max_context, impl
     s = tokens.shape[1]
     keep = cfg.conv_width - 1
@@ -332,14 +333,14 @@ def prefill(params, tokens: torch.Tensor, cfg, *, max_context: int,
     h = common.norm(h, params["final_norm"], cfg.norm)
     logits = (h[:, -1:] @ params["lm_head"])[:, 0]
     return logits, {"conv": torch.stack(convs), "ssm": torch.stack(ssms),
-                    "step": s}
+                    "step": transformer.step_tensor(s, h.device)}
 
 
 @torch.no_grad()
 def decode_step(params, cache: dict, tokens: torch.Tensor, cfg):
     """tokens (B, 1) -> (logits (B, 1, V), cache). The cache's conv and ssm
-    states are updated in place; the returned dict shares them, with
-    ``step`` advanced by one."""
+    states are updated in place, and ``step`` advanced by one on the
+    device; the returned dict shares them."""
     h = shard(common.embed(params["embed"], tokens), "batch", None, None)
     for i, lp in enumerate(params["layers"]):
         out, conv, ssm = layer_decode(lp, common.norm(h, lp["ln"], cfg.norm),
@@ -348,5 +349,5 @@ def decode_step(params, cache: dict, tokens: torch.Tensor, cfg):
         cache["conv"][i] = conv
         cache["ssm"][i] = ssm
     h = common.norm(h, params["final_norm"], cfg.norm)
-    return shard(h @ params["lm_head"], "batch", None, "model"), \
-        {**cache, "step": cache["step"] + 1}
+    cache["step"].add_(1)
+    return shard(h @ params["lm_head"], "batch", None, "model"), cache

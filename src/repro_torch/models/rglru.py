@@ -237,7 +237,8 @@ def rec_layer_decode(lp, h, cfg, rec_h, conv_state):
     return h + m, h_new, window[:, 1:]
 
 
-def attn_layer_decode(lp, h, cfg, kvc: attention.KVCache, step: int):
+def attn_layer_decode(lp, h, cfg, kvc: attention.KVCache,
+                      step: torch.Tensor):
     a_in = common.norm(h, lp["ln"], cfg.norm)
     a_out, kvc = attention.attend_decode(lp["attn"], a_in, cfg, kvc, step,
                                          window=cfg.local_window)
@@ -298,7 +299,7 @@ def init_cache(cfg, batch: int, max_context: int, device=None) -> dict:
         "tail_h": zeros((max(tail, 1), batch, w), f32),
         "tail_conv": zeros((max(tail, 1), batch, cfg.conv_width - 1, w),
                            dtype),
-        "step": 0,
+        "step": transformer.step_tensor(0, device),
     }
 
 
@@ -308,7 +309,7 @@ def prefill(params, tokens: torch.Tensor, cfg, *, max_context: int,
     """tokens (B, S) -> (last-token logits (B, V), cache): the recurrent
     states and conv inputs of every rec layer, the attention layers'
     rolling KV caches (capacity min(max_context, local_window)), ``pos``
-    and ``step``, a host integer. ``impl`` as in
+    and ``step``, an int32 scalar on the device. ``impl`` as in
     :func:`attention.attend_full`."""
     s = tokens.shape[1]
     cap = min(max_context, cfg.local_window)
@@ -337,19 +338,21 @@ def prefill(params, tokens: torch.Tensor, cfg, *, max_context: int,
                      tail_conv=torch.stack(tail_conv))
     h = common.norm(h, params["final_norm"], cfg.norm)
     logits = (h[:, -1:] @ params["embed"].T)[:, 0]
-    cache["step"] = s
+    cache["step"] = transformer.step_tensor(s, h.device)
     return logits, cache
 
 
 @torch.no_grad()
 def decode_step(params, cache: dict, tokens: torch.Tensor, cfg):
     """tokens (B, 1) -> (logits (B, 1, V), cache). The cache's tensors are
-    updated in place (see :func:`attention.attend_decode`); the returned
-    dict shares them, with ``step`` advanced by one."""
+    updated in place (see :func:`attention.attend_decode`), ``step`` too,
+    advanced by one on the device; the returned dict shares them."""
     step = cache["step"]
     cap = cache["k"].shape[2]
     h = common.embed(params["embed"], tokens)
-    cache["pos"][step % cap] = step          # shared by all groups: once
+    # shared by all groups: once
+    common.write_at(cache["pos"], 0, attention.decode_slot(step, cap),
+                    step.reshape(1))
     for g, gp in enumerate(params["groups"]):
         for j, name in enumerate(("rec0", "rec1")):
             h, rh, rc = rec_layer_decode(gp[name], h, cfg,
@@ -366,5 +369,5 @@ def decode_step(params, cache: dict, tokens: torch.Tensor, cfg):
         cache["tail_h"][i] = rh
         cache["tail_conv"][i] = rc
     h = common.norm(h, params["final_norm"], cfg.norm)
-    return shard(h @ params["embed"].T, "batch", None, "model"), \
-        {**cache, "step": step + 1}
+    step.add_(1)
+    return shard(h @ params["embed"].T, "batch", None, "model"), cache

@@ -190,6 +190,12 @@ def cache_capacity(cfg, max_context: int) -> int:
     return min(max_context, cfg.swa_window) if cfg.swa_window else max_context
 
 
+def step_tensor(step: int, device) -> torch.Tensor:
+    """A cache's ``step``: the next absolute position as an int32 scalar on
+    ``device``, as the reference holds it."""
+    return torch.tensor(step, dtype=torch.int32, device=device)
+
+
 def init_cache(cfg, batch: int, max_context: int, device=None) -> dict:
     dtype = common.dtype_of(cfg)
     cap = cache_capacity(cfg, max_context)
@@ -198,7 +204,7 @@ def init_cache(cfg, batch: int, max_context: int, device=None) -> dict:
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device),
             "pos": torch.full((cap,), -1, dtype=torch.int32, device=device),
-            "step": 0}
+            "step": torch.zeros((), dtype=torch.int32, device=device)}
 
 
 @torch.no_grad()
@@ -207,7 +213,7 @@ def prefill(params, tokens: torch.Tensor, cfg, *, max_context: int,
     """tokens (B, S) -> (last-token logits (B, V), cache).
 
     The cache holds k and v (L, B, C, KV, hd), pos (C,) and ``step``, the
-    next absolute position, as a host integer.
+    next absolute position, an int32 scalar on the device.
     """
     s = tokens.shape[1]
     cap = cache_capacity(cfg, max_context)
@@ -217,7 +223,8 @@ def prefill(params, tokens: torch.Tensor, cfg, *, max_context: int,
     caches = [attention.cache_from_prefill(k, v, cap) for k, v in kvs]
     return logits, {"k": torch.stack([c.k for c in caches]),
                     "v": torch.stack([c.v for c in caches]),
-                    "pos": caches[0].pos, "step": s}
+                    "pos": caches[0].pos,
+                    "step": step_tensor(s, tokens.device)}
 
 
 @torch.no_grad()
@@ -225,13 +232,15 @@ def decode_step(params, cache: dict, tokens: torch.Tensor, cfg):
     """tokens (B, 1) -> (logits (B, 1, V), cache). One step, all layers.
 
     The cache's tensors are updated in place (see
-    :func:`attention.attend_decode`); the returned dict shares them, with
-    ``step`` advanced by one.
+    :func:`attention.attend_decode`), ``step`` too, advanced by one on the
+    device; the returned dict shares them.
     """
     step = cache["step"]
     cap = cache["k"].shape[2]
     h = shard(common.embed(params["embed"], tokens), "batch", None, None)
-    cache["pos"][step % cap] = step          # shared by all layers: once
+    # shared by all layers: once
+    common.write_at(cache["pos"], 0, attention.decode_slot(step, cap),
+                    step.reshape(1))
     for i, lp in enumerate(params["layers"]):
         a_in = common.norm(h, lp["ln1"], cfg.norm)
         kvc = attention.KVCache(k=cache["k"][i], v=cache["v"][i],
@@ -241,4 +250,5 @@ def decode_step(params, cache: dict, tokens: torch.Tensor, cfg):
         m_in = common.norm(h, lp["ln2"], cfg.norm)
         h = h + _ffn(lp, m_in, cfg)[0]
     h = common.norm(h, params["final_norm"], cfg.norm)
-    return logits_fn(params, h, cfg), {**cache, "step": step + 1}
+    step.add_(1)
+    return logits_fn(params, h, cfg), cache

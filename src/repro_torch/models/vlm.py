@@ -92,7 +92,8 @@ def prefill(params, batch: dict, cfg, *, max_context: int,
     caches = [attention.cache_from_prefill(k, v, cap) for k, v in kvs]
     return logits, {"k": torch.stack([c.k for c in caches]),
                     "v": torch.stack([c.v for c in caches]),
-                    "pos": caches[0].pos, "step": h.shape[1]}
+                    "pos": caches[0].pos,
+                    "step": transformer.step_tensor(h.shape[1], h.device)}
 
 
 decode_step = transformer.decode_step

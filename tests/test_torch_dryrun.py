@@ -28,6 +28,11 @@ against the JAX package's, on the CPU.
 * ``CostMode``'s walk of live bytes on a hand-counted chain of ``meta``
   ops: views, in-place ops and the arguments add nothing, a storage
   leaves when its last tensor (a view included) is freed.
+* The vocab-sharded loss gathers no logits: ``common.cross_entropy`` and
+  its backward on the reduced TinyLlama train cell's logits, sharded on
+  the vocab over ``model`` of the fake (2, 4) mesh, issue three
+  all-reduces of a (B, S) float32 row each (the log-sum-exp's max and
+  sum, the target's logit) and no all-gather.
 * The fake world is left on exit: no process group stays initialized.
 """
 from __future__ import annotations
@@ -165,3 +170,27 @@ def test_live_bytes_walk_of_a_hand_counted_chain():
         del e, f, g                                   # 0
     assert cm.live_bytes == 0
     assert cm.peak_bytes == 8000
+
+
+def test_vocab_sharded_loss_gathers_no_logits():
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.models import common
+    from repro_torch.runtime import sharding as rs
+    cfg, cell = _cfg("tinyllama-1.1b", 2), _small("train_4k")
+    b, s, v = cell.global_batch, cell.seq_len - 1, cfg.vocab
+    with meshlib.fake_world(8):
+        mesh = meshlib.make_test_mesh(2, 4)
+        with rs.set_mesh(mesh):
+            spec = rs.resolve("batch", None, "model", shape=(b, s, v))
+            assert spec == ("data", None, "model")
+            logits = distribute_tensor(
+                torch.empty((b, s, v), device="meta"), mesh,
+                rs.placements(spec, mesh)).requires_grad_()
+            targets = torch.zeros((b, s), dtype=torch.int32, device="meta")
+            with hlo_analysis.CostMode() as cm:
+                common.cross_entropy(logits, targets).backward()
+            assert logits.grad.placements == logits.placements
+    assert not dist.is_initialized()
+    row = (b // 2) * s * 4                  # a (B, S) float32 row a device
+    assert cm.collectives.count_by_kind == {"all-reduce": 3}
+    assert cm.collectives.bytes_by_kind == {"all-reduce": 3 * row}

@@ -162,7 +162,9 @@ def test_vlm_prefill_and_decode_match_reference():
     _close(logits, jlogits)
 
     def check(cache, jcache):
-        assert cache["step"] == int(jcache["step"])
+        assert cache["step"].dtype == torch.int32
+        assert np.array_equal(cache["step"].numpy(),
+                              np.asarray(jcache["step"]))
         assert np.array_equal(cache["pos"].numpy(),
                               np.asarray(jcache["pos"]))
         _close(cache["k"], jcache["k"])

@@ -74,7 +74,13 @@ non-causal) and LLaVA (D 128, GQA, patches) prefills launch the kernel
 once an attention layer and hold their output to the plain version's
 (1e-3 x max in float32, 2e-2 in bf16); a narrow Mamba2 on the card gives
 its CPU logits and decodes a 2-token prompt as its teacher-forced
-prefill.
+prefill. The serving engine's CUDA graph (one executable for a bucket
+class) serves two scenes of one bucket in one tick, each bit-equal to an
+eager forward of its tensors and plans, and a replay adds the captured
+forward's launches to the counters; each family with a decode step,
+narrow, replays it from a graph in ``generate``, its tokens and each
+step's logits equal to an eager ``decode_step`` loop's; a capture that meets a host
+read raises, and the card stays usable.
 """
 from __future__ import annotations
 
@@ -1610,3 +1616,116 @@ def test_gloo_takes_int32_cuda_collectives(cuda, tmp_path):
         assert r["max"] == [1, 0, 7] and r["device"] == "cuda:0"
         assert r["gathered"] == [[1, 0, 7], [2, 1, 8]]
         assert r["equal"]
+
+
+def test_engine_graph_serves_a_batched_tick_bit_equal_to_eager(cuda):
+    """Two scenes of one bucket in one tick (both replays before either
+    copy-out): one executable, each digest that of an eager forward of the
+    same tensors and plans; each replay counts the graph's launches."""
+    import hashlib
+    from repro_torch.core.spconv import SparseTensor
+    from repro_torch.launch import spconv_serve
+    from repro_torch.models import minkunet
+    from repro_torch.runtime import admission
+    cfg = minkunet.MinkUNetConfig(name="tiny", stem=8, enc=(8, 16),
+                                  dec=(16, 8), classes=4, blocks=1)
+    model = minkunet.MinkUNet(cfg, device=cuda)
+    eng = spconv_serve.ServeEngine(
+        model, device=cuda, max_batch=2,
+        queue=admission.AdmissionQueue(buckets=(2048,)))
+    clouds = []
+    for seed in (9, 21):
+        c, b, v = _cloud(np.random.default_rng(seed), 2048, 40, 1500)
+        f = np.random.default_rng(seed + 1).standard_normal(
+            (2048, 4)).astype(np.float32)
+        clouds.append((c, b, v, f))
+        eng.submit(f"s{seed}", c, b, v, f)
+    launches = sg_kernel.launches
+    res = eng.step()
+    assert [r.status for r in res] == ["completed"] * 2
+    assert eng.compiled == 1
+    (entry,) = eng._exec.values()
+    n_layers = 1 + len(cfg.enc) + len(cfg.dec) \
+        + cfg.blocks * (len(cfg.enc) + len(cfg.dec))
+    assert entry.graph.launches[(sg_kernel, "launches")] == n_layers
+    # the warm-up, then two replays: the capture launched nothing
+    assert sg_kernel.launches - launches == 3 * n_layers
+    assert res[0].digest != res[1].digest
+    for r, (c, b, v, f) in zip(res, clouds):
+        arrays = admission.quantize_to_bucket(c, b, v, f, 2048)[:4]
+        st = SparseTensor(*(torch.as_tensor(a, device=cuda)
+                            for a in arrays))
+        plans = minkunet.build_plans(st.coords, st.batch, st.valid, cfg,
+                                     cache=eng.cache, n_max=2048,
+                                     device=cuda)
+        want = minkunet.forward(model, st, plans=plans).cpu().numpy()
+        assert hashlib.sha256(want.tobytes()).hexdigest() == r.digest
+
+
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "mixtral-8x7b",
+                                  "mamba2-2.7b", "recurrentgemma-2b",
+                                  "llava-next-mistral-7b"])
+def test_generate_replays_decode_step_equal_to_eager(cuda, arch):
+    """Each family with a decode step, narrow (reduced config, float32,
+    head dim 64, one of kernel 5's; Mixtral past its 16-slot window),
+    through ``generate``: the step after
+    the first is a graph replay, and the tokens and every step's logits
+    equal an eager ``decode_step`` loop's from the same prefill."""
+    import dataclasses
+    from repro_torch.launch import serve
+    from repro_torch.models import api
+    from repro_torch.runtime import graph
+    cfg = dataclasses.replace(get_config(arch).reduced(), head_dim=64)
+    model = api.build_model(cfg, device=cuda)
+    params = model.init(torch.Generator(cuda).manual_seed(0))
+    rng = np.random.default_rng(0)
+    batch = {"tokens": rng.integers(0, cfg.vocab, (2, 12))}
+    if cfg.n_patches:
+        batch["patches"] = rng.standard_normal(
+            (2, cfg.n_patches, cfg.vision_dim)).astype(np.float32)
+    n_gen, ctx = 10, 12 + 10 + cfg.n_patches
+    got, stats = serve.generate(model, params, batch, max_context=ctx,
+                                n_steps=n_gen, device=cuda)
+    assert stats["graphed"]
+    dev_batch = {k: torch.as_tensor(v, device=cuda)
+                 for k, v in batch.items()}
+
+    def loop(graphed):
+        logits, cache = model.prefill(params, dev_batch, ctx)
+        step0 = int(cache["step"])
+        tok = logits.argmax(-1)[:, None].int()
+        out, steps, g = [tok], [], None
+        for _ in range(n_gen - 1):
+            if not graphed:
+                logits, cache = model.decode_step(params, cache, tok)
+            elif g is None:
+                g = graph.Graph(
+                    lambda t: model.decode_step(params, cache, t)[0], cuda)
+                logits = g.warm_up(tok)
+                g.capture(tok)
+            else:
+                logits = g(tok)
+            steps.append(logits[:, -1])
+            tok = logits[:, -1].argmax(-1)[:, None].int()
+            out.append(tok)
+        assert cache["step"].dtype == torch.int32
+        assert int(cache["step"]) == step0 + n_gen - 1
+        return torch.cat(out, 1), steps
+
+    eager, eager_logits = loop(False)
+    replayed, replayed_logits = loop(True)
+    assert torch.equal(got, eager) and torch.equal(replayed, eager)
+    for a, b in zip(replayed_logits, eager_logits):
+        assert torch.equal(a, b)
+
+
+def test_capture_that_meets_a_host_read_raises(cuda):
+    from repro_torch.runtime import graph
+    x = torch.ones(4, device=cuda)
+    g = graph.Graph(lambda t: t * int(t.sum()), cuda)
+    g.warm_up(x)
+    with pytest.raises(RuntimeError):
+        g.capture(x)
+    assert g.graph is None
+    torch.cuda.synchronize()
+    assert float((x * 2).sum()) == 8.0

@@ -62,7 +62,7 @@ def test_port_never_imports_jax_or_repro():
                 "models/api.py", "launch/mesh.py", "launch/shardings.py",
                 "launch/hlo_analysis.py", "launch/dryrun.py",
                 "runtime/pipeline.py", "runtime/compress.py",
-                "runtime/flags.py"):
+                "runtime/flags.py", "runtime/graph.py"):
         assert PKG / mod in files, mod
     assert REPO / "examples" / "moe_ragged_torch.py" in files
     bad = {str(p.relative_to(REPO)): sorted(_imported_roots(p)

@@ -130,14 +130,52 @@ def test_attend_decode_matches_reference(cap, window):
     for step in range(9, 13):                # wraps the 5-slot cache
         xt = rng.standard_normal((2, 1, cfg.d_model)).astype(np.float32)
         c.pos[step % cap] = step             # the caller's write, per step
-        o, c = attention.attend_decode(_t(p), _t(xt), cfg, c, step,
-                                       window=window)
+        o, c = attention.attend_decode(
+            _t(p), _t(xt), cfg, c, torch.tensor(step, dtype=torch.int32),
+            window=window)
         jo, jc = jattention.attend_decode(p, xt, jcfg, jc, jnp.int32(step),
                                           window=window)
         _close(o, jo)
         assert np.array_equal(c.pos.numpy(), np.asarray(jc.pos))
         _close(c.k, jc.k)
         _close(c.v, jc.v)
+
+
+def test_write_at_on_dtensors_equals_index_copy(tmp_path):
+    """``common.write_at``, the decode step's slot write at a device
+    position, on DTensors of a one-rank gloo mesh: a cache whole along the
+    slot dim (each rank writes its shard), one sharded along it (the
+    one-hot mask) and the replicated ``pos``, each equal to
+    ``index_copy_`` on plain tensors."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.runtime import sharding as rs
+    store = dist.FileStore(str(tmp_path / "store"), 1)
+    dist.init_process_group("gloo", store=store, rank=0, world_size=1)
+    try:
+        mesh = meshlib.make_test_mesh(1, 1)
+        g = torch.Generator().manual_seed(0)
+        k = torch.randn((2, 6, 4, 8), generator=g)
+        new = torch.randn((2, 1, 4, 8), generator=g)
+        pos = torch.arange(6, dtype=torch.int32)
+        step = torch.tensor(9, dtype=torch.int32)
+        slot = attention.decode_slot(step, 6)
+        with rs.set_mesh(mesh):              # as the models run on a mesh
+            for placed in ((Shard(0), Shard(2)), (Shard(0), Shard(1))):
+                kd = distribute_tensor(k.clone(), mesh, placed)
+                common.write_at(kd, 1, distribute_tensor(
+                    slot, mesh, (Replicate(), Replicate())),
+                    distribute_tensor(new, mesh, placed))
+                assert torch.equal(kd.full_tensor(),
+                                   k.clone().index_copy_(1, slot, new))
+            pd = distribute_tensor(pos.clone(), mesh,
+                                   (Replicate(), Replicate()))
+            common.write_at(pd, 0, slot, step.reshape(1))
+        assert torch.equal(pd.full_tensor(),
+                           pos.clone().index_copy_(0, slot, step.reshape(1)))
+    finally:
+        dist.destroy_process_group()
 
 
 def _lm(arch, seed=1, **repl):
@@ -150,7 +188,9 @@ def _lm(arch, seed=1, **repl):
 
 def _check_cache(cache, jcache):
     assert np.array_equal(cache["pos"].numpy(), np.asarray(jcache["pos"]))
-    assert cache["step"] == int(jcache["step"])
+    assert cache["step"].dtype == torch.int32
+    assert np.array_equal(cache["step"].numpy(),
+                          np.asarray(jcache["step"]))
     _close(cache["k"], jcache["k"])
     _close(cache["v"], jcache["v"])
 

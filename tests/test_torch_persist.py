@@ -428,7 +428,6 @@ def test_recover_requeues_and_sheds_as_the_reference(tmp_path):
         assert [(r.rid, r.status, r.reason) for r in jagain.results] == \
             [(r.rid, r.status, r.reason) for r in again.results]
         ref_h = jh.snapshot()
-    ref_h.pop("serve.compile", None)
     assert port_h == ref_h
     assert port_h["serve.recovered"] == 2
     assert port_h["admit.shed.restart"] == 1

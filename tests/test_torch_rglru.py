@@ -110,7 +110,9 @@ def test_lm_loss_and_grads_match_reference():
 
 
 def _check_cache(cache, jcache):
-    assert cache["step"] == int(jcache["step"])
+    assert cache["step"].dtype == torch.int32
+    assert np.array_equal(cache["step"].numpy(),
+                          np.asarray(jcache["step"]))
     assert np.array_equal(cache["pos"].numpy(), np.asarray(jcache["pos"]))
     for key in ("rec_h", "rec_conv", "k", "v", "tail_h", "tail_conv"):
         _close(cache[key], jcache[key])

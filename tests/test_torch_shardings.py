@@ -21,8 +21,8 @@ the leaf's bytes a device summed over the layers equal, except on the
 three Mamba2 leaves of :data:`PARTIAL_MOVES`, whose 80 elements take only
 16 of the reference's 32 ways (their m and v hold twice the reference's
 bytes a device). Each device's argument bytes (parameters, optimizer state,
-inputs, cache) equal the reference's, the cache's ``step`` aside (a
-4-byte int32 scalar there, a host integer here). So do those of the
+inputs, cache) equal the reference's, the cache's ``step`` included (a
+replicated int32 scalar on both sides). So do those of the
 reduced TinyLlama train cell that ``tests/test_torch_dryrun.py`` runs,
 as ``launch.dryrun.build_cell`` places them.
 """
@@ -245,10 +245,9 @@ def test_specs_and_bytes_equal_reference(ref, mesh_kind):
                         c = api.abstract_cache(model, cell)
                         tensors = {k: t for k, t in c.items()
                                    if isinstance(t, torch.Tensor)}
-                        assert set(c) - set(tensors) == {"step"}
+                        assert set(c) == set(tensors)
                         for kv in KV_LAYOUTS:
                             rc = dict(r["cache"][cname][kv])
-                            rc.pop("step")
                             assert set(rc) == set(tensors), (where, cname)
                             _check_tree(tensors, shardings.cache_shardings(
                                 c, mesh, kv), rc, f"{where} {cname} {kv}")
