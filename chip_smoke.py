@@ -1730,25 +1730,128 @@ def _lm_loss_path(model, params, opt_cfg, stream, steps, impl):
     return path
 
 
+def _tree_clone(tree):
+    if isinstance(tree, dict):
+        return {k: _tree_clone(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_tree_clone(v) for v in tree)
+    return tree.clone()
+
+
+def _lm_graph_gate(dev, model, opt_cfg, stream):
+    """TinyLlama-1.1B's donated step as ``run_lm`` runs it
+    (``train.CompiledStep``: eager once, captured and replayed at the
+    second call, replayed after), each of the LM_TRAIN_STEPS - 1 replays
+    against an eager step from the same state and batch (a copy of the
+    state taken before the replay). The gate: every leaf of the
+    state and the loss bit-equal; else the loss within TOL_LM_TRAIN_LOSS
+    and each leaf's difference within TOL_LM_TRAIN_GRAD of the norm of
+    the eager step's change to it. Then AdamW alone (``adamw.update_``)
+    timed eagerly and replayed from its own donated graph. Returns the
+    record."""
+    import torch
+    from repro_torch.checkpoint import checkpoint
+    from repro_torch.launch import train
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import graph
+
+    step = train.make_train_step(model, opt_cfg, donate=True)
+    compiled = train.CompiledStep(step, dev)
+    state = train.init_state(model, seed=SEED)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    compiled(state, _device_batch(dev, stream.batch_at(0)))
+    torch.cuda.synchronize()
+    rec = {"warm_up_ms": (time.perf_counter() - t0) * 1e3, "steps": []}
+    broken = []
+    for i in range(1, LM_TRAIN_STEPS):
+        b = _device_batch(dev, stream.batch_at(i))
+        pre, twin = _tree_clone(state), _tree_clone(state)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = compiled(state, b)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        twin, tm = step(twin, b)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        worst, equal = 0.0, 0
+        leaves = list(zip(checkpoint.tree_leaves(state),
+                          checkpoint.tree_leaves(twin),
+                          checkpoint.tree_leaves(pre)))
+        for a, e, p in leaves:
+            if torch.equal(a, e):
+                equal += 1
+                continue
+            moved = (e.float() - p.float()).norm().clamp(min=1e-30)
+            worst = max(worst, ((a.float() - e.float()).norm()
+                                / moved).item())
+        loss_rel = abs(m["loss"].item() - tm["loss"].item()) / abs(
+            tm["loss"].item())
+        bit = equal == len(leaves) and loss_rel == 0.0
+        if not bit and (loss_rel > TOL_LM_TRAIN_LOSS
+                        or worst > TOL_LM_TRAIN_GRAD):
+            broken.append(f"step {i}: loss {loss_rel}, update {worst}")
+        rec["steps"].append({"step": i, "graph": compiled.last,
+                             "replay_ms": (t1 - t0) * 1e3,
+                             "eager_ms": (t2 - t1) * 1e3,
+                             "loss": m["loss"].item(),
+                             "eager_loss": tm["loss"].item(),
+                             "bit_equal": bit, "leaves_equal": equal,
+                             "leaves": len(leaves),
+                             "loss_rel_err": loss_rel,
+                             "worst_update_rel_err": worst})
+        del pre, twin
+    check(not broken, f"lm_train graph against eager: {'; '.join(broken)}")
+    rec["pool_bytes"] = compiled.graph.pool_bytes
+    compiled.release()
+
+    # AdamW alone over the 201 tensors, eager and replayed
+    params, opt_state = state
+    _, _, grads = train.lm_loss_and_grads(
+        model, params, _device_batch(dev, stream.batch_at(0)))
+
+    def update(st, gr):
+        return st, adamw.update_(opt_cfg, gr, st[1], st[0])
+
+    eager = [wall_ms(lambda: update((params, opt_state), grads), 1)
+             for _ in range(3)]
+    g = graph.Graph(update, dev, donate=True)
+    g.warm_up((params, opt_state), grads)
+    g.capture((params, opt_state), grads)
+    replay = [wall_ms(lambda: g((params, opt_state), grads), 1)
+              for _ in range(3)]
+    rec["adamw"] = {"tensors": len(params), "eager_ms": eager,
+                    "replay_ms": replay, "pool_bytes": g.pool_bytes}
+    g.release()
+    del state, params, opt_state, grads, g
+    return rec
+
+
 def phase_lm_train(dev):
     """Decoder-LM training on the card through ``make_train_step``.
     TinyLlama-1.1B at full width and depth (bf16) takes LM_TRAIN_STEPS
     steps of LM_TRAIN_BATCH x LM_TRAIN_SEQ tokens from ``TokenStream(seed
     0)`` through ``run_lm``, the training CLI's loop (a ``TrainRunner``
     with its baseline and final checkpoint saves; the CLI's schedule,
-    warmup 5 steps), with the flash count set to 0 just before and read
-    just after: 2 launches a layer a step under remat ``full`` (the
-    forward and its recomputation in the backward; the backward itself is
-    the plain version's VJP). A witness for that loss path takes the same
-    steps from the same state and batches again (``_lm_loss_path``): in
-    bf16 through the kernel and through the plain attention, whose losses
-    must agree with each other and with ``run_lm``'s (TOL_LM_TRAIN_PATH),
-    and in float32, reported. The gate runs in float32 on the same
+    warmup 5 steps; the first step eager, the second captured and
+    replayed, the others replayed from its CUDA graph), with the flash
+    count set to 0 just before and read just after: 2 launches a layer a
+    step under remat ``full`` (the forward and its recomputation in the
+    backward; the backward itself is the plain version's VJP), replays
+    counted. Each replay is then held to an eager step from the same state
+    and batch (``_lm_graph_gate``), and AdamW is timed alone, eager and
+    replayed. A witness for that loss path takes the same steps from the
+    same state and batches again (``_lm_loss_path``): in bf16 through the
+    kernel and through the plain attention, whose losses must agree with
+    each other and with ``run_lm``'s (TOL_LM_TRAIN_PATH), and in float32,
+    reported. The gate runs in float32 on the same
     config: one step's loss (TOL_LM_TRAIN_LOSS relative) and each gradient
     (its difference's norm within TOL_LM_TRAIN_GRAD of its norm) through
     the kernel against the plain version. Then Mixtral-8x7B at full width,
     MOE_TRAIN_LAYERS of 32 layers (bf16), MOE_TRAIN_STEPS steps of
-    MOE_TRAIN_BATCH x LM_TRAIN_SEQ: finite losses, the router's gradient
+    MOE_TRAIN_BATCH x LM_TRAIN_SEQ, captured and replayed as TinyLlama's
+    (AdamW in place: one state): finite losses, the router's gradient
     nonzero (AdamW's first moment of every router is), the kernel's
     launches. Returns the launches of each run."""
     import torch
@@ -1778,11 +1881,16 @@ def phase_lm_train(dev):
     check(launches == want * LM_TRAIN_STEPS,
           f"lm_train: {launches} flash launches in {LM_TRAIN_STEPS} steps, "
           f"want {want} a step")
+    modes = [t["graph"] for t in res["timings"]]
+    check(modes == ["warm-up", "capture"] + ["replay"] * (LM_TRAIN_STEPS - 2),
+          f"lm_train: run_lm's steps ran {modes}, want a warm-up, a "
+          f"capture, then replays")
     out["tinyllama"] = launches
     emit(phase="lm_train", config=cfg.name, dtype=cfg.dtype,
          layers=cfg.n_layers, batch=LM_TRAIN_BATCH, seq=LM_TRAIN_SEQ,
          steps=LM_TRAIN_STEPS, lr=LM_TRAIN_LR, losses=losses,
-         step_ms=res["timings"], save_ms=res["save_ms"],
+         step_ms=res["timings"], pool_bytes=res["pool_bytes"],
+         save_ms=res["save_ms"],
          flash_launches=launches,
          flash_launches_per_step=launches / LM_TRAIN_STEPS,
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
@@ -1790,15 +1898,21 @@ def phase_lm_train(dev):
     del res
     torch.cuda.empty_cache()
     stream = train.make_stream(cfg, LM_TRAIN_BATCH, LM_TRAIN_SEQ, seed=SEED)
+    model16 = api.build_model(cfg, device=dev)
+    opt_cfg = adamw.AdamWConfig(lr=LM_TRAIN_LR, total_steps=LM_TRAIN_STEPS,
+                                warmup_steps=max(LM_TRAIN_STEPS // 20, 5))
+    gate = _lm_graph_gate(dev, model16, opt_cfg, stream)
+    emit(phase="lm_train.graph", config=cfg.name, dtype=cfg.dtype, **gate,
+         tolerance={"bit_equal": "wanted",
+                    "else_loss": f"{TOL_LM_TRAIN_LOSS} relative",
+                    "else_update": f"{TOL_LM_TRAIN_GRAD} x |eager update|"})
+    torch.cuda.empty_cache()
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     model32 = api.build_model(cfg32, device=dev)
 
     # a witness for the bf16 loss path: the same steps from the same state
     # (run_lm's) and batches, through the plain attention and in float32
-    model16 = api.build_model(cfg, device=dev)
     init16, _ = train.init_state(model16, seed=SEED)
-    opt_cfg = adamw.AdamWConfig(lr=LM_TRAIN_LR, total_steps=LM_TRAIN_STEPS,
-                                warmup_steps=max(LM_TRAIN_STEPS // 20, 5))
     paths = {}
     for label, model, impl in (("bf16_kernel", model16, "kernel"),
                                ("bf16_plain", model16, "ref"),
@@ -1857,7 +1971,7 @@ def phase_lm_train(dev):
     torch.cuda.empty_cache()
 
     # Mixtral-8x7B at full width, its depth cut: parameters, gradients and
-    # two AdamW states (the update is out of place) near the card's 80 GB
+    # one AdamW state (the donated step updates in place), replayed
     full = get_config(MOE_ARCH)
     mcfg = dataclasses.replace(full, n_layers=MOE_TRAIN_LAYERS)
     model = api.build_model(mcfg, device=dev)
@@ -1870,18 +1984,28 @@ def phase_lm_train(dev):
     stream = train.make_stream(mcfg, MOE_TRAIN_BATCH, LM_TRAIN_SEQ,
                                seed=SEED)
     timings = []
-    step = train.make_train_step(
+    step = train.CompiledStep(train.make_train_step(
         model, adamw.AdamWConfig(lr=LM_TRAIN_LR, total_steps=MOE_TRAIN_STEPS,
-                                 warmup_steps=5), timings=timings)
+                                 warmup_steps=5), donate=True), dev)
     metrics = []
     fa_kernel.launches = 0
     for i in range(MOE_TRAIN_STEPS):
-        state, m = step(state, stream.batch_at(i))
+        b = _device_batch(dev, stream.batch_at(i))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        torch.cuda.synchronize()
+        timings.append({"step_ms": (time.perf_counter() - t0) * 1e3,
+                        "graph": step.last})
         metrics.append({k: v.item() for k, v in m.items()})
     launches = fa_kernel.launches
     want = 2 * mcfg.n_layers * MOE_TRAIN_STEPS
     check(launches == want, f"lm_train mixtral: {launches} flash launches, "
                             f"want {want}")
+    modes = [t["graph"] for t in timings]
+    check(modes == ["warm-up", "capture"] + ["replay"] * (MOE_TRAIN_STEPS
+                                                          - 2),
+          f"lm_train mixtral: the steps ran {modes}")
     check(all(np.isfinite(m["loss"]) for m in metrics),
           f"lm_train mixtral: losses {[m['loss'] for m in metrics]}")
     router_m = [state[1]["m"][f"layers.{i}.moe.router"].abs().max().item()
@@ -1893,10 +2017,12 @@ def phase_lm_train(dev):
          layers=mcfg.n_layers, reduced={"n_layers": [full.n_layers,
                                                      mcfg.n_layers]},
          batch=MOE_TRAIN_BATCH, seq=LM_TRAIN_SEQ, metrics=metrics,
-         step_ms=timings, router_first_moment_max=router_m,
+         step_ms=timings, pool_bytes=step.graph.pool_bytes,
+         router_first_moment_max=router_m,
          flash_launches=launches, held_before_gb=held_gb,
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
-    del state, model
+    step.release()
+    del state, model, step
     torch.cuda.empty_cache()
     return out
 
@@ -2065,13 +2191,17 @@ def _train_steps(model, stream, steps, label, want_launches):
     timings = []
     step = train.make_train_step(
         model, adamw.AdamWConfig(lr=LM_TRAIN_LR, total_steps=steps,
-                                 warmup_steps=5), timings=timings)
+                                 warmup_steps=5))
     metrics = []
     fa_kernel.launches = 0
     for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         state, m = step(state, stream.batch_at(i))
+        torch.cuda.synchronize()
+        timings.append({"step_ms": (time.perf_counter() - t0) * 1e3,
+                        "graph": "eager"})
         metrics.append({k: v.item() for k, v in m.items()})
-    torch.cuda.synchronize()
     launches = fa_kernel.launches
     check(launches == want_launches * steps,
           f"{label} training: {launches} flash launches in {steps} steps, "
@@ -2793,6 +2923,64 @@ def _pinned_relus(masks):
             lambda x: torch.where(next(it), x, 0.0))
 
 
+def _leaves(tree):
+    from repro_torch.checkpoint import checkpoint
+    return checkpoint.tree_leaves(tree)
+
+
+def _train_resume(dev, cfg, want_digest):
+    """Phase ``train``'s run again, SIGKILLed in its third checkpoint save
+    (a ``FaultPlan`` in a subprocess, whose steps therefore run eagerly)
+    and then resumed here from its newest verified checkpoint, step 1: the
+    resumed run computes steps 2 and 3 on the card again (a warm-up, then
+    a capture and replay) and must reach the first run's digest, with no
+    determinism switch set. That run is the first run's clean witness
+    (phase ``paper.replan`` holds two clean demo runs equal as well).
+    Returns the record."""
+    import os
+    import shutil
+    import tempfile
+    from repro_torch.launch import train
+    d = tempfile.mkdtemp(prefix="chip-smoke-resume-")
+    try:
+        # kill-site calls: each save's write, then each step; call 4 is
+        # the save after step 2, between its temporary write and the rename
+        code = (f"import sys\nsys.path.insert(0, {str(ROOT / 'src')!r})\n"
+                "from repro_torch.launch.train import run_spconv_demo\n"
+                "from repro_torch.models import minkunet\n"
+                "from repro_torch.runtime import fault\n"
+                f"run_spconv_demo({TRAIN_STEPS}, voxels={BUCKET}, "
+                f"cfg=minkunet.{cfg!r}, seed={SEED}, scene='indoor', "
+                f"ckpt_dir={d!r}, "
+                f"total_steps={TRAIN_STEPS}, device='cuda', "
+                "faults=fault.FaultPlan(schedule={fault.KILL_SITE: [4]}))\n")
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                              capture_output=True, text=True,
+                              timeout=RESTART_TIMEOUT_S)
+        killed_s = time.perf_counter() - t0
+        check(proc.returncode == -9, f"train resume: the killed run "
+              f"exited {proc.returncode}: {proc.stderr[-2000:]}")
+        left = any(n.startswith(".tmp-") for n in os.listdir(d))
+        t0 = time.perf_counter()
+        rest = train.run_spconv_demo(TRAIN_STEPS, voxels=BUCKET, cfg=cfg,
+                                     seed=SEED, scene="indoor",
+                                     ckpt_dir=d, resume=True,
+                                     total_steps=TRAIN_STEPS, device=dev)
+        resumed_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    rec = {"killed_run_s": killed_s, "resumed_run_s": resumed_s,
+           "tmp_file_left": left,
+           "resumed_from": rest["resumed_from"],
+           "resumed_steps": [t["graph"] for t in rest["timings"]],
+           "resumed_digest": rest["state_digest"],
+           "resumed_equal": rest["state_digest"] == want_digest}
+    check(rec["resumed_from"] == 1 and rec["resumed_equal"],
+          f"train: the killed and resumed run's digest differs: {rec}")
+    return rec
+
+
 def phase_train(dev, cfg):
     """The training path: ``run_spconv_demo`` over MinkUNet-large on one
     indoor scene of the bucket (the kernels, a checkpoint after every
@@ -2844,6 +3032,13 @@ def phase_train(dev, cfg):
           * n_layers and counts[2] == 0,
           f"train: (octent, gemm, epilogue) launches = {counts[:3]}, want "
           f"({len(cfg.enc) + 1}, {TRAIN_STEPS * n_layers}, 0)")
+    modes = [t["graph"] for t in res["timings"]]
+    check(res["compiled_steps"] == 1
+          and modes == ["warm-up", "capture"] + ["replay"] * (TRAIN_STEPS
+                                                              - 2),
+          f"train: {res['compiled_steps']} compiled steps, the steps ran "
+          f"{modes}; want one: eager, captured, then replayed")
+    resume = _train_resume(dev, cfg, res["state_digest"])
 
     # kernels against plain versions on one step
     model = minkunet.MinkUNet(cfg, device=dev,
@@ -2885,28 +3080,52 @@ def phase_train(dev, cfg):
           f"TF32 (control): {control}")
     del gk, k_masks
 
-    # one step timed apart, then the same step profiled
+    # the step as the demo runs it: eager once, then captured and
+    # replayed, then replayed, each replay held bit for bit to an eager
+    # step from the same state and batch; then an eager step and a
+    # replay, each profiled
     opt_cfg = adamw.AdamWConfig(lr=1e-3, total_steps=TRAIN_STEPS,
                                 warmup_steps=1)
-    step = train.make_spconv_step(model, opt_cfg, plans)
+    step = train.make_spconv_step(model, opt_cfg, plans, donate=True)
+    compiled = train.CompiledStep(step, dev)
     state = (params, adamw.init(params))
-    state, _ = step(state, batch)                      # warm-up
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    state, m = step(state, batch)
-    float(m["loss"])
-    torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        state, m = step(state, batch)
+    compiled(state, batch)
+    graph_steps = []
+    for _ in range(2):
+        twin = _tree_clone(state)
         torch.cuda.synchronize()
-        profiled_ms = (time.perf_counter() - t0) * 1e3
-    rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
-                   for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA),
-                  key=lambda r: -r[1])
+        t0 = time.perf_counter()
+        state, m = compiled(state, batch)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        twin, tm = step(twin, batch)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        equal = torch.equal(m["loss"], tm["loss"]) and all(
+            torch.equal(a, b) for a, b in zip(_leaves(state), _leaves(twin)))
+        graph_steps.append({"graph": compiled.last,
+                            "replay_ms": (t1 - t0) * 1e3,
+                            "eager_ms": (t2 - t1) * 1e3, "bit_equal": equal})
+        check(equal, "train: a replayed step differs from the eager step "
+                     "from the same state and batch")
+    step_ms = graph_steps[-1]["eager_ms"]
+
+    def profiled(fn):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                       for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CUDA),
+                      key=lambda r: -r[1])
+        return rows, wall
+
+    rows_r, replay_wall = profiled(lambda: compiled(state, batch))
+    busy_r = sum(r[1] for r in rows_r)
+    rows, profiled_ms = profiled(lambda: step(twin, batch))
     busy = sum(r[1] for r in rows)
     k2 = [r for r in rows if "spconv_" in r[0]]
     k2_ms = sum(r[1] for r in k2)
@@ -2917,7 +3136,9 @@ def phase_train(dev, cfg):
     emit(phase="train", config=cfg.name, scene="indoor",
          voxels=int(vb.valid.sum()), bucket=BUCKET, steps=TRAIN_STEPS,
          losses=res["losses"], mapsearch_calls=res["mapsearch_calls"],
-         plan_sets=res["plan_sets"], cache=res["cache"],
+         compiled_steps=res["compiled_steps"], pool_bytes=res["pool_bytes"],
+         digest=res["state_digest"], resume=resume,
+         graph_vs_eager=graph_steps, cache=res["cache"],
          launches={"octent_query": counts[0], "spconv_gemm_fused": counts[1],
                    "split_plan": counts[5], "split_reduce": counts[4]},
          recoveries=res["recoveries"], demo_s=demo_s,
@@ -2944,8 +3165,18 @@ def phase_train(dev, cfg):
                   "kernel2": [{"name": n[:80], "device_ms": ms, "calls": c}
                               for n, ms, c in k2],
                   "top10": [{"name": n[:80], "device_ms": ms, "calls": c}
-                            for n, ms, c in rows[:10]]})
-    del state, params, model, plans, batch
+                            for n, ms, c in rows[:10]]},
+         profile_replay={"step_ms": graph_steps[-1]["replay_ms"],
+                         "profiled_wall_ms": replay_wall,
+                         "device_busy_ms": busy_r,
+                         "idle_share": 1 - busy_r / graph_steps[-1][
+                             "replay_ms"],
+                         "device_ops": sum(r[2] for r in rows_r),
+                         "top10": [{"name": n[:80], "device_ms": ms,
+                                    "calls": c}
+                                   for n, ms, c in rows_r[:10]]})
+    compiled.release()
+    del state, twin, params, model, plans, batch, compiled
     torch.cuda.empty_cache()
     return counts[0], counts[1], k2_ms
 
@@ -4183,29 +4414,22 @@ def _paper_forwards(dev, cfg, indoor, lidar):
 
 def _paper_replan(dev):
     """``chaos``'s replan gate on the card: the demo at ``max_blocks=4``
-    replans every Subm3 build and reaches the default run's digest. Both
-    runs sum the plain backward in a fixed order
-    (``torch.use_deterministic_algorithms``), since ``index_add_``'s
-    atomics would make two clean runs differ too."""
-    import warnings
-    import torch
+    replans every Subm3 build and reaches the default run's digest, and a
+    second default run reaches it too, with no determinism switch set:
+    every sum of the step runs in a fixed order."""
     from repro_torch.launch import train
     from repro_torch.runtime import guard
     runs = {}
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    try:
-        with warnings.catch_warnings():
-            warnings.simplefilter("ignore")
-            for tag, mb in (("clean", None), ("tight", 4)):
-                with guard.scoped_health():
-                    runs[tag] = train.run_spconv_demo(
-                        2, max_blocks=mb, seed=SEED, device=dev)
-    finally:
-        torch.use_deterministic_algorithms(False)
+    for tag, mb in (("clean", None), ("again", None), ("tight", 4)):
+        with guard.scoped_health():
+            runs[tag] = train.run_spconv_demo(2, max_blocks=mb, seed=SEED,
+                                              device=dev)
     tight, clean = runs["tight"], runs["clean"]
     rec = {"max_blocks": 4, "clean_digest": clean["state_digest"],
            "replan_digest": tight["state_digest"],
            "bit_identical": tight["state_digest"] == clean["state_digest"],
+           "clean_runs_equal":
+               runs["again"]["state_digest"] == clean["state_digest"],
            "replan_overflow": tight["health"].get("replan.overflow", 0),
            "replan_recovered": tight["health"].get("replan.recovered", 0),
            "mapsearch_calls": tight["mapsearch_calls"],
@@ -4213,6 +4437,8 @@ def _paper_replan(dev):
     emit(phase="paper.replan", **rec)
     check(rec["bit_identical"], "replan: the max_blocks=4 demo's digest "
           "differs from the default run's")
+    check(rec["clean_runs_equal"], "replan: two default demo runs reach "
+          "different digests")
     check(rec["replan_overflow"] > 0 and rec["replan_recovered"] > 0,
           f"replan: no overflow or no recovery: {tight['health']}")
 
@@ -5228,8 +5454,13 @@ def phase_dryrun(cross):
     t_phase = time.perf_counter()
     knobs = {"remat": None, "moe_impl": None, "strategy": "tp",
              "cache_shard": "kv"}
-    jobs = [(a, s, m, knobs) for a in list_archs() for s in SHAPE_CELLS
-            for m in ("single", "multi")]
+    # longest first (the train cells count a backward, the multi-pod mesh
+    # twice the ranks), so the pool's last jobs are short ones
+    jobs = sorted(((a, s, m, knobs) for a in list_archs()
+                   for s in SHAPE_CELLS for m in ("single", "multi")),
+                  key=lambda j: (not j[1].startswith("train"),
+                                 not j[1].startswith("prefill"),
+                                 j[2] != "multi"))
     n_proc = os.cpu_count() or 1
     pool = mp.get_context("spawn").Pool(n_proc)
     try:
@@ -5516,6 +5747,24 @@ def phase_restart(dev, cfg, serve_latency_ms, serve_digests):
     return {"octent_query": launches[0], "spconv_gemm_fused": launches[1]}
 
 
+#: each phase of :func:`main` in the order they ran: its wall seconds,
+#: this process's CPU seconds in it and the card memory this process
+#: held reserved at its end
+PHASE_S: dict = {}
+
+
+def timed_phase(name, fn, *args):
+    """``fn(*args)``, its record kept in :data:`PHASE_S`."""
+    import torch
+    t0, c0 = time.perf_counter(), time.process_time()
+    try:
+        return fn(*args)
+    finally:
+        PHASE_S[name] = {"s": time.perf_counter() - t0,
+                         "cpu_s": time.process_time() - c0,
+                         "reserved_gb": torch.cuda.memory_reserved() / 1e9}
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch is not beside this script; run "
@@ -5534,17 +5783,18 @@ def main() -> int:
     cfg = minkunet.LARGE
 
     t0 = time.perf_counter()
-    cross = _dryrun_cross_check(dev)
-    phase_device()
+    cross = timed_phase("dryrun_cross_check", _dryrun_cross_check, dev)
+    timed_phase("device", phase_device)
     scenes = _serve_scenes()
     lidar0 = scenes[0][1]
     warm = pointcloud.make_batch(np.random.default_rng(SEED + 99), "lidar",
                                  1, BUCKET, voxel_size=LIDAR_VOXEL)
-    k1 = phase_octent(dev, lidar0, cfg)
-    k2 = phase_gemm(dev, lidar0, cfg)
-    model, results, counts = phase_serve(
-        dev, cfg, scenes, (warm.coords, warm.batch, warm.valid, warm.feats))
-    phase_reference(dev, cfg, model, results)
+    k1 = timed_phase("octent", phase_octent, dev, lidar0, cfg)
+    k2 = timed_phase("gemm", phase_gemm, dev, lidar0, cfg)
+    model, results, counts = timed_phase(
+        "serve", phase_serve, dev, cfg, scenes,
+        (warm.coords, warm.batch, warm.valid, warm.feats))
+    timed_phase("reference", phase_reference, dev, cfg, model, results)
     serve_digests = {rid: res.digest for rid, _, res in results
                      if not rid.startswith("fused-")}
     serve_latency_ms = {rid: res.latency_s * 1e3 for rid, _, res in results
@@ -5553,50 +5803,56 @@ def main() -> int:
     k2["epilogue_launches"], k2["split_reduce_launches"] = counts[2], counts[4]
     k2["plan_launches"] = counts[5]
     check(counts[4] > 0, "the split-sum kernel never ran on the served path")
-    k3 = phase_materialized(dev, lidar0, cfg)
-    k4 = phase_masked(dev, lidar0, cfg)
-    phase_scan(dev, cfg, lidar0, model)
+    k3 = timed_phase("materialized", phase_materialized, dev, lidar0, cfg)
+    k4 = timed_phase("masked", phase_masked, dev, lidar0, cfg)
+    timed_phase("scan", phase_scan, dev, cfg, lidar0, model)
     del model, results
     k1["train_launches"], k2["train_launches"], k2["train_ms_per_step"] = \
-        phase_train(dev, cfg)
-    sec = phase_second(dev)
+        timed_phase("train", phase_train, dev, cfg)
+    sec = timed_phase("second", phase_second, dev)
     k1["second_launches"], k2["second_launches"] = (sec["octent_query"],
                                                     sec["spconv_gemm_fused"])
     k1["second_ms_per_forward"] = sec["octent_ms"]
     k2["second_ms_per_forward"] = sec["gemm_ms"]
-    strm = phase_stream(dev, cfg)
+    strm = timed_phase("stream", phase_stream, dev, cfg)
     k1["stream_launches"] = strm["octent_query"]
     k1["stream_update_launches"] = strm["octent_row_list"]
     k1["stream_update"] = {key: strm["row_list"][key] for key in (
         "q", "rows", "ms", "plain_ms", "bound_ms", "full_ms")}
     k2["stream_launches"] = strm["spconv_gemm_fused"]
-    chaos = phase_chaos(dev, cfg, scenes, warm, serve_digests)
+    chaos = timed_phase("chaos", phase_chaos, dev, cfg, scenes, warm,
+                        serve_digests)
     k1["chaos_launches"] = chaos["octent_query"]
     k2["chaos_launches"] = chaos["spconv_gemm_fused"]
-    restart = phase_restart(dev, cfg, serve_latency_ms, serve_digests)
+    restart = timed_phase("restart", phase_restart, dev, cfg,
+                          serve_latency_ms, serve_digests)
     k1["restart_launches"] = restart["octent_query"]
     k2["restart_launches"] = restart["spconv_gemm_fused"]
-    k1["paper_launches"], k2["paper_launches"] = phase_paper(dev, cfg,
-                                                             scenes)
-    sharded = phase_sharded(serve_digests)
+    k1["paper_launches"], k2["paper_launches"] = timed_phase(
+        "paper", phase_paper, dev, cfg, scenes)
+    sharded = timed_phase("sharded", phase_sharded, serve_digests)
     k1["sharded_launches"] = sharded["octent_query"]
     k2["sharded_launches"] = sharded["spconv_gemm_fused"]
-    flash = phase_flash(dev)
-    lm_cfg, lm_params, fa_launches = phase_lm_serve(dev)
-    phase_lm_reference(dev, lm_cfg, lm_params)
+    flash = timed_phase("flash", phase_flash, dev)
+    lm_cfg, lm_params, fa_launches = timed_phase("lm_serve", phase_lm_serve,
+                                                 dev)
+    timed_phase("lm_reference", phase_lm_reference, dev, lm_cfg, lm_params)
     del lm_params
     torch.cuda.empty_cache()
-    moe_launches = phase_moe_serve(dev)
-    train_launches = phase_lm_train(dev)
-    phase_mamba2(dev)
-    family_launches = {"recurrentgemma": phase_rglru(dev),
-                       "hubert": phase_hubert(dev),
-                       "llava": phase_llava(dev)}
-    ragged, k3["moe_ragged_launches"] = phase_moe_ragged(dev)
-    probe = phase_gloo_probe()
-    sharded_launches, pipeline_launches = phase_lm_sharded(
+    moe_launches = timed_phase("moe_serve", phase_moe_serve, dev)
+    train_launches = timed_phase("lm_train", phase_lm_train, dev)
+    timed_phase("mamba2", phase_mamba2, dev)
+    family_launches = {
+        "recurrentgemma": timed_phase("rglru", phase_rglru, dev),
+        "hubert": timed_phase("hubert", phase_hubert, dev),
+        "llava": timed_phase("llava", phase_llava, dev)}
+    ragged, k3["moe_ragged_launches"] = timed_phase(
+        "moe_ragged", phase_moe_ragged, dev)
+    probe = timed_phase("gloo_probe", phase_gloo_probe)
+    sharded_launches, pipeline_launches = timed_phase(
+        "lm_sharded", phase_lm_sharded,
         [k for k, v in probe.items() if v != "ok"])
-    phase_dryrun(cross)
+    timed_phase("dryrun", phase_dryrun, cross)
     k3["moe_ragged"] = {name: {key: r[key] for key in (
         "ms", "plain_ms", "bound_ms", "bound_by", "bound_ms_f32_cores",
         "share_of_bound", "max_abs_err", "dense_loop_err")}
@@ -5632,7 +5888,8 @@ def main() -> int:
                     f"(3xTF32 route), bound at 495 / 3 TFLOP/s"}
     for k in (k1, k2, k3, k4, k5):
         check(k["launches"] > 0, f"{k['name']} never launched on the path")
-    emit(phase="done", seconds=time.perf_counter() - t0)
+    emit(phase="done", seconds=time.perf_counter() - t0,
+         phases=PHASE_S)
     print(json.dumps({"kernels": [k1, k2, k3, k4, k5]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

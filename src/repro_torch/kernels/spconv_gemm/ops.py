@@ -32,12 +32,14 @@ from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.weak import WeakTensorKeyDictionary
 
 from repro_torch.core import rulebook as _rulebook
 from repro_torch.core import sparsity as _sparsity
 from repro_torch.kernels.spconv_gemm.kernel import (BN, KC, spconv_gemm,
                                                     spconv_gemm_fused)
-from repro_torch.kernels.spconv_gemm.ref import (epilogue_math,
+from repro_torch.kernels.spconv_gemm.ref import (SlotIndex, epilogue_math,
+                                                 slot_index,
                                                  spconv_gemm_fused_ref,
                                                  spconv_gemm_fused_ref_vjp)
 from repro_torch.runtime import fault as _fault
@@ -306,6 +308,28 @@ def kernel_inputs(feats: torch.Tensor, weights: torch.Tensor,
     return args, kw
 
 
+#: the slot index of each tile set, built at its first use and kept
+#: while the set's gather stream lives
+_SLOT_INDEX = WeakTensorKeyDictionary()
+
+
+def backward_index(tiles: TapTiles, n_in: int) -> SlotIndex:
+    """The :class:`~repro_torch.kernels.spconv_gemm.ref.SlotIndex` of
+    ``tiles`` over ``n_in`` source rows, built once per tile set: at a
+    training step's first backward (or first plain forward), which runs
+    eagerly before the step is captured, so the replays read it and never
+    build it. The geometry ``tile_nz`` decides liveness, as the backward
+    requires."""
+    key = (n_in, tiles.bm, tiles.bo)
+    src = (tiles.scatter_idx, tiles.tile_tap, tiles.tile_nz, tiles.tile_ob)
+    memo = _SLOT_INDEX.setdefault(tiles.gather_idx, {})
+    hit = memo.get(key)
+    if hit is None or any(a is not b for a, b in zip(hit[0], src)):
+        hit = memo[key] = (src, slot_index(
+            tiles.gather_idx, *src, bm=tiles.bm, bo=tiles.bo, n_in=n_in))
+    return hit[1]
+
+
 class _FusedExec(torch.autograd.Function):
     """One layer's fused execution (the kernel, or its plain version) with
     the SPAC-correct backward: the reference's ``_exec_fused``.
@@ -322,8 +346,11 @@ class _FusedExec(torch.autograd.Function):
     @staticmethod
     def forward(ctx, feats, weights, tiles, n_out, opts, impl):
         args, kw = kernel_inputs(feats, weights, tiles, n_out=n_out, **opts)
-        fn = spconv_gemm_fused if impl == "kernel" else spconv_gemm_fused_ref
-        res = fn(*args, **kw)
+        if impl == "kernel":
+            res = spconv_gemm_fused(*args, **kw)
+        else:       # over the geometry's live slots: a zero row adds 0
+            res = spconv_gemm_fused_ref(
+                *args, **kw, index=backward_index(tiles, feats.shape[0]))
         ctx.tiles = tiles
         ctx.epilogue = opts["epilogue"] is not None
         if ctx.epilogue:
@@ -340,10 +367,8 @@ class _FusedExec(torch.autograd.Function):
                 "would differentiate through elided activation state. For "
                 "training, compose subm_conv3 + batch_norm + relu unfused.")
         feats, weights = ctx.saved_tensors
-        t = ctx.tiles
         dfeats, dweights = spconv_gemm_fused_ref_vjp(
-            feats, weights, g, t.gather_idx, t.scatter_idx, t.tile_tap,
-            t.tile_nz, t.tile_ob, bm=t.bm, bo=t.bo)
+            feats, weights, g, backward_index(ctx.tiles, feats.shape[0]))
         return (dfeats.to(feats.dtype), dweights.to(weights.dtype), None,
                 None, None, None)
 

@@ -3,15 +3,24 @@ model families of the API (the decoder LMs, dense and MoE, Mamba2,
 RecurrentGemma, the HuBERT encoder and the LLaVA VLM) and MinkUNet.
 
 :func:`make_train_step`, :func:`init_state` and :func:`make_stream` are
-the reference's step, state and data: the step is eager (there is no
-``jax.jit`` counterpart): the family's loss, ``torch.autograd.grad`` over
-the parameters, then AdamW on the ``state_dict``. Its attention forward
-runs kernel 5 on the card; under the default remat mode each layer's (a
-RecurrentGemma group's) forward is recomputed in the backward, so a step
-launches the kernel twice an attention layer.
+the reference's step, state and data: the family's loss,
+``torch.autograd.grad`` over the parameters, then AdamW on the
+``state_dict``. Its attention forward runs kernel 5 on the card; under the
+default remat mode each layer's (a RecurrentGemma group's) forward is
+recomputed in the backward, so a step launches the kernel twice an
+attention layer. MinkUNet steps (:func:`make_spconv_step`) run over
+prebuilt plans from a long-lived, content-keyed plan cache.
 
-MinkUNet steps run eagerly over prebuilt plans from a long-lived,
-content-keyed plan cache.
+Where the reference compiles a step (``jax.jit(step, donate_argnums=0)``),
+the port replays it: :class:`CompiledStep` runs the step's donated form
+(AdamW in place, :func:`~repro_torch.optim.adamw.update_`) once eagerly,
+captures it into a donated CUDA graph (``runtime/graph.py``) at its
+second call and replays that graph from then on, the state chained from
+replay to replay in the same tensors. On the CPU the step stays eager. While a
+:class:`~repro_torch.runtime.fault.FaultPlan` is installed the card runs
+the step eagerly too: fault sites are Python, which a replay skips. The
+timings are taken around the call, outside the captured function, which
+holds no host read and no synchronisation.
 
 :func:`run_spconv_demo` is the reference's demo (``src/repro/launch/
 train.py``): every step re-voxelizes the scene into freshly allocated
@@ -44,7 +53,7 @@ import hashlib
 import os
 import tempfile
 import time
-import weakref
+from collections import OrderedDict
 
 import numpy as np
 import torch
@@ -57,7 +66,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import api, minkunet
 from repro_torch.optim import adamw
 from repro_torch.runtime import fault as faultlib
-from repro_torch.runtime import feature_cache, guard, persist
+from repro_torch.runtime import feature_cache, graph, guard, persist
 from repro_torch.runtime.fault import RunnerConfig, TrainRunner
 
 #: the reference demo's model
@@ -92,35 +101,87 @@ def lm_loss_and_grads(model: api.Model, params: dict, batch: dict, *,
 
 
 def make_train_step(model: api.Model, opt_cfg: adamw.AdamWConfig, *,
-                    impl: str = "kernel", timings: list | None = None):
+                    impl: str = "kernel", donate: bool = False):
     """``(state, batch) -> (state, metrics)`` of any model family:
     :func:`lm_loss_and_grads`, then AdamW.
 
     ``state`` is ``(params, opt_state)``: ``params`` a flat
     ``state_dict`` of ``model.module`` and ``opt_state`` from
-    :func:`adamw.init`. The tensors of the old state are not modified.
-    With ``timings`` (a list) it appends each step's forward+backward and
-    optimizer ms (host clock around synchronized work).
+    :func:`adamw.init`. The tensors of the old state are not modified,
+    unless ``donate``: then the new state is written into them
+    (:func:`adamw.update_`) and the step returns them, the form that
+    :class:`CompiledStep` captures.
     """
     def step(state, batch):
         params, opt_state = state
-        dev = next(iter(params.values())).device
-        _sync(dev)
-        t0 = time.perf_counter()
         loss, metrics, grads = lm_loss_and_grads(model, params, batch,
                                                  impl=impl)
-        _sync(dev)
-        t1 = time.perf_counter()
-        params, opt_state, om = adamw.update(opt_cfg, grads, opt_state,
-                                             params)
-        if timings is not None:
-            _sync(dev)
-            timings.append({"forward_backward_ms": (t1 - t0) * 1e3,
-                            "optimizer_ms": (time.perf_counter() - t1)
-                            * 1e3})
+        if donate:
+            om = adamw.update_(opt_cfg, grads, opt_state, params)
+        else:
+            params, opt_state, om = adamw.update(opt_cfg, grads, opt_state,
+                                                 params)
         return (params, opt_state), {**metrics, "loss": loss, **om}
 
     return step
+
+
+class CompiledStep:
+    """A donated training step as the reference compiles it. On the card
+    its first call runs ``step`` eagerly (the warm-up), its second
+    captures ``step`` into a donated
+    :class:`~repro_torch.runtime.graph.Graph` and replays it, and every
+    later call replays that graph: a step called once (a fresh scene)
+    costs one eager step and reserves no pool. On the CPU, and on the
+    card while a ``FaultPlan`` is installed, each call runs ``step``
+    eagerly.
+
+    ``step(state, batch) -> (state, metrics)`` must write its new state
+    into ``state`` in place (``donate=True`` of :func:`make_train_step` /
+    :func:`make_spconv_step`); ``batch`` holds tensors on ``device``.
+    ``pool`` is a graph pool handle that steps which never run at the same
+    time share (a memo of steps). :attr:`last` says how the last call ran:
+    ``"eager"``, ``"warm-up"``, ``"capture"`` (captured, then replayed)
+    or ``"replay"``."""
+
+    def __init__(self, step, device, pool=None):
+        self.step = step
+        self.device = torch.device(device)
+        self.pool = pool
+        self.graph: graph.Graph | None = None
+        self.last: str | None = None
+
+    def __call__(self, state, batch):
+        if self.device.type != "cuda" or faultlib.active() is not None:
+            self.last = "eager"
+            return self.step(state, batch)
+        if self.graph is None:
+            self.graph = graph.Graph(self.step, self.device, donate=True,
+                                     pool=self.pool)
+            self.last = "warm-up"
+            return self.graph.warm_up(state, batch)
+        if self.graph.graph is None:
+            self.graph.capture(state, batch)
+            self.last = "capture"
+        else:
+            self.last = "replay"
+        return self.graph(state, batch)
+
+    def release(self) -> None:
+        """Free the graph (and its pool, unless shared)."""
+        if self.graph is not None:
+            self.graph.release()
+            self.graph = None
+
+
+def _timed(dev: torch.device, fn, *args, **kw):
+    """``(fn(*args, **kw), ms)``: host clock around the call, the device
+    synchronized before and after."""
+    _sync(dev)
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    _sync(dev)
+    return out, (time.perf_counter() - t0) * 1e3
 
 
 def init_state(model: api.Model, seed: int = 0):
@@ -175,8 +236,10 @@ def run_lm(arch: str, *, steps: int, batch: int, seq: int, lr: float,
     newest verified checkpoint in ``ckpt_dir`` (None: a temporary
     directory, removed at the end). ``total_steps`` (None: ``steps``) is
     the learning-rate horizon. Returns ``losses``, ``resumed_from``,
-    ``state_digest``, per-step ``timings``, ``save_ms`` and the runner's
-    ``recoveries`` and ``ckpt_failures``."""
+    ``state_digest``, per-step ``timings`` (``step_ms`` around the
+    synchronized call and how it ran, ``graph``: see :class:`CompiledStep`),
+    ``save_ms``, the graph's ``pool_bytes`` (None: never captured) and the
+    runner's ``recoveries`` and ``ckpt_failures``."""
     cfg = get_config(arch)
     if not full_config:
         cfg = cfg.reduced()
@@ -185,7 +248,16 @@ def run_lm(arch: str, *, steps: int, batch: int, seq: int, lr: float,
     opt_cfg = adamw.AdamWConfig(lr=lr, total_steps=horizon,
                                 warmup_steps=max(horizon // 20, 5))
     timings: list = []
-    step_fn = make_train_step(model, opt_cfg, timings=timings)
+    compiled = CompiledStep(make_train_step(model, opt_cfg, donate=True),
+                            model.device)
+
+    def step_fn(state, batch):
+        batch = {k: torch.as_tensor(v, device=model.device)
+                 for k, v in batch.items()}
+        out, ms = _timed(model.device, compiled, state, batch)
+        timings.append({"step_ms": ms, "graph": compiled.last})
+        return out
+
     stream = make_stream(cfg, batch, seq, seed=seed)
     with (contextlib.nullcontext(ckpt_dir) if ckpt_dir is not None
           else tempfile.TemporaryDirectory(prefix="lm-ckpt-")) as d:
@@ -197,7 +269,10 @@ def run_lm(arch: str, *, steps: int, batch: int, seq: int, lr: float,
     return {"config": cfg.name, "losses": losses,
             "resumed_from": resumed_from,
             "state_digest": state_digest(runner.state), "timings": timings,
-            "save_ms": runner.save_ms, "recoveries": runner.recoveries,
+            "save_ms": runner.save_ms,
+            "pool_bytes": compiled.graph.pool_bytes
+            if compiled.last in ("capture", "replay") else None,
+            "recoveries": runner.recoveries,
             "ckpt_failures": runner.ckpt_failures}
 
 
@@ -207,71 +282,59 @@ def run_lm(arch: str, *, steps: int, batch: int, seq: int, lr: float,
 
 def loss_and_grads(model: minkunet.MinkUNet, params: dict, batch: dict, *,
                    plans: minkunet.MinkPlans | None = None,
-                   impl: str | None = None, stamps: list | None = None):
+                   impl: str | None = None):
     """``(loss, metrics, grads)`` of :func:`minkunet.segmentation_loss` at
     ``params`` (a ``state_dict`` of ``model``, copied into it first).
 
     ``grads`` has every key of ``params``: the BatchNorm statistics are
     leaves of the reference's parameter tree with zero gradient (the
     training forward normalizes by batch statistics), so AdamW only
-    decays them, as in the reference. With ``stamps`` (a list) it appends
-    the host clock at the start, after the forward and after the
-    backward, each after the device has finished.
+    decays them, as in the reference.
     """
-    dev = next(iter(params.values())).device
-
-    def stamp():
-        if stamps is not None:
-            _sync(dev)
-            stamps.append(time.perf_counter())
-
     with torch.no_grad():
         for k, t in model.state_dict().items():
             t.copy_(params[k])
     model.zero_grad(set_to_none=True)
-    stamp()
     loss, metrics = minkunet.segmentation_loss(model, batch, plans=plans,
                                                impl=impl)
-    stamp()
     loss.backward()
     trainable = dict(model.named_parameters())
     grads = {k: trainable[k].grad if k in trainable
              and trainable[k].grad is not None else torch.zeros_like(p)
              for k, p in params.items()}
-    stamp()
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
 
 def make_spconv_step(model: minkunet.MinkUNet, opt_cfg: adamw.AdamWConfig,
                      plans: minkunet.MinkPlans, *, impl: str | None = None,
-                     timings: list | None = None):
+                     donate: bool = False):
     """``(state, batch) -> (state, metrics)`` over prebuilt ``plans``.
 
     ``state`` is ``(params, opt_state)``: ``params`` a ``state_dict`` of
     ``model`` and ``opt_state`` from :func:`adamw.init`. The step runs
     :func:`loss_and_grads` and AdamW and returns the new state; the
-    tensors of the old state are not modified. With ``timings`` (a list)
-    it appends each step's forward, backward and optimizer ms (host clock
-    around synchronized work).
+    tensors of the old state are not modified, unless ``donate``: then
+    the new state is written into them and the step returns them, the
+    form that :class:`CompiledStep` captures (the reference's
+    ``donate_argnums=0``).
     """
     def step(state, batch):
         params, opt_state = state
-        stamps = [] if timings is not None else None
         loss, metrics, grads = loss_and_grads(model, params, batch,
-                                              plans=plans, impl=impl,
-                                              stamps=stamps)
-        params, opt_state, om = adamw.update(opt_cfg, grads, opt_state,
-                                             params)
-        if timings is not None:
-            _sync(loss.device)
-            t0, t1, t2 = stamps
-            timings.append({"forward_ms": (t1 - t0) * 1e3,
-                            "backward_ms": (t2 - t1) * 1e3,
-                            "optimizer_ms": (time.perf_counter() - t2)
-                            * 1e3})
+                                              plans=plans, impl=impl)
+        if donate:
+            om = adamw.update_(opt_cfg, grads, opt_state, params)
+        else:
+            params, opt_state, om = adamw.update(opt_cfg, grads, opt_state,
+                                                 params)
         return (params, opt_state), {**metrics, "loss": loss, **om}
 
     return step
+
+
+#: compiled steps the demo keeps, oldest evicted first (the reference's
+#: bound: a stream of fresh scenes would otherwise pin a graph a step)
+STEP_MEMO = 8
 
 
 def state_digest(state) -> str:
@@ -305,23 +368,32 @@ def run_spconv_demo(steps: int = 2, *, voxels: int = 128,
     checkpoints go to ``ckpt_dir`` (None: a temporary directory removed
     at the end); ``resume=True`` continues from its newest verified step,
     and ``total_steps`` pins the learning-rate horizon, so a run stopped
-    and resumed reaches the state of the uninterrupted run (bit for bit on
-    the CPU; on the card the plain backward's ``index_add_`` sums in
-    atomics, in no fixed order). ``faults`` is a
+    and resumed reaches the state of the uninterrupted run, bit for bit
+    (on the card too: every sum of the step runs in a fixed order).
+    ``faults`` is a
     :class:`~repro_torch.runtime.fault.FaultPlan` installed for the run
     (the ``kill`` site also fires at the start of each step);
     ``persist_dir`` backs the plan cache and its pinned tier with a
     snapshot store under ``<persist_dir>/snap``, so a run over a warm
     directory makes no map search.
 
+    Each step's plans key a memo of :class:`CompiledStep` by the plan
+    objects' identity, a FIFO of :data:`STEP_MEMO` (an evicted entry
+    frees its graph): a content hit returns the same plan objects, so a
+    replayed scene reuses one captured step. A scene seen once runs its
+    step eagerly and is never captured; the memo's graphs share one
+    memory pool. ``compiled_steps`` counts the entries made, the
+    reference's count.
+
     Returns ``losses``, ``mapsearch_calls``, ``searches_per_cloud`` (the
-    flat count a replayed run must show), ``plan_sets`` (distinct plan
-    sets used), the cache's ``stats()``, ``state_digest``, the runner's
-    ``recoveries`` / ``skipped_batches`` / ``ckpt_failures``,
-    ``resumed_from``, per-step ``timings`` (plan build, forward, backward,
-    optimizer ms), ``save_ms`` (each checkpoint save), the snapshot
-    store's ``persist`` stats (None without one) and the run's ``health``
-    counter delta.
+    flat count a replayed run must show), ``compiled_steps``, the cache's
+    ``stats()``, ``state_digest``, the runner's ``recoveries`` /
+    ``skipped_batches`` / ``ckpt_failures``, ``resumed_from``, per-step
+    ``timings`` (``plan_ms``; ``step_ms`` around the synchronized call,
+    and how it ran, ``graph``), ``pool_bytes`` (each capture's addition
+    to the memo's shared pool), ``save_ms``
+    (each checkpoint save), the snapshot store's ``persist`` stats (None
+    without one) and the run's ``health`` counter delta.
     """
     from repro_torch.data import pointcloud
     dev = resolve_device(device)
@@ -354,30 +426,35 @@ def run_spconv_demo(steps: int = 2, *, voxels: int = 128,
         b["labels"] = b["labels"].clamp(0, cfg.classes - 1)
         return b
 
-    # distinct plan sets used: a content hit returns the same plan objects;
-    # each set is told by its first kmap, held weakly (a dead set's id may
-    # be recycled, and the entry goes with it)
-    live_sets = weakref.WeakValueDictionary()
-    plan_sets = [0]
+    # compiled-step memo keyed by plan-object identity (each entry holds
+    # its plans, so no key's ids are recycled while it lives)
+    step_fns: OrderedDict = OrderedDict()
+    pool = torch.cuda.graph_pool_handle() if dev.type == "cuda" else None
+    compiled = [0]
+    pool_bytes: list = []
     timings: list = []
 
     def runner_step(state, batch):
         faultlib.check(faultlib.KILL_SITE)     # mid-step SIGKILL point
-        _sync(dev)
-        t0 = time.perf_counter()
-        plans = minkunet.build_plans(
-            batch["coords"], batch["batch"], batch["valid"], cfg,
-            cache=cache, n_max=max_blocks,
+        plans, plan_ms = _timed(
+            dev, minkunet.build_plans, batch["coords"], batch["batch"],
+            batch["valid"], cfg, cache=cache, n_max=max_blocks,
             search_impl=None if impl == "scan" else impl, device=dev)
-        _sync(dev)
-        plan_ms = (time.perf_counter() - t0) * 1e3
-        kmap = plans.subm[0].kmap
-        if live_sets.get(id(kmap)) is not kmap:
-            live_sets[id(kmap)] = kmap
-            plan_sets[0] += 1
-        out = make_spconv_step(model, opt_cfg, plans, impl=impl,
-                               timings=timings)(state, batch)
-        timings[-1]["plan_ms"] = plan_ms
+        key = tuple(id(p) for part in plans for p in part)
+        fn = step_fns.get(key)
+        if fn is None:
+            fn = CompiledStep(make_spconv_step(model, opt_cfg, plans,
+                                               impl=impl, donate=True), dev,
+                              pool)
+            while len(step_fns) >= STEP_MEMO:
+                step_fns.popitem(last=False)[1].release()
+            step_fns[key] = fn
+            compiled[0] += 1
+        out, ms = _timed(dev, fn, state, batch)
+        timings.append({"plan_ms": plan_ms, "step_ms": ms,
+                        "graph": fn.last})
+        if fn.last == "capture":
+            pool_bytes.append(fn.graph.pool_bytes)
         return out
 
     with (contextlib.nullcontext(ckpt_dir) if ckpt_dir is not None
@@ -398,7 +475,7 @@ def run_spconv_demo(steps: int = 2, *, voxels: int = 128,
         "losses": losses,
         "mapsearch_calls": planlib.mapsearch_call_count(),
         "searches_per_cloud": 2 * len(cfg.enc) + 1,
-        "plan_sets": plan_sets[0],
+        "compiled_steps": compiled[0],
         "cache": cache.stats(),
         "state_digest": state_digest(runner.state),
         "recoveries": runner.recoveries,
@@ -406,6 +483,7 @@ def run_spconv_demo(steps: int = 2, *, voxels: int = 128,
         "ckpt_failures": runner.ckpt_failures,
         "resumed_from": resumed_from,
         "timings": timings,
+        "pool_bytes": pool_bytes,
         "save_ms": runner.save_ms,
         "persist": pstore.stats() if pstore is not None else None,
         "health": guard.health().delta(h0),
@@ -492,7 +570,7 @@ def main(argv=None) -> None:
           f"last_loss={res['losses'][-1]:.4f} "
           f"map_searches={res['mapsearch_calls']} "
           f"(flat={'warm' if warm else 'yes' if flat else 'NO'}) "
-          f"plan_sets={res['plan_sets']} "
+          f"compiled_steps={res['compiled_steps']} "
           f"content_hits={res['cache']['content_hits']} "
           f"recoveries={res['recoveries']} "
           f"digest={res['state_digest'][:12]}")

@@ -400,7 +400,12 @@ def segmentation_loss(model: MinkUNet, batch: Mapping[str, torch.Tensor], *,
     logits = forward(model, st, plans=plans, impl=impl,
                      training=True).float()
     lse = torch.logsumexp(logits, -1)
-    ll = logits.gather(-1, labels[:, None])[:, 0]
+    # the label's logit as a masked sum, not a gather: the same value, and
+    # a backward with no scatter (a gather's is an atomic scatter-add on
+    # the card, which would make the step's result vary run to run)
+    hit = torch.arange(logits.shape[-1], device=logits.device) \
+        == labels[:, None]
+    ll = torch.where(hit, logits, 0.0).sum(-1)
     nll = torch.where(st.valid, lse - ll, 0.0)
     n = st.valid.sum().clamp(min=1)
     loss = nll.sum() / n

@@ -265,8 +265,10 @@ def moe_ffn(params, x: torch.Tensor, cfg):
                   for w in (wg, wu, wd)))
         if torch.is_grad_enabled():
             # recompute the body in the backward: its operands are not
-            # kept as residuals of the layer's own checkpoint
-            out_l = _checkpoint.checkpoint(body, *args, use_reentrant=False)
+            # kept as residuals of the layer's own checkpoint (no RNG in
+            # it: see transformer._remat)
+            out_l = _checkpoint.checkpoint(body, *args, use_reentrant=False,
+                                           preserve_rng_state=False)
         else:
             out_l = body(*args)
         out = DTensor.from_local(out_l, x.device_mesh,

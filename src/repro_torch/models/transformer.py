@@ -44,13 +44,17 @@ def set_remat_mode(mode: str) -> None:
 
 def _remat(fn, *args):
     """``fn(*args)``, checkpointed in the current remat mode when grad is
-    enabled: the backward recomputes what the mode does not save."""
+    enabled: the backward recomputes what the mode does not save. No
+    layer draws random numbers (the models have no dropout), so the RNG
+    state is not saved for the recomputation: saving it reads the CUDA
+    generator, which a CUDA graph capture of the training step refuses."""
     if not torch.is_grad_enabled():
         return fn(*args)
     ops = REMAT_SAVED_OPS[_REMAT_MODE[0]]
     kw = {} if ops is None else {"context_fn": functools.partial(
         _checkpoint.create_selective_checkpoint_contexts, list(ops))}
-    return _checkpoint.checkpoint(fn, *args, use_reentrant=False, **kw)
+    return _checkpoint.checkpoint(fn, *args, use_reentrant=False,
+                                  preserve_rng_state=False, **kw)
 
 
 # ---------------------------------------------------------------------------

@@ -61,22 +61,34 @@ def global_norm(tree: dict[str, torch.Tensor]) -> torch.Tensor:
 @torch.no_grad()
 def update(cfg: AdamWConfig, grads: dict, state: dict, params: dict):
     """One step. Returns ``(new_params, new_state, {"grad_norm", "lr"})``;
-    ``grad_norm`` is the norm before clipping."""
+    ``grad_norm`` is the norm before clipping. ``params`` and ``state``
+    are not modified: :func:`update_` on copies of them."""
+    params = {k: p.clone() for k, p in params.items()}
+    state = {"m": {k: m.clone() for k, m in state["m"].items()},
+             "v": {k: v.clone() for k, v in state["v"].items()},
+             "count": state["count"].clone()}
+    return (params, state) + (update_(cfg, grads, state, params),)
+
+
+@torch.no_grad()
+def update_(cfg: AdamWConfig, grads: dict, state: dict, params: dict):
+    """One step in place, the counterpart of the reference's update under
+    ``donate_argnums``: the new parameters are written into ``params``, the
+    new moments and count into ``state``, bit for bit what
+    :func:`update` returns, so one copy of the state is live. Returns
+    ``{"grad_norm", "lr"}``."""
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
-    count = state["count"] + 1
+    count = state["count"].add_(1)
     lr = schedule(cfg, count)
     b1c = 1.0 - cfg.b1 ** count.float()
     b2c = 1.0 - cfg.b2 ** count.float()
-    new_p, new_m, new_v = {}, {}, {}
     for k, p in params.items():
         g32 = grads[k].float() * scale
-        m = cfg.b1 * state["m"][k] + (1 - cfg.b1) * g32
-        v = cfg.b2 * state["v"][k] + (1 - cfg.b2) * g32 * g32
+        m = state["m"][k].mul_(cfg.b1).add_((1 - cfg.b1) * g32)
+        v = state["v"][k].mul_(cfg.b2).add_((1 - cfg.b2) * g32 * g32)
         upd = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps)
         upd = upd + cfg.weight_decay * p.float()
-        new_p[k] = (p.float() - lr * upd).to(p.dtype)
-        new_m[k], new_v[k] = m, v
-    return new_p, {"m": new_m, "v": new_v, "count": count}, \
-        {"grad_norm": gnorm, "lr": lr}
+        p.copy_(p.float() - lr * upd)
+    return {"grad_norm": gnorm, "lr": lr}

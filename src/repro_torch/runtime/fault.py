@@ -49,6 +49,7 @@ import zlib
 from typing import Any, Callable
 
 import numpy as np
+import torch
 
 from repro_torch.checkpoint import checkpoint
 
@@ -244,10 +245,17 @@ class TrainRunner:
         self.save_ms.append((time.perf_counter() - t0) * 1e3)
 
     def restore_latest(self) -> bool:
+        """Restore the newest verified checkpoint into the state's own
+        tensors, in place: a donated step's CUDA graph holds them as its
+        buffers, so the runner's state objects never change."""
         last = checkpoint.latest_step(self.cfg.ckpt_dir)
         if last is None:
             return False
-        self.state = checkpoint.restore(self.cfg.ckpt_dir, last, self.state)
+        restored = checkpoint.restore(self.cfg.ckpt_dir, last, self.state)
+        with torch.no_grad():
+            for dst, src in zip(checkpoint.tree_leaves(self.state),
+                                checkpoint.tree_leaves(restored)):
+                dst.copy_(src)
         self.step = last
         return True
 

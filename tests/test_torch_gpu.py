@@ -80,7 +80,12 @@ eager forward of its tensors and plans, and a replay adds the captured
 forward's launches to the counters; each family with a decode step,
 narrow, replays it from a graph in ``generate``, its tokens and each
 step's logits equal to an eager ``decode_step`` loop's; a capture that meets a host
-read raises, and the card stays usable.
+read raises, and the card stays usable. A donated graph replays into its
+caller's state tensors; the demo MinkUNet training step, captured after
+one eager step, replays bit for bit against an eager step from the same
+state and batch, and a whole step runs under
+``torch.use_deterministic_algorithms(True)``; each family's narrow LM
+training step replays within 1e-6 of an eager step.
 """
 from __future__ import annotations
 
@@ -1729,3 +1734,249 @@ def test_capture_that_meets_a_host_read_raises(cuda):
     assert g.graph is None
     torch.cuda.synchronize()
     assert float((x * 2).sum()) == 8.0
+
+
+def _clone_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _clone_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_clone_tree(v) for v in tree)
+    return tree.clone()
+
+
+def _leaves(tree):
+    from repro_torch.checkpoint import checkpoint
+    return checkpoint.tree_leaves(tree)
+
+
+def test_donated_graph_chains_its_state_in_place(cuda):
+    """A donated graph replays into the caller's state tensors, as the
+    eager step would write them; a function that returns new state
+    tensors is refused at capture."""
+    from repro_torch.runtime import graph
+
+    def step(s, b):
+        s["w"].mul_(0.5).add_(b["x"])
+        s["n"].add_(1)
+        return s, {"sum": s["w"].sum()}
+
+    state = {"w": torch.zeros(4, device=cuda),
+             "n": torch.zeros((), dtype=torch.int32, device=cuda)}
+    twin = _clone_tree(state)
+    w = state["w"]
+    g = graph.Graph(step, cuda, donate=True)
+    x0 = {"x": torch.ones(4, device=cuda)}
+    g.warm_up(state, x0)
+    step(twin, x0)
+    g.capture(state, x0)
+    for i in range(3):
+        x = {"x": torch.full((4,), float(i), device=cuda)}
+        out, m = g(state, x)
+        _, tm = step(twin, x)
+        assert out["w"] is w and torch.equal(w, twin["w"])
+        assert torch.equal(out["n"], twin["n"]) and torch.equal(m["sum"],
+                                                                tm["sum"])
+    assert g.pool_bytes >= 0
+    bad = graph.Graph(lambda s, b: ({"w": s["w"] + b["x"], "n": s["n"]},
+                                    {}), cuda, donate=True)
+    bad.warm_up(state, x0)
+    with pytest.raises(ValueError, match="donated"):
+        bad.capture(state, x0)
+
+
+def test_capture_pauses_the_cyclic_collector(cuda):
+    """A capture runs with Python's cyclic garbage collector paused: a
+    collection inside it could free a graph left in a reference cycle,
+    and a graph's reset ends the capture (a card test failed so once).
+    The collector runs again after the capture, and after a failed one."""
+    import gc
+    from repro_torch.runtime import graph
+    seen = []
+
+    def fn(t):
+        if torch.cuda.is_current_stream_capturing():
+            seen.append(gc.isenabled())
+        return t + 1
+
+    x = torch.ones(4, device=cuda)
+    g = graph.Graph(fn, cuda)
+    g.warm_up(x)
+    g.capture(x)
+    assert seen == [False] and gc.isenabled()
+    assert torch.equal(g(x), x + 1)
+    bad = graph.Graph(lambda t: t * int(t.sum()), cuda)    # a host read
+    bad.warm_up(x)
+    with pytest.raises(RuntimeError):
+        bad.capture(x)
+    assert gc.isenabled()
+
+
+def _demo_batch(cuda, cfg, seed=0, voxels=4096):
+    """An indoor scene of the demo's on the card, and its plans."""
+    from repro_torch.data import pointcloud
+    from repro_torch.models import minkunet
+    vb = pointcloud.make_batch(np.random.default_rng(seed), "indoor", 1,
+                               voxels)
+    batch = {k: torch.as_tensor(np.array(v), device=cuda)
+             for k, v in vb._asdict().items()}
+    batch["labels"] = batch["labels"].clamp(0, cfg.classes - 1)
+    plans = minkunet.build_plans(batch["coords"], batch["batch"],
+                                 batch["valid"], cfg, device=cuda)
+    return batch, plans
+
+
+def _demo_step(cuda, voxels=4096, impl=None):
+    from repro_torch.launch import train
+    from repro_torch.models import minkunet
+    from repro_torch.optim import adamw
+    cfg = train.DEMO_CFG
+    model = minkunet.MinkUNet(cfg, device=cuda,
+                              generator=torch.Generator().manual_seed(0))
+    batch, plans = _demo_batch(cuda, cfg, voxels=voxels)
+    params = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    step = train.make_spconv_step(
+        model, adamw.AdamWConfig(lr=1e-3, total_steps=4, warmup_steps=1),
+        plans, impl=impl, donate=True)
+    n_layers = 1 + (1 + cfg.blocks) * (len(cfg.enc) + len(cfg.dec))
+    return step, (params, adamw.init(params)), batch, n_layers
+
+
+def test_minkunet_step_replays_bit_equal_to_eager(cuda):
+    """The demo MinkUNet step: eager at its first call, captured and
+    replayed at its second, replayed after; each replay launches kernel 2
+    once a layer (counted) and leaves the state an eager step leaves from
+    the same state and batch, bit for bit."""
+    from repro_torch.launch import train
+    step, state, batch, n_layers = _demo_step(cuda)
+    compiled = train.CompiledStep(step, cuda)
+    params = state[0]
+    state, _ = compiled(state, batch)
+    assert compiled.last == "warm-up" and state[0] is params
+    for mode in ("capture", "replay"):
+        twin = _clone_tree(state)
+        before = sg_kernel.launches
+        state, m = compiled(state, batch)
+        assert compiled.last == mode and state[0] is params
+        assert compiled.graph.launches[(sg_kernel, "launches")] == n_layers
+        assert sg_kernel.launches - before == n_layers
+        twin, tm = step(twin, batch)
+        assert torch.equal(m["loss"], tm["loss"])
+        for a, b in zip(_leaves(state), _leaves(twin)):
+            assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="donated"):
+        compiled(_clone_tree(state), batch)
+
+
+def test_minkunet_plain_step_is_captured(cuda):
+    """``impl="ref"``: the step over the kernels' plain versions captures
+    too (its forward reads the slot index, not ``torch.nonzero``) and
+    replays within 1e-5 of an eager step's state (the plain forward sums
+    with ``index_add_``, whose order the card does not fix)."""
+    from repro_torch.launch import train
+    step, state, batch, _ = _demo_step(cuda, impl="ref")
+    compiled = train.CompiledStep(step, cuda)
+    before = sg_kernel.launches
+    state, _ = compiled(state, batch)
+    for mode in ("capture", "replay"):
+        twin = _clone_tree(state)
+        state, m = compiled(state, batch)
+        assert compiled.last == mode
+        twin, tm = step(twin, batch)
+        assert abs(float(m["loss"] - tm["loss"])) <= 1e-5 * abs(
+            float(tm["loss"]))
+        for a, b in zip(_leaves(state), _leaves(twin)):
+            scale = max(1.0, float(b.float().abs().max()))
+            assert float((a.float() - b.float()).abs().max()) <= 1e-5 * scale
+    assert sg_kernel.launches == before
+
+
+def test_memo_steps_share_one_pool(cuda):
+    """Two scenes' steps, as the demo's memo holds them: one donated
+    state, one shared graph pool. Captured one after the other, they
+    replay in any order, each bit-equal to an eager step from the same
+    state and batch, and the second capture adds little to the pool."""
+    from repro_torch.launch import train
+    from repro_torch.models import minkunet
+    from repro_torch.optim import adamw
+    cfg = train.DEMO_CFG
+    model = minkunet.MinkUNet(cfg, device=cuda,
+                              generator=torch.Generator().manual_seed(0))
+    opt_cfg = adamw.AdamWConfig(lr=1e-3, total_steps=8, warmup_steps=1)
+    pool = torch.cuda.graph_pool_handle()
+    scenes = [_demo_batch(cuda, cfg, seed=s) for s in (0, 1)]
+    steps = [train.make_spconv_step(model, opt_cfg, plans, donate=True)
+             for _, plans in scenes]
+    compiled = [train.CompiledStep(st, cuda, pool) for st in steps]
+    params = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    state = (params, adamw.init(params))
+    for i in (0, 0, 1, 1, 1, 0, 1, 0):
+        twin = _clone_tree(state)
+        state, m = compiled[i](state, scenes[i][0])
+        twin, tm = steps[i](twin, scenes[i][0])
+        assert torch.equal(m["loss"], tm["loss"])
+        for a, b in zip(_leaves(state), _leaves(twin)):
+            assert torch.equal(a, b)
+    assert [c.last for c in compiled] == ["replay", "replay"]
+    assert compiled[1].graph.pool_bytes <= compiled[0].graph.pool_bytes
+
+
+def test_minkunet_step_under_deterministic_algorithms(cuda, monkeypatch):
+    """A whole MinkUNet step, its slot indexes built in it, under
+    ``torch.use_deterministic_algorithms(True)`` (no ``warn_only``): no op
+    raises; it equals the same step with the switch off, and two runs
+    without the switch agree bit for bit."""
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    step, state, batch, _ = _demo_step(cuda)
+    torch.use_deterministic_algorithms(True)
+    try:
+        strict, sm = step(_clone_tree(state), batch)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    runs = [step(_clone_tree(state), batch) for _ in range(2)]
+    for got, m in runs:
+        assert torch.equal(m["loss"], sm["loss"])
+        for a, b in zip(_leaves(got), _leaves(strict)):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "mixtral-8x7b",
+                                  "mamba2-2.7b", "recurrentgemma-2b",
+                                  "hubert-xlarge", "llava-next-mistral-7b"])
+def test_lm_step_replays_equal_to_eager(cuda, arch):
+    """Each family's training step, narrow (reduced config, float32, head
+    dim 64), eager once, then captured and replayed: each replay counts the
+    kernel-5 launches it made and leaves the loss and every parameter and
+    moment within 1e-6 of an eager step's from the same state and
+    batch."""
+    import dataclasses
+    from repro_torch.launch import train
+    from repro_torch.models import api
+    from repro_torch.optim import adamw
+    cfg = dataclasses.replace(get_config(arch).reduced(), head_dim=64)
+    model = api.build_model(cfg, device=cuda)
+    stream = train.make_stream(cfg, 2, 32, seed=0)
+
+    def batch_at(i):
+        return {k: torch.as_tensor(v, device=cuda)
+                for k, v in stream.batch_at(i).items()}
+
+    step = train.make_train_step(
+        model, adamw.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=4),
+        donate=True)
+    compiled = train.CompiledStep(step, cuda)
+    state = train.init_state(model, seed=0)
+    state, _ = compiled(state, batch_at(0))
+    assert compiled.last == "warm-up"
+    for i, mode in ((1, "capture"), (2, "replay")):
+        twin = _clone_tree(state)
+        before = fa_kernel.launches
+        state, m = compiled(state, batch_at(i))
+        assert compiled.last == mode
+        per_replay = compiled.graph.launches.get((fa_kernel, "launches"), 0)
+        assert fa_kernel.launches - before == per_replay
+        twin, tm = step(twin, batch_at(i))
+        assert abs(float(m["loss"] - tm["loss"])) <= 1e-6 * abs(
+            float(tm["loss"]))
+        for a, b in zip(_leaves(state), _leaves(twin)):
+            scale = max(1.0, float(b.float().abs().max()))
+            assert float((a.float() - b.float()).abs().max()) <= 1e-6 * scale

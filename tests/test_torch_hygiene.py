@@ -64,7 +64,9 @@ def test_port_never_imports_jax_or_repro():
                 "runtime/pipeline.py", "runtime/compress.py",
                 "runtime/flags.py", "runtime/graph.py"):
         assert PKG / mod in files, mod
-    assert REPO / "examples" / "moe_ragged_torch.py" in files
+    for ex in ("moe_ragged_torch.py", "train_minkunet_torch.py",
+               "quickstart_torch.py", "serve_lm_torch.py"):
+        assert REPO / "examples" / ex in files, ex
     bad = {str(p.relative_to(REPO)): sorted(_imported_roots(p)
                                             & {"jax", "jaxlib", "repro"})
            for p in files}

@@ -622,13 +622,13 @@ def test_runner_skip_budget_and_abort(tmp_path):
 def test_demo_searches_once_per_geometry():
     res = train.run_spconv_demo(3, device="cpu")
     assert res["mapsearch_calls"] == res["searches_per_cloud"] == 5
-    assert res["cache"]["content_hits"] > 0 and res["plan_sets"] == 1
+    assert res["cache"]["content_hits"] > 0 and res["compiled_steps"] == 1
     assert res["recoveries"] == 0 and len(res["losses"]) == 3
     assert all(np.isfinite(res["losses"]))
     assert len(res["timings"]) == 3 and len(res["save_ms"]) == 5
     fresh = train.run_spconv_demo(2, replay=False, device="cpu")
     assert fresh["mapsearch_calls"] == 2 * fresh["searches_per_cloud"]
-    assert fresh["plan_sets"] == 2
+    assert fresh["compiled_steps"] == 2
 
 
 def test_demo_resume_reaches_the_uninterrupted_digest(tmp_path):
