@@ -12,8 +12,9 @@ execution path of the port at MinkUNet-large's full published widths and
 depth (seeded random weights), on a 65,536-voxel bucket, SECOND-large
 on two LiDAR scans in a 131,072-row bucket, then the dense-decoder
 serving path at TinyLlama-1.1B's and the MoE decoder at Mixtral-8x7B's
-(depth cut to 8 layers), decoder-LM training, and the Mamba2,
-RecurrentGemma, HuBERT and LLaVA families served and trained:
+(depth cut to 8 layers), decoder-LM training, the Mamba2,
+RecurrentGemma, HuBERT and LLaVA families served and trained, and
+Qwen3-1.7B, Yi-9B, DeepSeek-67B and Mixtral-8x22B served and trained:
 
 * ``octent_query`` and ``spconv_gemm_fused`` (both modes): each kernel
   against its plain PyTorch version at the shapes the serving path gives
@@ -44,7 +45,9 @@ RecurrentGemma, HuBERT and LLaVA families served and trained:
   versions (gradients with the ReLU masks pinned; loss, ReLU flips and
   gradient norms left free), and a control, the plain step in TF32, that
   must fail that gate; one step under ``torch.profiler`` (device busy,
-  idle share, the 10 longest device ops, kernel 2's own time);
+  idle share, the 10 longest device ops, kernel 2's own time); the
+  plain versions' step (``impl="ref"``) captured and replayed, each
+  replay bit-equal to an eager step;
 * ``second``: SECOND-large (the detection path: Gconv3 in both
   dataflows, Subm3 blocks, BEV densification, the RPN head) forward
   through kernels 1 and 2 (3 and 8 launches, 6 map searches plus one
@@ -137,10 +140,11 @@ RecurrentGemma, HuBERT and LLaVA families served and trained:
   kernel 1's path in the same worker and the table bytes a rank;
 * ``flash_attention``: the kernel (both routes on the tensor cores: bf16
   through ``wgmma``, float32 as 3xTF32 ``mma.sync``) against its plain
-  version at six attention shapes of the repo's configs (TinyLlama's
+  version at the attention shapes of the repo's configs (TinyLlama's
   served prefill, in bf16 and float32, a 4,096-token prompt, Mixtral's
-  windowed attention, HuBERT's, RecurrentGemma's, and a ragged Sq < Skv
-  case), each bf16 shape also
+  windowed attention, HuBERT's, RecurrentGemma's, a ragged Sq < Skv
+  case, and the 4 x 512 prefills of Qwen3-1.7B, Yi-9B, DeepSeek-67B and
+  Mixtral-8x22B, D 128), each bf16 shape also
   checked in float32, with ``scaled_dot_product_attention`` timed beside
   it, the kernel's share of its bound and its time over SDPA's;
 * ``lm_serve``: TinyLlama-1.1B at full width and depth (bf16, seeded
@@ -191,6 +195,18 @@ RecurrentGemma, HuBERT and LLaVA families served and trained:
   launches a prefill over 3,392 positions, kernel against plain and
   decode against the teacher-forced prefill; 2 training steps at 4 of
   its 32 layers on the VLM stream's float32 patches;
+* ``lm_configs``: Qwen3-1.7B (qk-norm, tied embeddings, GQA 16/8),
+  Yi-9B (GQA 32/4), DeepSeek-67B (GQA 64/8) and Mixtral-8x22B (48/8, 8
+  experts top-2, a 4,096-token window), all D 128, at their published
+  widths (bf16, seeded), depth cut only where 80 GB forces it (LMC_RUNS,
+  sized by ``scripts/lm_config_depths.py``; each cut under ``reduced``):
+  ``generate`` of 4 x 512 prompts for 16 tokens, one kernel-5 launch a
+  layer a prefill, the decode step replayed from a graph; the dense three
+  held kernel against plain and decode against teacher-forced prefill in
+  float32 and by the bf16 ratio gate (DeepSeek's on a 4-layer model
+  beside which the float32 copy fits), Mixtral-8x22B by ``moe_serve``'s
+  MoE gates; 2 donated training steps each (finite losses, 2 launches a
+  layer a step); every peak under 80 GB;
 * ``moe_ragged``: kernel 3 on the router's rulebook
   (``examples/moe_ragged_torch.py``) at the example's sizes and at one
   Mixtral-8x7B ``w_gate`` product, against the dense per-expert loop and
@@ -233,14 +249,18 @@ RecurrentGemma, HuBERT and LLaVA families served and trained:
   ranks, run on all the host's cores after the card's phases, so that
   none of their host-paced readings shares the host: each cell's
   status, ``fits`` (arguments plus temporaries), bytes a device,
-  temporaries and seconds; every applicable cell must be ``ok``. With
-  it, TinyLlama-1.1B's 4 x 512 prefill cell at a (1, 1) mesh, checked on
-  the card before any other phase: its argument bytes equal to
-  ``torch.cuda.memory_allocated``'s growth once they are placed, its
-  FLOPs to ``FlopCounterMode``'s count of the same step run through the
-  plain versions, and its ``temp_bytes`` to the growth of
+  temporaries and seconds, each cell copying (the CLI's ``--donate``
+  counts the train cells donated); every applicable cell must be
+  ``ok``. With it, TinyLlama-1.1B's 4 x 512 prefill cell at a (1, 1)
+  mesh, checked on the card before any other phase: its argument bytes
+  equal to ``torch.cuda.memory_allocated``'s growth once they are placed,
+  its FLOPs to ``FlopCounterMode``'s count of the same step run through
+  the plain versions, and its ``temp_bytes`` to the growth of
   ``torch.cuda.max_memory_allocated`` over the placed arguments in that
-  run, within the allocator's rounding (:data:`TEMP_SLACK_BLOCK`).
+  run, within the allocator's rounding (:data:`TEMP_SLACK_BLOCK`); and
+  its donated 2 x 512 train cell the same way (the argument bytes those
+  of the placed state, the growth them rounded to 512-byte blocks), one
+  step of ``make_train_step(impl="ref", donate=True)`` run on the card.
 
 Each path runs with its launch counts set to 0 just before and read just
 after (phase ``restart`` reads its workers' counts). The bound of kernels
@@ -397,6 +417,21 @@ HUBERT_TRAIN_BATCH, HUBERT_TRAIN_STEPS = 2, 2
 LLAVA_ARCH, LLAVA_BATCH, LLAVA_PROMPT, LLAVA_GEN = ("llava-next-mistral-7b",
                                                     2, 512, 32)
 LLAVA_TRAIN_LAYERS, LLAVA_TRAIN_BATCH, LLAVA_TRAIN_STEPS = 4, 1, 2
+# phase lm_configs: the LM configs no other phase runs, at their published
+# widths (bf16, seeded). Depth is cut only where 80 GB forces it, each cut
+# the deepest whose arguments plus temporaries stay under 72 GB in the
+# port's dry run at the run's batch (scripts/lm_config_depths.py: serve a
+# 4 x 528 prefill, train a donated 2 x 512 step). (arch, serve layers,
+# train layers, gate layers): the float32 gates need a float32 copy of the
+# weights beside the bf16 ones; where that does not fit beside the served
+# model they run on a second model of the gate layers, at full width
+LMC_RUNS = (("qwen3-1.7b", 28, 28, None),
+            ("yi-9b", 48, 29, None),
+            ("deepseek-67b", 47, 4, 4),
+            ("mixtral-8x22b", 13, 1, None))
+LMC_BATCH, LMC_PROMPT, LMC_GEN = 4, 512, 16
+LMC_TRAIN_BATCH, LMC_TRAIN_STEPS = 2, 2
+LMC_PEAK_BYTES = 80e9              # one H100's memory, the datasheet's
 # phase lm_sharded: TinyLlama-1.1B (float32) under DTensor parameters on
 # one NCCL rank ((data 1, model 1), all 22 layers) and two gloo ranks
 # sharing the card ((data 1, model 2), at LM_SHARDED_GLOO_LAYERS: that
@@ -419,8 +454,10 @@ TOL_SHARDED_PARAMS = 3e-2      # its assert_allclose(rtol, atol)
 TOL_SHARDED_GRAD_NORM = 1e-5   # relative, against one device's
 TOL_SHARDED_UPDATE = 1e-3      # |dp_shard - dp_one| / |dp_one|, each tensor
 TOL_SHARDED_GRAD = 1e-3        # |g_shard_map - g_einsum| / |g_einsum|, each
-# phase dryrun: the cross-check cell on the card (TinyLlama-1.1B, (1, 1))
+# phase dryrun: the cross-check cells on the card (TinyLlama-1.1B, (1, 1)):
+# its prefill, and a donated train step cut to a batch of 2 x 512
 DRYRUN_CHECK = ("tinyllama-1.1b", "prefill", 4, 512)
+DRYRUN_TRAIN_CHECK = ("tinyllama-1.1b", "train", 2, 512)
 # the caching allocator's most over the walk's exact bytes, a block live
 # at the peak: each block rounded up to 512 B, and a cached block handed
 # out whole when cutting it would leave under 1 MiB (the large pool's
@@ -440,6 +477,11 @@ FLASH_SHAPES = [
     ("hubert", 1, 16, 16, 1024, 1024, 80, False, 0, "bfloat16"),
     ("recurrentgemma", 1, 10, 1, 2048, 2048, 256, True, 2048, "bfloat16"),
     ("ragged", 2, 8, 2, 500, 700, 128, True, 0, "bfloat16"),
+    # phase lm_configs' prefills: 4 x 512, D 128, causal
+    ("qwen3", 4, 16, 8, 512, 512, 128, True, 0, "bfloat16"),
+    ("yi", 4, 32, 4, 512, 512, 128, True, 0, "bfloat16"),
+    ("deepseek", 4, 64, 8, 512, 512, 128, True, 0, "bfloat16"),
+    ("mixtral_8x22b", 4, 48, 8, 512, 512, 128, True, 4096, "bfloat16"),
 ]
 
 
@@ -1568,29 +1610,45 @@ def _logit_gate(label, got, want, tol):
 
 def phase_moe_serve(dev):
     """The MoE decoder served: Mixtral-8x7B at full width with its depth
-    cut to MOE_LAYERS of 32 (bf16, seeded random weights), ``generate``
-    over MOE_BATCH prompts of MOE_PROMPT tokens for MOE_GEN tokens after
-    one warm-up, then one MOE_LONG_PROMPT-token request for MOE_LONG_GEN
-    (past the 4,096-token window: the kernel's window and the rolling
-    cache on the path), each with the flash count set to 0 just before and
-    read just after: one launch a layer a prefill. Gates, at phase
+    cut to MOE_LAYERS of 32 (:func:`_moe_serve`, with the long request and
+    a profile). Returns the flash launches."""
+    launches, rec = _moe_serve(dev, MOE_ARCH, MOE_LAYERS, MOE_GEN, long=True,
+                               profile=True)
+    emit(phase="moe_serve", **rec)
+    return launches
+
+
+def _moe_serve(dev, arch, layers, gen, *, long, profile):
+    """An MoE decoder served: ``arch`` at full width with its depth cut to
+    ``layers`` (bf16, seeded random weights), ``generate`` over MOE_BATCH
+    prompts of MOE_PROMPT tokens for ``gen`` tokens after one warm-up,
+    then, with ``long``, one MOE_LONG_PROMPT-token request for
+    MOE_LONG_GEN (past the 4,096-token window: the kernel's window and the
+    rolling cache on the path), each with the flash count set to 0 just
+    before and read just after: one launch a layer a prefill. Gates, at phase
     ``lm_reference``'s bf16 tolerance: each request's prefill logits
     against the ``impl="ref"`` prefill (the routing decisions that differ
     between the two are counted; should they break the gate, the plain
     run's routing is pinned to the kernel run's and gated), and the first
-    decode step against the teacher-forced prefill. That check holds only
-    where no copy is dropped (a 1-token decode step never drops one; a
-    prefill of 512 or 513 tokens at capacity factor 1.25 does), so it runs
-    on a drop-free copy of the config (capacity factor E / k, the
-    reference's own drop-free setting for it); the served capacity's drop
-    fraction is that of the timed prefills (``runs``)."""
+    decode step against the teacher-forced prefill (the new token's
+    routing decisions counted the same way; should they break the gate,
+    the prefill's routing of that token is pinned to the decode step's).
+    That check holds only where no copy is dropped (a 1-token decode step
+    never drops one; a prefill of 512 or 513 tokens at capacity factor
+    1.25 does), so it runs on a drop-free copy of the config (capacity
+    factor E / k, the reference's own drop-free setting for it); the
+    served capacity's drop fraction is that of the timed prefills
+    (``runs``). With ``profile``,
+    one prefill and one decode step under the profiler. Returns the flash
+    launches and the record, the model freed."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.launch import serve
     from repro_torch.models import api, transformer
-    full = get_config(MOE_ARCH)
-    cfg = dataclasses.replace(full, n_layers=MOE_LAYERS)
+    t_phase = time.perf_counter()
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=layers)
     model = api.build_model(cfg, device=dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1599,12 +1657,14 @@ def phase_moe_serve(dev):
     rng = np.random.default_rng(SEED)
     requests = {
         "batch": ({"tokens": rng.integers(0, cfg.vocab,
-                                          (MOE_BATCH, MOE_PROMPT))}, MOE_GEN),
+                                          (MOE_BATCH, MOE_PROMPT))}, gen),
         "long": ({"tokens": rng.integers(0, cfg.vocab,
                                          (1, MOE_LONG_PROMPT))},
                  MOE_LONG_GEN)}
+    if not long:
+        del requests["long"]
     batch = requests["batch"][0]
-    serve.generate(model, params, batch, max_context=MOE_PROMPT + MOE_GEN,
+    serve.generate(model, params, batch, max_context=MOE_PROMPT + gen,
                    n_steps=2, device=dev)          # cuBLAS init, not measured
     runs, launches = {}, 0
     for label, (b, gen) in requests.items():
@@ -1642,9 +1702,10 @@ def phase_moe_serve(dev):
             "moe_aux": aux["moe_aux"].item(),
             "first_tokens": toks[0, :8].tolist()}
     peak = torch.cuda.max_memory_allocated() / 1e9
-    prof = _profile_lm(model, params, batch, MOE_PROMPT + MOE_GEN, {
+    prof = _profile_lm(model, params, batch, MOE_PROMPT + gen, {
         "prefill_s": runs["batch"]["prefill_ms"] / 1e3,
-        "decode_s_per_tok": runs["batch"]["decode_ms_per_token"] / 1e3})
+        "decode_s_per_tok": runs["batch"]["decode_ms_per_token"] / 1e3}) \
+        if profile else None
 
     # kernel prefill against the plain one, routing flips counted
     gates = {}
@@ -1674,27 +1735,45 @@ def phase_moe_serve(dev):
 
     # first decode step against the teacher-forced prefill, drop-free
     tokens = torch.as_tensor(batch["tokens"], device=dev)
-    mc = MOE_PROMPT + MOE_GEN
+    mc = MOE_PROMPT + gen
     free = dataclasses.replace(cfg, capacity_factor=cfg.n_experts
                                / cfg.top_k)
     lk, cache = transformer.prefill(params, tokens, free, max_context=mc)
     nxt = lk.float().argmax(-1)[:, None].int()
-    ld, _ = transformer.decode_step(params, cache, nxt, free)
-    full_logits, _ = transformer.prefill(
-        params, torch.cat([tokens, nxt], 1), free, max_context=mc + 1)
+    (ld, _), rd = _routing(lambda: transformer.decode_step(
+        params, cache, nxt, free))
+    forced = torch.cat([tokens, nxt], 1)
+    (full_logits, _), rf = _routing(lambda: transformer.prefill(
+        params, forced, free, max_context=mc + 1))
     g = _logit_gate("moe decode (drop-free)", ld[:, 0], full_logits,
                     TOL_LM_BF16)
-    check(g["ok"], f"moe decode vs teacher-forced prefill (drop-free): {g}")
+    # the new token's routing, decode step against the prefill's last row
+    g["routing_flips"] = _flips([r[:, -1:] for r in rf], rd)
+    g["routing_decisions"] = cfg.n_layers * tokens.shape[0]
+    if not g["ok"] and g["routing_flips"]:
+        pin = [torch.cat([r[:, :-1], d], 1) for r, d in zip(rf, rd)]
+        (lp, _), _ = _routing(lambda: transformer.prefill(
+            params, forced, free, max_context=mc + 1), pin=pin)
+        g["pinned"] = _logit_gate("moe decode (drop-free), pinned",
+                                  ld[:, 0], lp, TOL_LM_BF16)
+        check(g["pinned"]["ok"], f"moe decode vs teacher-forced prefill "
+                                 f"(drop-free) with the decode's routing "
+                                 f"pinned: {g['pinned']}")
+        del lp
+    else:
+        check(g["ok"], f"moe decode vs teacher-forced prefill (drop-free): "
+                       f"{g}")
     gates["decode_vs_prefill_drop_free"] = g
-    del lk, cache, ld, full_logits
-    emit(phase="moe_serve", config=cfg.name, dtype=cfg.dtype,
-         layers=cfg.n_layers, reduced={"n_layers": [full.n_layers,
-                                                    cfg.n_layers]},
-         weights_gb=weights_gb, peak_mem_gb=peak, runs=runs,
-         flash_launches=launches, profile=prof, **gates)
-    del params, model
-    torch.cuda.empty_cache()
-    return launches
+    gates_peak = torch.cuda.max_memory_allocated() / 1e9
+    del lk, cache, ld, full_logits, rd, rf, params, model
+    _free()
+    rec = {"config": cfg.name, "dtype": cfg.dtype, "layers": cfg.n_layers,
+           "reduced": {"n_layers": [full.n_layers, cfg.n_layers]},
+           "weights_gb": weights_gb, "peak_mem_gb": peak,
+           "gates_peak_mem_gb": gates_peak, "runs": runs,
+           "flash_launches": launches, "profile": prof, **gates,
+           "seconds": time.perf_counter() - t_phase}
+    return launches, rec
 
 
 def _lm_loss_path(model, params, opt_cfg, stream, steps, impl):
@@ -2178,11 +2257,12 @@ def _impl_gates(model, params, exact, batch, label):
             "f32": g32}
 
 
-def _train_steps(model, stream, steps, label, want_launches):
-    """``steps`` steps of ``make_train_step`` from a state seeded SEED on
-    ``stream``'s batches, with the flash count set to 0 just before and
-    read just after (``want_launches`` a step); finite losses checked.
-    Returns (final state, per-step metrics, timings, launches)."""
+def _train_steps(model, stream, steps, label, want_launches, donate=False):
+    """``steps`` steps of ``make_train_step`` (AdamW in place on the state
+    with ``donate``) from a state seeded SEED on ``stream``'s batches, with
+    the flash count set to 0 just before and read just after
+    (``want_launches`` a step); finite losses checked. Returns (final
+    state, per-step metrics, timings, launches)."""
     import torch
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.launch import train
@@ -2191,7 +2271,7 @@ def _train_steps(model, stream, steps, label, want_launches):
     timings = []
     step = train.make_train_step(
         model, adamw.AdamWConfig(lr=LM_TRAIN_LR, total_steps=steps,
-                                 warmup_steps=5))
+                                 warmup_steps=5), donate=donate)
     metrics = []
     fa_kernel.launches = 0
     for i in range(steps):
@@ -2493,6 +2573,120 @@ def phase_llava(dev):
     _free()
     return {"prefill": cfg.n_layers,
             "train_step": launches // LLAVA_TRAIN_STEPS}
+
+
+def _lmc_serve(dev, full, layers, gate_layers):
+    """A dense config of phase ``lm_configs`` served: ``full`` at its
+    published width and ``layers`` deep (bf16, seeded), ``generate`` of
+    LMC_BATCH x LMC_PROMPT tokens for LMC_GEN after one warm-up, one
+    kernel-5 launch a layer a prefill, the decode step replayed from a
+    graph (``_served``); then the kernel prefill against ``impl="ref"``
+    and the first decode step against the teacher-forced prefill, each in
+    float32 (the weights cast exactly) and by the bf16 ratio gate
+    (``_impl_gates``, ``_decode_gates``), on the served model or, with
+    ``gate_layers``, on a second one that deep. Returns the record."""
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.models import api
+    cfg = dataclasses.replace(full, n_layers=layers)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    model = api.build_model(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED))
+    weights_gb = torch.cuda.memory_allocated() / 1e9
+    batch = {"tokens": np.random.default_rng(SEED).integers(
+        0, cfg.vocab, (LMC_BATCH, LMC_PROMPT))}
+    serve.generate(model, params, batch, max_context=LMC_PROMPT + 2,
+                   n_steps=2, device=dev)              # warm-up
+    run = _served(dev, model, params, batch, LMC_GEN, cfg.name, layers)
+    serve_peak = torch.cuda.max_memory_allocated()
+    if gate_layers is not None:
+        del params, model
+        _free()
+        model = api.build_model(
+            dataclasses.replace(full, n_layers=gate_layers), device=dev)
+        params = model.init(torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.reset_peak_memory_stats()
+    exact = _upcast(model, params)
+    gates = {"prefill": _impl_gates(model, params, exact, batch, cfg.name),
+             "decode_vs_prefill": _decode_gates(model, params, exact, batch,
+                                                cfg.name)}
+    gates_peak = torch.cuda.max_memory_allocated()
+    del params, model, exact
+    _free()
+    for what, peak in (("serving", serve_peak), ("the gates", gates_peak)):
+        check(peak < LMC_PEAK_BYTES, f"{cfg.name} {what}: peak "
+                                     f"{peak / 1e9:.2f} GB")
+    return {"layers": layers, "weights_gb": weights_gb,
+            "peak_mem_gb": serve_peak / 1e9, "run": run,
+            "gate_layers": layers if gate_layers is None else gate_layers,
+            "gates_peak_mem_gb": gates_peak / 1e9, **gates}
+
+
+def phase_lm_configs(dev):
+    """The four LM configs that no other phase runs, at their published
+    widths (bf16, seeded, built through ``api.build_model``), each served
+    and trained in turn (LMC_RUNS; depth cut only where 80 GB forces it,
+    every cut under ``reduced``): Qwen3-1.7B (qk-norm, tied embeddings,
+    GQA 16/8), Yi-9B (GQA 32/4), DeepSeek-67B (GQA 64/8), all D 128, by
+    ``_lmc_serve``; Mixtral-8x22B (48/8, 8 experts top-2, a 4,096-token
+    window) by ``_moe_serve``'s MoE gates (routing flips counted, the plain
+    routing pinned where they break the gate, decode at the drop-free
+    capacity). Then LMC_TRAIN_STEPS donated ``make_train_step`` steps of
+    LMC_TRAIN_BATCH x 512 tokens (no checkpoint): finite losses, 2 kernel-5
+    launches a layer a step. Every peak under 80 GB. Returns each config's
+    launches a prefill and a training step."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.models import api
+    t_phase = time.perf_counter()
+    launches = {}
+    for arch, layers, train_layers, gate_layers in LMC_RUNS:
+        t0 = time.perf_counter()
+        full = get_config(arch)
+        reduced = {}
+        if layers < full.n_layers:
+            reduced["serve_layers"] = [full.n_layers, layers]
+        if full.n_experts:
+            _, serving = _moe_serve(dev, arch, layers, LMC_GEN, long=False,
+                                    profile=False)
+            for key in ("peak_mem_gb", "gates_peak_mem_gb"):
+                check(serving[key] * 1e9 < LMC_PEAK_BYTES,
+                      f"{arch} serving: {key} {serving[key]}")
+        else:
+            serving = _lmc_serve(dev, full, layers, gate_layers)
+            if gate_layers is not None:
+                reduced["gate_layers"] = [full.n_layers, gate_layers]
+        if train_layers < full.n_layers:
+            reduced["train_layers"] = [full.n_layers, train_layers]
+        tcfg = dataclasses.replace(full, n_layers=train_layers)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        model = api.build_model(tcfg, device=dev)
+        stream = train.make_stream(tcfg, LMC_TRAIN_BATCH, LM_TRAIN_SEQ,
+                                   seed=SEED)
+        state, metrics, timings, n_train = _train_steps(
+            model, stream, LMC_TRAIN_STEPS, arch, 2 * train_layers,
+            donate=True)
+        train_peak = torch.cuda.max_memory_allocated()
+        del state, model
+        _free()
+        check(train_peak < LMC_PEAK_BYTES,
+              f"{arch} training: peak {train_peak / 1e9:.2f} GB")
+        launches[arch] = {"prefill": layers,
+                          "train_step": n_train // LMC_TRAIN_STEPS}
+        emit(phase="lm_configs.config", config=arch, dtype=full.dtype,
+             published_layers=full.n_layers, reduced=reduced,
+             serve=serving,
+             train={"layers": train_layers, "batch": LMC_TRAIN_BATCH,
+                    "seq": LM_TRAIN_SEQ, "donate": True, "metrics": metrics,
+                    "step_ms": timings, "flash_launches": n_train,
+                    "peak_mem_gb": train_peak / 1e9},
+             seconds=time.perf_counter() - t0)
+    emit(phase="lm_configs", configs=[r[0] for r in LMC_RUNS],
+         flash_launches=launches, seconds=time.perf_counter() - t_phase)
+    return launches
 
 
 def _moe_ragged_example():
@@ -2990,8 +3184,11 @@ def phase_train(dev, cfg):
     batch: the gradients with the plain run's ReLU masks pinned to the
     kernel run's, the loss, the ReLU outputs whose sign differs and the
     gradients' norms from the plain run left free (``_train_gate``); a
-    control, the plain step in TF32, must break those limits; then one
-    step under ``torch.profiler``. Returns the demo's launches of kernels
+    control, the plain step in TF32, must break those limits; then the
+    step eager, captured and replayed, each replay bit-equal to an eager
+    step, and one step under ``torch.profiler``; then the plain versions'
+    step (``impl="ref"``) captured and replayed the same way, bit-equal
+    too (``train.plain_graph``). Returns the demo's launches of kernels
     1 and 2 and kernel 2's device ms a step."""
     import shutil
     import tempfile
@@ -3087,27 +3284,12 @@ def phase_train(dev, cfg):
     opt_cfg = adamw.AdamWConfig(lr=1e-3, total_steps=TRAIN_STEPS,
                                 warmup_steps=1)
     step = train.make_spconv_step(model, opt_cfg, plans, donate=True)
-    compiled = train.CompiledStep(step, dev)
     state = (params, adamw.init(params))
-    compiled(state, batch)
-    graph_steps = []
-    for _ in range(2):
-        twin = _tree_clone(state)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, m = compiled(state, batch)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        twin, tm = step(twin, batch)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        equal = torch.equal(m["loss"], tm["loss"]) and all(
-            torch.equal(a, b) for a, b in zip(_leaves(state), _leaves(twin)))
-        graph_steps.append({"graph": compiled.last,
-                            "replay_ms": (t1 - t0) * 1e3,
-                            "eager_ms": (t2 - t1) * 1e3, "bit_equal": equal})
-        check(equal, "train: a replayed step differs from the eager step "
-                     "from the same state and batch")
+    # the plain versions' step the same way, from a copy of the state:
+    # every sum of it runs in a fixed order too
+    plain_state = _tree_clone(state)
+    compiled, state, twin, graph_steps = _replays_vs_eager(
+        dev, step, state, batch, "train")
     step_ms = graph_steps[-1]["eager_ms"]
 
     def profiled(fn):
@@ -3176,9 +3358,48 @@ def phase_train(dev, cfg):
                                     "calls": c}
                                    for n, ms, c in rows_r[:10]]})
     compiled.release()
-    del state, twin, params, model, plans, batch, compiled
+    del state, twin, compiled
+    plain_compiled, *_, plain_steps = _replays_vs_eager(
+        dev, train.make_spconv_step(model, opt_cfg, plans, impl="ref",
+                                    donate=True),
+        plain_state, batch, "train, impl=\"ref\"")
+    plain_compiled.release()
+    emit(phase="train.plain_graph", config=cfg.name,
+         graph_vs_eager=plain_steps)
+    del plain_state, plain_compiled, params, model, plans, batch
     torch.cuda.empty_cache()
     return counts[0], counts[1], k2_ms
+
+
+def _replays_vs_eager(dev, step, state, batch, label):
+    """``step`` (a donated training step) as ``CompiledStep`` runs it:
+    eager once, then captured and replayed, then replayed, each replay
+    held bit for bit (loss and every state tensor) to an eager ``step``
+    from a copy of the same state and batch. Returns the compiled step,
+    the state, the last eager copy and each replay's record."""
+    import torch
+    from repro_torch.launch import train
+    compiled = train.CompiledStep(step, dev)
+    compiled(state, batch)
+    records = []
+    for _ in range(2):
+        twin = _tree_clone(state)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = compiled(state, batch)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        twin, tm = step(twin, batch)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        equal = torch.equal(m["loss"], tm["loss"]) and all(
+            torch.equal(a, b) for a, b in zip(_leaves(state), _leaves(twin)))
+        records.append({"graph": compiled.last,
+                        "replay_ms": (t1 - t0) * 1e3,
+                        "eager_ms": (t2 - t1) * 1e3, "bit_equal": equal})
+        check(equal, f"{label}: a replayed step differs from the eager step "
+                     f"from the same state and batch")
+    return compiled, state, twin, records
 
 
 def _second_layers(cfg, st, gconv3, subm):
@@ -5428,21 +5649,121 @@ def _dryrun_cross_check(dev):
           f"placed arguments (allowed -1 MiB to +{slack})")
     del params, tokens
     torch.cuda.empty_cache()
+    arch, kind, tb, ts = DRYRUN_TRAIN_CHECK
     return {"cell": f"{arch} {kind} {b}x{s} (1, 1)",
             "argument_bytes": want, "memory_allocated_growth": placed,
             "bytes_per_device": rec["bytes_per_device"],
             "flops": rec["hlo_flops"], "card_flops": card_flops,
             "temp_bytes": temp, "temp_storages": rec["temp_storages"],
             "max_memory_allocated_growth": growth,
-            "growth_over_temp": growth - temp, "allowed_over": slack}
+            "growth_over_temp": growth - temp, "allowed_over": slack,
+            "train": _dryrun_train_check(dev, arch, cfg, tb, ts)}
+
+
+def _warm_blas(dev, dtypes):
+    """cuBLAS (and cuBLASLt) allocate a workspace at a handle's first
+    product and keep it, a handle per thread: each product kind once in
+    each of ``dtypes``, forward and, on autograd's device thread, backward,
+    so that no later growth counts them."""
+    import torch
+    for dt in dtypes:
+        a = torch.ones(8, 8, dtype=dt, device=dev, requires_grad=True)
+        out = (a @ a).sum() + torch.bmm(a[None], a[None]).sum() \
+            + torch.addmm(a, a, a).sum()
+        torch.autograd.grad(out, a)
+    torch.cuda.synchronize()
+
+
+def _dryrun_train_check(dev, arch, cfg, b, s):
+    """A donated train cell (``cfg``, ``b`` x ``s`` tokens, a (1, 1) mesh)
+    against the card: the dry run's argument bytes equal to the exact
+    bytes of the state and batch placed on the card, and
+    ``torch.cuda.memory_allocated``'s growth to those bytes rounded up to
+    the allocator's 512-byte blocks (AdamW's int32 ``count`` takes one),
+    plus at most the split rule's 1 MiB a tensor of over 1 MiB (a block
+    is handed out whole when cutting it would leave 1 MiB or less:
+    TinyLlama's two 125 MiB bf16 tables in fresh 126 MiB segments);
+    its ``temp_bytes`` against the growth of
+    ``torch.cuda.max_memory_allocated`` over the placed state while one
+    ``make_train_step(impl="ref", donate=True)`` step runs on the card,
+    within the prefill check's slack. The step writes the state's own
+    tensors. Returns the record."""
+    import torch
+    from repro_torch.configs import SHAPE_CELLS
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models import api, common
+    from repro_torch.optim import adamw
+    cell = dataclasses.replace(SHAPE_CELLS["train_4k"], seq_len=s,
+                               global_batch=b)
+    rec = dryrun.run_cell(arch, "train_4k", "one", cfg=cfg, cell=cell,
+                          donate=True)
+    check(rec["status"] == "ok" and rec["donate"] is True,
+          f"dryrun train cross-check cell: {rec}")
+    model = api.build_model(cfg, device=dev)
+    _free()
+    before = torch.cuda.memory_allocated()
+    params = dict(model.module(torch.Generator(dev).manual_seed(SEED))
+                  .state_dict())
+    opt = adamw.init(params)
+    rng = np.random.default_rng(SEED)
+    batch = {k: torch.as_tensor(rng.integers(0, cfg.vocab, tuple(v.shape)),
+                                dtype=v.dtype, device=dev)
+             for k, v in model.input_specs(cell).items()}
+    torch.cuda.synchronize()
+    placed = torch.cuda.memory_allocated() - before
+    tensors = [*params.values(), *opt["m"].values(), *opt["v"].values(),
+               opt["count"], *batch.values()]
+    exact = sum(t.numel() * t.element_size() for t in tensors)
+    rounded = sum(-(-t.numel() * t.element_size() // 512) * 512
+                  for t in tensors)
+    split = 2 ** 20 * sum(t.numel() * t.element_size() > 2 ** 20
+                          for t in tensors)
+    want = rec["argument_bytes"]
+    check(want == exact, f"dryrun train: {want} argument bytes, the state "
+                         f"and batch hold {exact}")
+    check(rounded <= placed <= rounded + split,
+          f"dryrun train: the card grew {placed} placing {exact} bytes, "
+          f"want {rounded} to {rounded + split}")
+    _warm_blas(dev, (common.dtype_of(cfg), torch.float32))
+    step = make_train_step(model, adamw.AdamWConfig(), impl="ref",
+                           donate=True)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    state, metrics = step((params, opt), batch)
+    torch.cuda.synchronize()
+    growth = torch.cuda.max_memory_allocated() - base
+    check(state[0] is params and state[1] is opt,
+          "dryrun train: the donated step made a new state")
+    loss = metrics["loss"].item()
+    check(np.isfinite(loss), f"dryrun train: loss {loss}")
+    temp = rec["temp_bytes"]
+    slack = rec["temp_storages"] * TEMP_SLACK_BLOCK + TEMP_SLACK
+    check(temp - 2 ** 20 <= growth <= temp + slack,
+          f"dryrun train: {temp} bytes of temporaries "
+          f"({rec['temp_storages']} storages at the peak), the card's peak "
+          f"grew {growth} over the placed state (allowed -1 MiB to "
+          f"+{slack})")
+    del state, metrics, params, opt, batch, tensors
+    _free()
+    return {"cell": f"{arch} train {b}x{s} (1, 1), donated",
+            "argument_bytes": want, "memory_allocated_growth": placed,
+            "allocator_rounding": rounded - exact,
+            "allocator_split_over": placed - rounded,
+            "bytes_per_device": rec["bytes_per_device"],
+            "temp_bytes": temp, "temp_storages": rec["temp_storages"],
+            "max_memory_allocated_growth": growth,
+            "growth_over_temp": growth - temp, "allowed_over": slack,
+            "loss": loss}
 
 
 def phase_dryrun(cross):
     """The dry run of every (arch x shape x mesh) cell, single- and
     multi-pod, after the card's phases: ``launch.dryrun.run_job`` on
     ``meta`` tensors in fake worlds of 256 and 512 ranks, in a pool of
-    host processes, one a core. Each cell's status, ``fits``, bytes a
-    device and wall time; every applicable cell must be ``ok``. ``cross``
+    host processes, one a core, each copying (the donated train cells are
+    the CLI's ``--donate``). Each cell's status, ``fits``, bytes a device
+    and wall time; every applicable cell must be ``ok``. ``cross``
     is the card's cross-check (:func:`_dryrun_cross_check`), run first of
     all phases: the caching allocator's growth is exact only before other
     phases leave cached segments whose free blocks a new tensor can take
@@ -5453,7 +5774,7 @@ def phase_dryrun(cross):
     from repro_torch.launch import dryrun
     t_phase = time.perf_counter()
     knobs = {"remat": None, "moe_impl": None, "strategy": "tp",
-             "cache_shard": "kv"}
+             "cache_shard": "kv", "donate": False}
     # longest first (the train cells count a backward, the multi-pod mesh
     # twice the ranks), so the pool's last jobs are short ones
     jobs = sorted(((a, s, m, knobs) for a in list_archs()
@@ -5472,7 +5793,8 @@ def phase_dryrun(cross):
     grid_s = time.perf_counter() - t_phase
     for rec in recs:
         emit(phase="dryrun.cell", **{k: rec.get(k) for k in (
-            "arch", "shape", "mesh", "status", "skip_reason", "error",
+            "arch", "shape", "mesh", "donate", "status", "skip_reason",
+            "error",
             "fits", "bytes_per_device", "argument_bytes", "temp_bytes",
             "build_s",
             "count_s", "hlo_flops", "hlo_bytes", "collective_bytes",
@@ -5845,7 +6167,8 @@ def main() -> int:
     family_launches = {
         "recurrentgemma": timed_phase("rglru", phase_rglru, dev),
         "hubert": timed_phase("hubert", phase_hubert, dev),
-        "llava": timed_phase("llava", phase_llava, dev)}
+        "llava": timed_phase("llava", phase_llava, dev),
+        **timed_phase("lm_configs", phase_lm_configs, dev)}
     ragged, k3["moe_ragged_launches"] = timed_phase(
         "moe_ragged", phase_moe_ragged, dev)
     probe = timed_phase("gloo_probe", phase_gloo_probe)

@@ -10,11 +10,13 @@ select the tap's live slots or tiles, one matmul — rather than
 materializing a per-tile weight copy, so they fit on the card at serving
 sizes.
 
-:func:`spconv_gemm_fused_ref_vjp` is the training backward of every
-layer, on the card too: over a :class:`SlotIndex` built once per tile set
-(the live slots grouped by tap, their counts on the host), with sums in an
-order fixed by the tiles and no host read, so a training step replays
-from a CUDA graph and two runs agree bit for bit.
+:func:`spconv_gemm_fused_ref` (the plain forward, ``impl="ref"``) and
+:func:`spconv_gemm_fused_ref_vjp` (the training backward of every layer,
+on the card too) both run over a :class:`SlotIndex` built once per tile
+set (the live slots grouped by tap, their counts on the host), with every
+sum in an order fixed by the tiles and no host read or atomic add, so a
+training step replays from a CUDA graph bit-equal to eager and two runs
+agree bit for bit, through the kernels or the plain versions.
 """
 from __future__ import annotations
 
@@ -79,18 +81,31 @@ def spconv_gemm_fused_ref(feats: torch.Tensor, weights: torch.Tensor,
     Cin blocks that are exactly zero, which contribute nothing either, so
     the plain version reads neither. One product a tap over its live
     slots, from ``index`` (the tiles' :func:`slot_index`, built here when
-    None, with host reads): given one built beforehand, the call reads
-    nothing back to the host and can be captured into a CUDA graph.
+    None, with host reads); then each output row adds its slots' products
+    in ``index.by_out``'s order (ascending slot), one column of it at a
+    time, so the order is fixed on every device and the temporaries stay
+    one (rows, Cout) block. Given an index built beforehand, the call
+    reads nothing back to the host and can be captured into a CUDA graph.
     """
     del tile_bk_nz, bk
     if index is None:
         index = slot_index(gather_idx, scatter_idx, tile_tap, tile_nz,
                            tile_ob, bm=bm, bo=bo, n_in=feats.shape[0])
-    out = torch.zeros((n_out_pad, weights.shape[-1]), dtype=torch.float32,
-                      device=feats.device)
+    c_out = weights.shape[-1]
+    n = index.gather.shape[0]
+    contrib = torch.empty((n + 1, c_out), dtype=torch.float32,
+                          device=feats.device)
+    contrib[n] = 0.0
     for t, lo, hi in index.taps:
-        rows = feats[index.gather[lo:hi]].float()
-        out.index_add_(0, index.scatter[lo:hi], rows @ weights[t].float())
+        torch.mm(feats[index.gather[lo:hi]].float(), weights[t].float(),
+                 out=contrib[lo:hi])
+    out = torch.zeros((n_out_pad, c_out), dtype=torch.float32,
+                      device=feats.device)
+    rows = out[:index.by_out.shape[0]]
+    part = torch.empty_like(rows)
+    for j in range(index.by_out.shape[1]):
+        torch.index_select(contrib, 0, index.by_out[:, j], out=part)
+        rows.add_(part)
     if not epilogue:
         return out
     return epilogue_math(out, epi_scale, epi_shift, epi_valid)
@@ -105,10 +120,12 @@ def live_slots(scatter_idx, tile_nz, tile_ob, *, bm, bo):
 
 
 class SlotIndex(NamedTuple):
-    """What :func:`spconv_gemm_fused_ref_vjp` reads of one tile set: its
-    live slots grouped by tap, with their counts held on the host. Built
-    once per tile set, where it may read back to the host; the backward
-    over it reads nothing back, so it can be captured into a CUDA graph.
+    """What :func:`spconv_gemm_fused_ref` and
+    :func:`spconv_gemm_fused_ref_vjp` read of one tile set: its live slots
+    grouped by tap, with their counts held on the host. Built once per
+    tile set, where it may read back to the host; the forward and the
+    backward over it read nothing back, so they can be captured into a
+    CUDA graph.
     """
     gather: torch.Tensor    # (S,) int64 source row of each live slot,
                             # tap after tap, slot order within a tap
@@ -116,6 +133,9 @@ class SlotIndex(NamedTuple):
     taps: tuple             # (tap, lo, hi): the tap's slots are [lo, hi)
     by_row: torch.Tensor    # (N_in, L) int64: each source row's slots
                             # in ascending order, then S (a zero row)
+    by_out: torch.Tensor    # (N_o, L_o) int64: each output row's slots in
+                            # ascending order, then S; N_o is one past the
+                            # last output row a live slot adds into
 
 
 def slot_index(gather_idx, scatter_idx, tile_tap, tile_nz, tile_ob, *, bm,
@@ -125,8 +145,10 @@ def slot_index(gather_idx, scatter_idx, tile_tap, tile_nz, tile_ob, *, bm,
     ``by_row`` fixes the order in which the backward sums each source
     row's contributions: a stable sort of the live slots by source row.
     Its width L is the most live slots any row feeds (at most K on a
-    cloud without duplicate voxels). The slots, the per-tap counts and L
-    are read back to the host here."""
+    cloud without duplicate voxels). ``by_out`` fixes the forward's order
+    the same way, a stable sort of the live slots by output row. The
+    slots, the per-tap counts, the widths and the output rows are read
+    back to the host here."""
     dev = gather_idx.device
     live = live_slots(scatter_idx, tile_nz, tile_ob, bm=bm, bo=bo)
     slot_tap = tile_tap.long().repeat_interleave(bm)
@@ -142,14 +164,24 @@ def slot_index(gather_idx, scatter_idx, tile_tap, tile_nz, tile_ob, *, bm,
         if c:
             taps.append((t, lo, lo + c))
         lo += c
-    rows = torch.sort(gather, stable=True)
-    per_row = torch.bincount(gather, minlength=n_in)
+    n_out = int(scatter.max()) + 1 if n else 0
+    return SlotIndex(gather, scatter, tuple(taps),
+                     _slots_by(gather, n_in, n), _slots_by(scatter, n_out, n))
+
+
+def _slots_by(key, n_rows, n):
+    """(n_rows, L) int64: the slots of each row of ``key`` (a slot's row)
+    in ascending order, padded with ``n``; L the most a row has, at least
+    1."""
+    dev = key.device
+    rows = torch.sort(key, stable=True)
+    per_row = torch.bincount(key, minlength=n_rows)
     starts = torch.cumsum(per_row, 0) - per_row
     rank = torch.arange(n, device=dev) - starts[rows.values]
     width = max(int(per_row.max()), 1) if n else 1
-    by_row = torch.full((n_in * width,), n, dtype=torch.long, device=dev)
-    by_row[rows.values * width + rank] = rows.indices
-    return SlotIndex(gather, scatter, tuple(taps), by_row.view(n_in, width))
+    out = torch.full((n_rows * width,), n, dtype=torch.long, device=dev)
+    out[rows.values * width + rank] = rows.indices
+    return out.view(n_rows, width)
 
 
 #: elements of one (rows, L, Cin) block of the backward's row sums

@@ -32,11 +32,19 @@ card holds the two together). No kernel runs on ``meta``: the step takes the pla
 versions (``impl="ref"``), recorded as ``"impl": "ref"``. The counted path
 has no host read of a tensor (``.item()``, ``int(t)``, ``torch.nonzero``),
 which ``meta`` tensors refuse: every size it uses is a host integer of the
-config and the cell. The reference's ``--donate`` and ``--save-hlo`` have
-no counterpart: torch neither donates buffers nor emits HLO.
+config and the cell.
+
+``--donate`` is the reference's ``donate_argnums`` of the train step: the
+step is ``make_train_step(donate=True)``, whose AdamW
+(``adamw.update_``) writes the new parameters and moments into the
+state's own tensors, so no second copy of the state is live and a train
+cell's ``temp_bytes`` drops by up to the state's bytes. Prefill and
+decode cells are the same either way. Every record carries ``"donate"``;
+donated records are written under their own file tag. The reference's
+``--save-hlo`` has no counterpart: torch emits no HLO.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch tinyllama-1.1b \\
-        --shape train_4k --mesh single
+        --shape train_4k --mesh single [--donate]
 
 Results go to ``--out`` (default ``build/dryrun/``), one JSON file a cell,
 resumable (``--force`` reruns); ``--jobs N`` runs cells in N processes.
@@ -84,10 +92,11 @@ class Cell(NamedTuple):
 
 
 def build_cell(model: api.Model, cell, mesh, *, strategy: str = "tp",
-               kv_layout: str = "kv") -> Cell:
-    """The step of ``cell`` (train: ``make_train_step``; prefill; decode:
-    one step against a ``cell.seq_len``-deep cache) with its arguments as
-    ``meta`` DTensors placed on ``mesh``; the plain versions throughout."""
+               kv_layout: str = "kv", donate: bool = False) -> Cell:
+    """The step of ``cell`` (train: ``make_train_step``, in place on its
+    state if ``donate``; prefill; decode: one step against a
+    ``cell.seq_len``-deep cache) with its arguments as ``meta`` DTensors
+    placed on ``mesh``; the plain versions throughout."""
     from repro_torch.launch.train import make_train_step
     flat = dict(model.module(common.META).state_dict())
     p_sh = shardings.param_shardings(flat, mesh, strategy)
@@ -101,7 +110,8 @@ def build_cell(model: api.Model, cell, mesh, *, strategy: str = "tp",
         opt = adamw.init(flat)
         o_sh = shardings.opt_state_shardings(opt, mesh, strategy)
         groups["optimizer"] = (opt, o_sh)
-        step = make_train_step(model, adamw.AdamWConfig(), impl="ref")
+        step = make_train_step(model, adamw.AdamWConfig(), impl="ref",
+                               donate=donate)
         return Cell(step, ((params, shardings.distribute(opt, o_sh)),
                            dbatch), groups)
     if cell.kind == "prefill":
@@ -169,7 +179,7 @@ def _totals(cm: hlo_analysis.CostMode, n: int) -> dict:
 
 
 def measure_costs(cfg, cell, mesh, *, strategy: str = "tp",
-                  kv_layout: str = "kv") -> dict:
+                  kv_layout: str = "kv", donate: bool = False) -> dict:
     """The reference's depth-1/2 extrapolation of FLOPs, bytes and
     collective bytes to the full depth (whole-program totals), and of the
     peak of live bytes a device (``temp_bytes``): each depth unit holds
@@ -177,7 +187,8 @@ def measure_costs(cfg, cell, mesh, *, strategy: str = "tp",
     unit's bytes a unit as the counts do."""
     c1, c2, units = _depth_variants(cfg)
     b1, b2 = (build_cell(api.build_model(c, device="meta"), cell, mesh,
-                         strategy=strategy, kv_layout=kv_layout)
+                         strategy=strategy, kv_layout=kv_layout,
+                         donate=donate)
               for c in (c1, c2))
     # the deeper one's warm-up warms both
     meas = {"d1": _totals(count_step(b1, mesh, b2), mesh.size()),
@@ -200,7 +211,8 @@ def measure_costs(cfg, cell, mesh, *, strategy: str = "tp",
 
 
 def run_cell(arch: str, shape: str, mesh_kind: str, *, strategy: str = "tp",
-             kv_layout: str = "kv", cfg=None, cell=None) -> dict:
+             kv_layout: str = "kv", donate: bool = False, cfg=None,
+             cell=None) -> dict:
     """One cell's record (the reference's fields; ``cfg`` / ``cell``
     override the arch's config and the shape's cell, for reduced runs).
     Runs in a fake world of the mesh's size, which it leaves on return."""
@@ -209,7 +221,8 @@ def run_cell(arch: str, shape: str, mesh_kind: str, *, strategy: str = "tp",
     ok, why = cell_applicable(cfg, cell)
     rec = {"arch": arch, "shape": shape, "mesh": mesh_kind,
            "kind": cell.kind, "status": "skip", "skip_reason": why,
-           "strategy": strategy, "kv_layout": kv_layout, "impl": "ref"}
+           "strategy": strategy, "kv_layout": kv_layout, "donate": donate,
+           "impl": "ref"}
     if not ok:
         return rec
     n_chips, make_mesh = MESH_KINDS[mesh_kind]
@@ -220,7 +233,8 @@ def run_cell(arch: str, shape: str, mesh_kind: str, *, strategy: str = "tp",
         try:
             t0 = time.perf_counter()
             built = build_cell(api.build_model(cfg, device="meta"), cell,
-                               mesh, strategy=strategy, kv_layout=kv_layout)
+                               mesh, strategy=strategy, kv_layout=kv_layout,
+                               donate=donate)
             per_dev = device_bytes(built)
             t_build = time.perf_counter() - t0
             t0 = time.perf_counter()
@@ -229,7 +243,7 @@ def run_cell(arch: str, shape: str, mesh_kind: str, *, strategy: str = "tp",
             shallow = _depth_variants(cfg)[1]
             warm = None if shallow.n_layers >= cfg.n_layers else build_cell(
                 api.build_model(shallow, device="meta"), cell, mesh,
-                strategy=strategy, kv_layout=kv_layout)
+                strategy=strategy, kv_layout=kv_layout, donate=donate)
             cm = count_step(built, mesh, warm)
             t_count = time.perf_counter() - t0
         finally:
@@ -258,6 +272,13 @@ def run_cell(arch: str, shape: str, mesh_kind: str, *, strategy: str = "tp",
     return rec
 
 
+def file_tag(tag: str = "", donate: bool = False) -> str:
+    """The tag of a record's file: ``tag``, and ``donate`` after it for a
+    donated run, so that donated and copying records never share a
+    file."""
+    return "__".join(t for t in (tag, "donate" if donate else "") if t)
+
+
 def result_path(out_dir, arch, shape, mesh_kind, tag=""):
     suffix = f"__{tag}" if tag else ""
     return os.path.join(out_dir, f"{arch}__{shape}__{mesh_kind}{suffix}.json")
@@ -272,9 +293,11 @@ def run_job(job) -> dict:
     _apply_knobs(knobs)
     try:
         return run_cell(arch, shape, mesh_kind, strategy=knobs["strategy"],
-                        kv_layout=knobs["cache_shard"])
+                        kv_layout=knobs["cache_shard"],
+                        donate=knobs["donate"])
     except Exception as e:                               # noqa: BLE001
         return {"arch": arch, "shape": shape, "mesh": mesh_kind,
+                "donate": knobs["donate"],
                 "status": "fail", "error": repr(e),
                 "traceback": traceback.format_exc()}
 
@@ -327,6 +350,8 @@ def main(argv=None) -> None:
     ap.add_argument("--moe-impl", default=None,
                     choices=[None, "einsum", "shard_map"])
     ap.add_argument("--cache-shard", default="kv", choices=["kv", "ctx"])
+    ap.add_argument("--donate", action="store_true",
+                    help="train cells update their state in place")
     ap.add_argument("--out", default=RESULTS_DIR)
     ap.add_argument("--jobs", type=int, default=1)
     args = ap.parse_args(argv)
@@ -336,13 +361,14 @@ def main(argv=None) -> None:
     meshes = ["single", "multi"] if args.mesh == "both" else [args.mesh]
     os.makedirs(args.out, exist_ok=True)
     knobs = {"remat": args.remat, "moe_impl": args.moe_impl,
-             "strategy": args.strategy, "cache_shard": args.cache_shard}
+             "strategy": args.strategy, "cache_shard": args.cache_shard,
+             "donate": args.donate}
+    tag = file_tag(args.tag, args.donate)
     todo = []
     for arch in archs:
         for shape in shapes:
             for mesh_kind in meshes:
-                path = result_path(args.out, arch, shape, mesh_kind,
-                                   args.tag)
+                path = result_path(args.out, arch, shape, mesh_kind, tag)
                 if os.path.exists(path) and not args.force:
                     print(f"[cached] {arch} {shape} {mesh_kind}")
                     continue
@@ -352,7 +378,7 @@ def main(argv=None) -> None:
     for rec in run_grid(todo, knobs=knobs, jobs=args.jobs):
         rec["tag"] = args.tag
         with open(result_path(args.out, rec["arch"], rec["shape"],
-                              rec["mesh"], args.tag), "w") as f:
+                              rec["mesh"], tag), "w") as f:
             json.dump(rec, f, indent=1)
         n[rec["status"]] += 1
         print(f"[{rec['status']}] {rec['arch']} {rec['shape']} "

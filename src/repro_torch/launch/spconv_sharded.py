@@ -44,7 +44,8 @@ import torch.multiprocessing as mp
 LIDAR_VOXEL = 0.0125   # the CLI's LiDAR voxel size: 4 x this = a 5 cm grid
 
 
-def _rank_main(rank, fn, world, backend, init_file, timeout_s, args):
+def _rank_main(rank, fn, world, backend, init_file, timeout_s):
+    args = torch.load(f"{init_file}.args", weights_only=False)
     torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
     if torch.cuda.is_available():
         torch.cuda.set_device(rank % torch.cuda.device_count())
@@ -64,9 +65,16 @@ def spawn_ranks(fn, world: int, *, backend: str, init_file: str,
     one process group, and return their results in rank order.
 
     ``fn`` must be picklable (a module-level function) and its result
-    ``torch.save``-able. ``init_file`` is the rendezvous file of
+    ``torch.save``-able, and so must ``args`` be: they reach the ranks
+    through a file next to ``init_file``, written here before any rank
+    starts, and each rank loads its own copy. The caller's tensors are
+    only read. (Pickled through ``multiprocessing`` instead, each CPU
+    tensor's storage would be moved into shared memory in place, freeing
+    the old buffer under any other thread of the caller that reads the
+    tensor at that moment, and the ranks would share one copy.)
+    ``init_file`` is the rendezvous file of
     ``init_process_group(init_method="file://...")``: a path that does not
-    exist yet, in a directory the ranks can write (it and the results next
+    exist yet, in a directory the ranks can write (it and the files next
     to it are removed on return). A rank that raises makes this raise with
     its traceback; ranks still running after ``timeout_s`` are killed and
     TimeoutError is raised, so a lost collective fails instead of hanging.
@@ -75,8 +83,9 @@ def spawn_ranks(fn, world: int, *, backend: str, init_file: str,
         raise ValueError(f"{init_file} exists: the file rendezvous needs a "
                          f"fresh path")
     outs = [f"{init_file}.rank{r}" for r in range(world)]
+    torch.save(tuple(args), f"{init_file}.args")
     ctx = mp.start_processes(
-        _rank_main, args=(fn, world, backend, init_file, timeout_s, args),
+        _rank_main, args=(fn, world, backend, init_file, timeout_s),
         nprocs=world, join=False, start_method="spawn")
     deadline = time.monotonic() + timeout_s
     try:
@@ -90,7 +99,7 @@ def spawn_ranks(fn, world: int, *, backend: str, init_file: str,
             if p.is_alive():
                 p.kill()
                 p.join(10)
-        for p in [init_file, *outs]:
+        for p in [init_file, f"{init_file}.args", *outs]:
             if os.path.exists(p):
                 os.remove(p)
 

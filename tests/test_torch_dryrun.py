@@ -33,12 +33,20 @@ against the JAX package's, on the CPU.
   the vocab over ``model`` of the fake (2, 4) mesh, issue three
   all-reduces of a (B, S) float32 row each (the log-sum-exp's max and
   sum, the target's logit) and no all-gather.
+* ``--donate`` (the reference's ``donate_argnums``): a reduced train
+  cell (batch 2, where the update phase sets the peak) run donated
+  carries ``"donate": True`` and its ``temp_bytes`` lies below the
+  copying cell's by at least 0.95 of the parameter and optimizer bytes a
+  device (0.981 at that cell); prefill and decode cells give the same
+  record either way; ``main(["--donate", ...])`` writes its records
+  under their own file tag, apart from the copying ones.
 * The fake world is left on exit: no process group stays initialized.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
+import json
 
 import pytest
 import torch
@@ -194,3 +202,59 @@ def test_vocab_sharded_loss_gathers_no_logits():
     row = (b // 2) * s * 4                  # a (B, S) float32 row a device
     assert cm.collectives.count_by_kind == {"all-reduce": 3}
     assert cm.collectives.bytes_by_kind == {"all-reduce": 3 * row}
+
+
+def test_donated_train_cell_drops_one_state_of_temporaries():
+    cfg = configs.get_config("tinyllama-1.1b").reduced()
+    cell = dataclasses.replace(configs.SHAPE_CELLS["train_4k"], seq_len=16,
+                               global_batch=2)
+    copy, don = (dryrun.run_cell("tinyllama-1.1b", "train_4k", "test",
+                                 cfg=cfg, cell=cell, donate=d)
+                 for d in (False, True))
+    assert not dist.is_initialized()
+    assert copy["status"] == don["status"] == "ok"
+    assert copy["donate"] is False and don["donate"] is True
+    assert don["bytes_per_device"] == copy["bytes_per_device"]
+    assert don["hlo_flops"] == copy["hlo_flops"]
+    state = (copy["bytes_per_device"]["params"]
+             + copy["bytes_per_device"]["optimizer"])
+    assert copy["temp_bytes"] - don["temp_bytes"] >= 0.95 * state
+    assert don["fits"] == (don["argument_bytes"] + don["temp_bytes"]
+                           <= dryrun.H100_HBM_BYTES)
+
+
+@pytest.mark.parametrize("shape", ["prefill_32k", "decode_32k"])
+def test_donate_leaves_prefill_and_decode_cells_alike(shape):
+    cfg = _cfg("tinyllama-1.1b", 2)
+    copy, don = (dryrun.run_cell("tinyllama-1.1b", shape, "test", cfg=cfg,
+                                 cell=_small(shape), donate=d)
+                 for d in (False, True))
+    assert (copy["donate"], don["donate"]) == (False, True)
+    for rec in (copy, don):
+        assert rec["status"] == "ok"
+        for key in ("donate", "build_s", "count_s"):
+            del rec[key]
+    assert copy == don
+
+
+def test_main_donate_keeps_its_own_files(tmp_path, capsys):
+    out = str(tmp_path)
+    # a donated record already there is cached; the copying one is not it
+    done = dryrun.result_path(out, "tinyllama-1.1b", "train_4k", "single",
+                              dryrun.file_tag("", True))
+    with open(done, "w") as f:
+        f.write("{}")
+    dryrun.main(["--donate", "--arch", "tinyllama-1.1b", "--shape",
+                 "train_4k", "--mesh", "single", "--out", out])
+    assert "[cached] tinyllama-1.1b train_4k single" in capsys.readouterr().out
+    # a skipped cell, donated and tagged: written beside, not over, others
+    dryrun.main(["--donate", "--tag", "t", "--arch", "hubert-xlarge",
+                 "--shape", "decode_32k", "--mesh", "single", "--out", out])
+    path = dryrun.result_path(out, "hubert-xlarge", "decode_32k", "single",
+                              "t__donate")
+    with open(path) as f:
+        rec = json.load(f)
+    assert rec["status"] == "skip" and rec["donate"] is True
+    assert rec["tag"] == "t"
+    assert dryrun.file_tag("t", False) == "t"
+    assert dryrun.file_tag("", False) == ""

@@ -7,7 +7,8 @@ float32 summation order: ``rms_norm``, ``layer_norm``, ``rope`` and
 both below and at or past the capacity), with the cache's ``pos`` bit for
 bit; ``prefill`` and every ``decode_step`` of a few steps, through
 ``lm_params_from_jax``, for tinyllama (GQA), qwen3 (qk-norm, tied
-embeddings), tinyllama with a 16-token sliding window (rolling cache,
+embeddings), yi and deepseek (their reduced configs, which the card
+serves at published width), tinyllama with a 16-token sliding window (rolling cache,
 decoded past the window) and the two mixtrals (MoE, their reduced
 drop-free capacity, a 16-token window), logits within 1e-4 * max|logit|; greedy
 ``generate`` token for token. The non-finite guard and the sampled path
@@ -201,6 +202,8 @@ def _check_cache(cache, jcache):
     ("tinyllama-1.1b", {"swa_window": 16}, 24, 5),   # rolling cache
     ("mixtral-8x7b", {}, 20, 3),                     # MoE, rolling cache
     ("mixtral-8x22b", {}, 20, 3),
+    ("yi-9b", {}, 16, 3),
+    ("deepseek-67b", {}, 16, 3),
 ])
 def test_prefill_and_decode_match_reference(arch, repl, s, steps):
     cfg, jcfg, params, jparams = _lm(arch, **repl)

@@ -1,10 +1,13 @@
 """The port's GPipe pipeline (``runtime/pipeline.py``) and int8-compressed
 all-reduce (``runtime/compress.py``) against the JAX package's, on the CPU.
 
-One 4-rank gloo spawn (``launch/spconv_sharded.spawn_ranks``, one thread a
-rank) runs the port's side; one subprocess with 8 host devices
+One 4-rank gloo spawn (``launch/spconv_sharded.spawn_ranks``: one
+process a rank, each loading its arguments from a file the parent wrote)
+runs the port's side; one subprocess with 8 host devices
 (``tests.proptest.run_script``) the reference's, handed over as an
-``.npz``; both start together in the module fixture.
+``.npz`` that a thread of the parent writes while the ranks start. Both
+start together in the module fixture: the spawn only reads the inputs'
+tensors, so that thread reads what the ranks get.
 
 * (a) The reference's ``test_pipeline_matches_sequential`` shapes (L 8,
   D 16, M 6, MB 4, tanh layers) on a 4-way ``pod`` mesh: the forward
@@ -33,6 +36,8 @@ rank) runs the port's side; one subprocess with 8 host devices
   ``grad_allreduce_compressed`` on the (pod 2, data 2) mesh within
   scale / 2 of the exact mean (plus float32 rounding), alike on the
   ``data`` replicas.
+* The spawn leaves the caller's tensors where they were: none was moved
+  into shared memory while the reference's thread read it.
 """
 from __future__ import annotations
 
@@ -198,6 +203,8 @@ def run(tmp_path_factory):
         vocab=cfg.vocab, batch=LM_BATCH, seq=LM_SEQ, seed=0).batch_at(0)
         .items()}
     tmp = str(tmp_path_factory.mktemp("pipeline"))
+    inputs = (w, x, ct, flat["embed"], batch["tokens"])
+    ptrs = [t.data_ptr() for t in inputs]
     with ThreadPoolExecutor(1) as pool:
         ref_job = pool.submit(_reference, tmp, w, x, ct, comp)
         ranks = spawn_ranks(_rank, 4, backend="gloo",
@@ -206,6 +213,8 @@ def run(tmp_path_factory):
                             timeout_s=240)
         ref = ref_job.result()
     assert not dist.is_initialized()
+    moved = [t.is_shared() or t.data_ptr() != p
+             for t, p in zip(inputs, ptrs)]
     # the sequential stack, the port's single-device LM and the
     # reference's jax.grad of its lm_loss, here
     wr, xr = w.clone().requires_grad_(), x.clone().requires_grad_()
@@ -222,7 +231,7 @@ def run(tmp_path_factory):
     (jloss, _), jgrads = jax.jit(jax.value_and_grad(
         lambda p, b: jtransformer.lm_loss(p, b, jcfg), has_aux=True))(
         jparams, {k: v.numpy() for k, v in batch.items()})
-    return {"ranks": ranks, "ref": ref, "comp": comp,
+    return {"ranks": ranks, "ref": ref, "comp": comp, "moved": moved,
             "seq": (seq.detach(), sgx, sgw),
             "single": {"loss": float(loss), "grads": grads,
                        "logits": logits},
@@ -253,6 +262,13 @@ def test_pipeline_matches_reference_and_sequential(run):
         assert torch.equal(a["gx"], run["ranks"][0]["a"]["gx"])
     assert stages == {0, 1, 2, 3}
     assert float(np.abs(ref["gx"]).max()) > 0.1
+
+
+def test_spawn_only_reads_the_callers_tensors(run):
+    """``spawn_ranks`` hands the arguments over in a file: no input tensor
+    of the spawn was moved into shared memory under the reference's
+    thread, which wrote the same tensors to its input file meanwhile."""
+    assert run["moved"] == [False] * 5
 
 
 def _rel(a, b) -> float:

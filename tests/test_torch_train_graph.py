@@ -7,7 +7,11 @@
   (float32 summation order only), and against ``jax.grad`` through the
   reference's ``apply_tiles``, within 1e-5 of the scale; the tiles' ten
   streams stay bit-equal to the reference's. The plain forward
-  (``impl="ref"``) over the same index, against its per-tap form. The
+  (``impl="ref"``) over the same index, against its per-tap form; bit-equal
+  to each output row's products added in ascending slot order (the
+  products as it computes them, the sums spelt out here, on every layer
+  kind and on a cloud with a duplicate voxel), and within 1e-5 of the
+  scale of the reference's fused kernel (interpret mode). The
   backward, the plain forward over a built index and the in-place AdamW
   dispatch no op that reads back to the host, and the MinkUNet step no
   op that the card runs in a varying order.
@@ -67,8 +71,12 @@ def _close(port, ref, tol=TOL):
 # ---------------------------------------------------------------------------
 
 def _kmap(kind: str, rng):
-    """``(kmap, n_in)`` of one layer kind on a random cloud."""
+    """``(kmap, n_in)`` of one layer kind on a random cloud (``duplicate``:
+    a Subm3 map over a cloud whose row 1 repeats row 0's voxel)."""
     c, b, v = (_t(a) for a in random_cloud(rng, 300, 8))
+    if kind == "duplicate":
+        c[1] = c[0]
+        kind = "subm3"
     if kind == "subm3":
         return planlib.subm3_plan(c, b, v, max_blocks=300, bm=8).kmap, 300
     down = planlib.gconv2_plan(c, b, v, bm=8)
@@ -191,6 +199,57 @@ def test_plain_forward_over_slot_index_matches_per_tap_form(kind):
         out = spconv_gemm_fused_ref(*args, **kw, index=index)
     assert torch.equal(out[:n_out, :w.shape[-1]], ref)
     assert not _names(ops.calls) & HOST_READS
+
+
+@pytest.mark.parametrize("kind", ["subm3", "gconv2", "tconv2", "repeats",
+                                  "duplicate"])
+def test_plain_forward_sums_each_output_row_in_slot_order(kind):
+    """The plain forward adds each output row's products in ascending slot
+    order (tap after tap, slot order within a tap), the order
+    ``SlotIndex.by_out`` fixes: bit-equal to that sum spelt out here in
+    float32 from the same products, whose slots and order are derived
+    here from the tiles; within 1e-5 of the scale of the reference's
+    fused kernel in interpret mode."""
+    from repro_torch.kernels.spconv_gemm.ref import spconv_gemm_fused_ref
+    kmap, f, w, _ = _layer(kind, seed=len(kind) + 13)
+    n_out, c_out = kmap.shape[0], w.shape[-1]
+    tiles = sg_ops.build_tap_tiles(_t(kmap), bm=BM, bo=BO)
+    args, kw = sg_ops.kernel_inputs(_t(f), _t(w), tiles, n_out=n_out)
+    index = sg_ops.backward_index(tiles, f.shape[0])
+    out = spconv_gemm_fused_ref(*args, **kw, index=index)
+    # the live slots, tap after tap, and each one's product as the plain
+    # version computes it: one product a tap
+    bm = tiles.bm
+    gather, scatter = tiles.gather_idx.numpy(), tiles.scatter_idx.numpy()
+    slot_tap = np.repeat(tiles.tile_tap.numpy(), bm)
+    local = scatter - np.repeat(tiles.tile_ob.numpy(), bm) * tiles.bo
+    live = (local >= 0) & (local < tiles.bo) & np.repeat(
+        tiles.tile_nz.numpy() != 0, bm)
+    slots = [s for k in range(w.shape[0])
+             for s in np.flatnonzero(live & (slot_tap == k))]
+    prods = {}
+    for k in range(w.shape[0]):
+        sel = [s for s in slots if slot_tap[s] == k]
+        if sel:
+            p = (_t(f)[torch.as_tensor(gather[sel]).long()]
+                 @ _t(w)[k]).numpy()
+            prods.update(zip(sel, p))
+    want = np.zeros((out.shape[0], c_out), np.float32)
+    per_row = np.zeros(out.shape[0], np.int64)
+    for s in slots:                       # ascending order within each row
+        want[scatter[s]] += prods[s]
+        per_row[scatter[s]] += 1
+    assert index.by_out.shape[1] == per_row.max()
+    assert np.array_equal(out[:, :c_out].numpy(), want)
+    if kind == "duplicate":
+        # rows 0 and 1 hold one voxel: the same slots' products, in the
+        # same order, give the same bits
+        assert per_row[0] == per_row[1] > 0
+        assert torch.equal(out[0], out[1])
+    jtiles = jsg_ops.build_tap_tiles(jnp.asarray(kmap), None, bm=BM, bo=BO)
+    jout = jsg_ops.apply_tiles(jnp.asarray(f), jnp.asarray(w), jtiles,
+                               n_out=n_out, impl="interpret")
+    _close(out[:n_out, :c_out], jout)
 
 
 class _Ops(TorchDispatchMode):
