@@ -30,7 +30,9 @@ Qwen3-1.7B, Yi-9B, DeepSeek-67B and Mixtral-8x22B served and trained:
   against the plain-version forward;
 * ``spconv_gemm``: the materialized backend at the 20 distinct layer
   shapes, the kernel against its plain version, then ``apply_kmap``
-  against the fused ``apply_tiles``, with peak device memory per shape;
+  against the fused ``apply_tiles`` and run twice, bit-equal (its scatter
+  adds each row in slot order), with peak device memory per shape and
+  the scatter timed against the one-``index_add`` form it replaced;
 * ``masked_matmul``: one dense GEMM per layer shape through
   ``sparse_dense_matmul``, the kernel against its plain version and
   ``torch.matmul`` (a shape where the kernel is slower is reported, not
@@ -58,7 +60,12 @@ Qwen3-1.7B, Yi-9B, DeepSeek-67B and Mixtral-8x22B served and trained:
   and kernel 2 at its 8 layer shapes against their plain versions, plan
   build and forward ms, one profiled forward, and one ``detection_loss``
   step held to the plain versions by the training gate, with the TF32
-  control that must fail it;
+  control that must fail it; then the fixed-order sums: the forward's
+  ``cls`` / ``box`` digests equal across three kernel and two plain
+  forwards, two loss steps each way bit-equal in the loss and every
+  gradient, and ``to_bev`` and the stage-0 ``apply_maps_scatter``
+  (forward and backward) timed against the one-``index_add`` forms they
+  replaced;
 * ``stream``: a moving-sensor sequence (12 frames of a 512-voxel window
   stepping 32, then the last frame again) through MinkUNet-large by a
   delta session (dirty rows searched by kernel 1 in row-list mode) and a
@@ -1005,13 +1012,66 @@ def materialized_args(shp):
     return tiles, lhs, sg_ops._pad_cout(shp["w"], BN)
 
 
+def _sha256(*tensors) -> str:
+    """sha256 over the bytes of ``tensors``, in order."""
+    import hashlib
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _scatter_valid_unordered(ps, tiles, n_out):
+    """The form ``scatter_valid`` replaced: the valid slots' rows added by
+    one ``index_add_``, in an order the card does not fix. Timed beside
+    it here; the port never runs it."""
+    import torch
+    keep = torch.nonzero(tiles.slot_valid).squeeze(1)
+    out = torch.zeros((n_out, ps.shape[1]), dtype=ps.dtype, device=ps.device)
+    return out.index_add_(0, tiles.scatter_idx[keep].long(), ps[keep])
+
+
+def _sum_times(vals, dst, n_rows, iters):
+    """Wall ms (host reads included) of one fixed-order sum of ``vals`` by
+    ``dst``: index build and sum, the sum alone over an index built
+    beforehand, and its backward; against one ``index_add`` of the same
+    kept values (the library call). With the index's shape: its widest
+    row (the sum's columns) and the sources kept."""
+    import torch
+    from repro_torch.core import segment
+    seg = segment.segments((dst, n_rows))[0]
+    keep = torch.nonzero(seg.key < n_rows).squeeze(1)
+    kd, kv = seg.key[keep], vals[keep]
+    v = vals.detach().requires_grad_()
+    y = segment.ordered_sum(v, seg)
+    g = torch.ones_like(y)
+
+    def lib():
+        return torch.zeros_like(y).index_add_(0, kd, kv)
+
+    err = float((y.detach() - lib()).abs().max()) if y.numel() else 0.0
+    return {"rows": n_rows, "sources": int(dst.shape[0]),
+            "kept": int(keep.numel()), "widest_row": len(seg.cols),
+            "ordered_vs_index_add_max_abs_err": err,
+            "ordered_ms": wall_ms(lambda: segment.ordered_sum(
+                vals, segment.segments((dst, n_rows))[0]), iters),
+            "ordered_sum_only_ms": wall_ms(
+                lambda: segment.ordered_sum(vals, seg), iters),
+            "ordered_backward_ms": wall_ms(lambda: torch.autograd.grad(
+                y, v, g, retain_graph=True), iters),
+            "index_add_ms": wall_ms(lib, iters)}
+
+
 def phase_materialized(dev, scene, cfg):
     """Kernel 3 at every distinct layer shape, on the same seeded inputs as
     phase_gemm, against its plain version; then the main path of this
     backend, ``apply_kmap`` at every shape with the launch counts set to 0
     just before and read just after, held against the fused ``apply_tiles``
-    output. Buffers are freed between shapes; the peak device memory of
-    each shape's ``apply_kmap`` is printed."""
+    output, and run again: the two outputs must be bit-equal (the scatter
+    adds each row's slots in slot order). Buffers are freed between
+    shapes; the peak device memory of each shape's ``apply_kmap`` is
+    printed, and its fixed-order scatter timed against the
+    one-``index_add`` form it replaced and the bare library call."""
     import torch
     from repro_torch.core import sparsity
     from repro_torch.kernels.spconv_gemm import kernel as sg_kernel
@@ -1103,6 +1163,12 @@ def phase_materialized(dev, scene, cfg):
               f"{rec['layers'][0]}: apply_kmap vs apply_tiles {err} > "
               f"{TOL_KERNEL} * {ref_max}")
         rec["apply_kmap_vs_apply_tiles_err"] = err
+        again = sg_ops.apply_kmap(f, w, plan.kmap, bm=bm, bo=bo)
+        rec["apply_kmap_sha256"] = [_sha256(out), _sha256(again)]
+        check(torch.equal(out, again),
+              f"{rec['layers'][0]}: two apply_kmap runs differ in "
+              f"{int((out != again).sum())} values")
+        del again
         rec["apply_kmap_ms"] = time_ms(lambda: sg_ops.apply_kmap(
             f, w, plan.kmap, bm=bm, bo=bo), 3)
         rec["apply_tiles_ms"] = time_ms(fused, 3)
@@ -1122,7 +1188,17 @@ def phase_materialized(dev, scene, cfg):
             "gather": time_ms(gather, 3), "kernel": rec["ms"],
             "scatter_add": time_ms(lambda: sg_ops.scatter_valid(
                 ps, tiles, plan.n_out), 3)}
-        del ps, tiles, gidx, dead
+        # the scatter apart, wall ms: fixed-order now, the one-index_add
+        # form it replaced, and the bare library call
+        dst = torch.where(tiles.slot_valid, tiles.scatter_idx.long(),
+                          plan.n_out)
+        rec["scatter_sum"] = {
+            "after_ms": wall_ms(lambda: sg_ops.scatter_valid(
+                ps, tiles, plan.n_out), 3),
+            "before_ms": wall_ms(lambda: _scatter_valid_unordered(
+                ps, tiles, plan.n_out), 3),
+            **_sum_times(ps, dst, plan.n_out, 3)}
+        del ps, tiles, gidx, dead, dst
         emit(phase="spconv_gemm", **rec)
     del outs
     tot = {key: sum(len(r["layers"]) * r[key] for r in per_shape)
@@ -3417,6 +3493,143 @@ def _second_layers(cfg, st, gconv3, subm):
     return layers
 
 
+def _to_bev_unordered(st, cfg):
+    """The form ``second.to_bev`` replaced: the kept voxels added into the
+    grid by one ``index_add``, in an order the card does not fix. Timed
+    beside it here; the port never runs it."""
+    import torch
+    hw, z = cfg.bev_hw, cfg.bev_z
+    size = cfg.n_batch * hw * hw * z
+    x = st.coords[:, 0].clamp(0, hw - 1).long()
+    y = st.coords[:, 1].clamp(0, hw - 1).long()
+    zz = st.coords[:, 2].clamp(0, z - 1).long()
+    flat = ((st.batch.long() * hw + x) * hw + y) * z + zz
+    keep = torch.nonzero(st.valid & (flat < size)).squeeze(1)
+    bev = torch.zeros((size, st.feats.shape[-1]), dtype=st.feats.dtype,
+                      device=st.feats.device)
+    bev = bev.index_add(0, flat[keep], st.feats[keep])
+    return bev.reshape(cfg.n_batch, hw, hw, z * st.feats.shape[-1])
+
+
+def _apply_maps_scatter_unordered(feats, weights, maps, bias, *, n_out,
+                                  n_taps):
+    """The form ``rulebook.apply_maps_scatter`` replaced: the partial sums
+    added by one ``index_add`` into an ``(n_out + 1)``-row buffer, and
+    the input gather's backward left to autograd's indexing backward,
+    both in an order the card does not fix. Timed beside it here; the
+    port never runs it."""
+    import torch
+    key = torch.where(maps.mvalid, maps.tap, n_taps).long()
+    order = torch.sort(key, stable=True).indices
+    counts = torch.bincount(key, minlength=n_taps + 1)[:n_taps].tolist()
+    live = order[:sum(counts)]
+    rows = feats[maps.in_idx[live].long()].to(weights.dtype)
+    parts, start = [], 0
+    for t, c in enumerate(counts):
+        if c:
+            parts.append(rows[start:start + c] @ weights[t])
+        start += c
+    dst = maps.out_idx[live].long()
+    dst = torch.where((dst >= 0) & (dst < n_out), dst, n_out)
+    acc = torch.zeros((n_out + 1, weights.shape[-1]), dtype=weights.dtype,
+                      device=weights.device)
+    if parts:
+        acc = acc.index_add(0, dst, torch.cat(parts))
+    acc = acc[:n_out]
+    if bias is not None:
+        acc = acc + bias
+    return torch.where(maps.out_valid[:n_out, None], acc, 0.0)
+
+
+def _second_sums(dev, model, st, g0):
+    """SECOND-large's two fixed-order sums of the forward, wall ms (host
+    reads included), each against the one-``index_add`` form it replaced
+    (``before``) and the index's own parts (``_sum_times``): ``to_bev``
+    on the middle extractor's output, and the stage-0 Gconv3's
+    ``apply_maps_scatter`` (plan ``g0``) forward and backward; and the
+    RPN head's forward and backward with its deterministic backward
+    against cuDNN's default one, each run twice."""
+    import torch
+    from repro_torch.core import rulebook, spconv
+    from repro_torch.models import second
+    cfg = model.cfg
+    with torch.no_grad():
+        mid = second.middle_extractor(model, st)
+    hw, z = cfg.bev_hw, cfg.bev_z
+    x = mid.coords[:, 0].clamp(0, hw - 1).long()
+    y = mid.coords[:, 1].clamp(0, hw - 1).long()
+    zz = mid.coords[:, 2].clamp(0, z - 1).long()
+    size = cfg.n_batch * hw * hw * z
+    flat = torch.where(mid.valid,
+                       ((mid.batch.long() * hw + x) * hw + y) * z + zz, size)
+    # host-paced (a launch a column of the corner cell's voxels), so the
+    # two forms take turns, each call timed on its own
+    turns = [(wall_ms(lambda: second.to_bev(mid, cfg), 1),
+              wall_ms(lambda: _to_bev_unordered(mid, cfg), 1))
+             for _ in range(3)]
+    bev = {"after_ms": [a for a, _ in turns],
+           "before_ms": [b for _, b in turns],
+           **_sum_times(mid.feats, flat, size, 3)}
+    check(bev["ordered_vs_index_add_max_abs_err"]
+          <= TOL_KERNEL * float(mid.feats.abs().sum(0).max()),
+          f"second: to_bev ordered vs index_add {bev}")
+
+    f = spconv.mask_feats(st._replace(feats=st.feats.float())).feats
+    conv = model.stage0["down"].conv
+    kw = dict(n_out=g0.n_out, n_taps=27)
+    fr = f.detach().requires_grad_()
+    wr = conv.w.detach().requires_grad_()
+    sides = {}
+    for name, fn in (("after", rulebook.apply_maps_scatter),
+                     ("before", _apply_maps_scatter_unordered)):
+        with torch.no_grad():
+            fwd = wall_ms(lambda: fn(f, conv.w, g0.maps, conv.b, **kw), 3)
+        out = fn(fr, wr, g0.maps, conv.b, **kw)
+        gout = torch.ones_like(out)
+        sides[name] = {"forward_ms": fwd, "backward_ms": wall_ms(
+            lambda: torch.autograd.grad(out, (fr, wr), gout,
+                                        retain_graph=True), 3)}
+        del out
+    live = g0.maps.mvalid
+    vals = torch.randn((int(live.sum()), conv.w.shape[-1]), device=dev,
+                       generator=torch.Generator(dev).manual_seed(SEED))
+    amsc = {**sides, "sum": _sum_times(vals, g0.maps.out_idx[live],
+                                       g0.n_out, 3),
+            "input_gather_backward": _sum_times(
+                vals[:, :f.shape[1]].contiguous(), g0.maps.in_idx[live],
+                f.shape[0], 3)}
+    # the RPN head's forward and backward at the BEV grid: its convolutions
+    # with the backward held to cuDNN's deterministic algorithms (the
+    # port's), against F.conv2d's autograd (cuDNN's default algorithms)
+    grid = second.to_bev(mid, cfg).permute(0, 3, 1, 2).contiguous()
+
+    def head(conv):
+        xg = grid.detach().requires_grad_()
+        ws = [model.rpn[k].detach().requires_grad_()
+              for k in ("conv1", "conv2", "cls", "box")]
+        h = torch.relu(conv(xg, ws[0], 1))
+        h = torch.relu(conv(h, ws[1], 1))
+        loss = conv(h, ws[2], 0).square().sum() + conv(
+            h, ws[3], 0).square().sum()
+        return torch.autograd.grad(loss, [xg, *ws])
+
+    rpn = {}
+    for name, conv in (
+            ("deterministic", second._Conv.apply),
+            ("default", lambda a, w, p: torch.nn.functional.conv2d(
+                a, w, padding=p))):
+        first, again = head(conv), head(conv)
+        rpn[name] = {"forward_backward_ms": wall_ms(lambda: head(conv), 3),
+                     "bit_equal_twice": all(torch.equal(a, b)
+                                            for a, b in zip(first, again))}
+    check(rpn["deterministic"]["bit_equal_twice"],
+          "second: the RPN head's pinned backward differs between runs")
+    return {"to_bev": bev, "apply_maps_scatter": amsc, "rpn_head": rpn,
+            "timing": "wall ms (host clock, device synced, host reads "
+                      "included), mean of 3 after one warm-up; to_bev's "
+                      "after_ms / before_ms: 3 turns of one call each"}
+
+
 def phase_second(dev):
     """The detection path: SECOND-large (``second.LARGE``, seeded weights
     and batch-norm statistics) on two LiDAR scans in one bucket of
@@ -3435,7 +3648,11 @@ def phase_second(dev):
     (one warm forward, three timed); one forward under ``torch.profiler``;
     one ``detection_loss`` step through the kernels against the plain
     versions under ``_train_gate``, which a plain step in TF32 must fail;
-    peak device memory."""
+    the fixed-order sums: three kernel forwards and two plain ones, each
+    kind one ``cls`` / ``box`` digest, and two loss steps each way, the
+    loss and every gradient bit-equal; ``to_bev`` and the stage-0
+    ``apply_maps_scatter`` timed against the one-``index_add`` forms they
+    replaced (``_second_sums``); peak device memory."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import plan as planlib
@@ -3627,8 +3844,17 @@ def phase_second(dev):
                 "clipped_onto_edge": int(edge.sum()),
                 "clipped_in_z": int((ov & (oc[:, 2] > cfg.bev_z - 1)).sum())}
 
-    # plan build and forward: fresh caches, then one holding the plans
-    fresh = [sync_ms(lambda: model(st))[0] for _ in range(3)]
+    # plan build and forward: fresh caches, then one holding the plans.
+    # The fresh forwards, and two plain ones, must each give one digest
+    fresh_runs = [sync_ms(lambda: model(st)) for _ in range(3)]
+    fresh = [ms for ms, _ in fresh_runs]
+    digests = {"kernel": [_sha256(*out) for _, out in fresh_runs],
+               "ref": [_sha256(*model(st, impl="ref")) for _ in range(2)]}
+    del fresh_runs
+    for impl, ds in digests.items():
+        check(len(set(ds)) == 1,
+              f"second: {len(ds)} impl={impl} forwards give the cls/box "
+              f"digests {ds}")
     cache = planlib.PlanCache()
     model(st, cache=cache)
     searches = planlib.MAPSEARCH_CALLS[0]
@@ -3710,6 +3936,20 @@ def phase_second(dev):
     check(bool(control_broken), "second: the gate passed a plain step in "
           f"TF32 (control): {control}")
     del gk, k_masks
+    # two more loss steps each way: the loss and every gradient bit-equal
+    step_digests = {}
+    for impl in ("kernel", "ref"):
+        runs = [second.loss_and_grads(model, batch, impl=impl)
+                for _ in range(2)]
+        (l0, _, g0), (l1, _, g1) = runs
+        differ = [k for k in g0 if not torch.equal(g0[k], g1[k])]
+        step_digests[impl] = [_sha256(l, *(g[k] for k in sorted(g)))
+                              for l, _, g in runs]
+        check(torch.equal(l0, l1) and not differ,
+              f"second: two impl={impl} loss steps differ: loss "
+              f"{float(l0)} vs {float(l1)}, gradients {differ}")
+        del runs, g0, g1
+    sums = _second_sums(dev, model, st, kplans["gconv3"][0])
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     k1_ms = sum(r["ms"] for r in k1_shapes)
@@ -3730,6 +3970,8 @@ def phase_second(dev):
          kernel_vs_plain={"tolerance": f"{TOL_LOGITS} * max|plain|, whole "
                                        "grid and interior", **errs},
          to_bev=bev_clip,
+         digests={"forward_cls_box": digests, "loss_and_grads": step_digests},
+         fixed_order_sums=sums,
          replan=replan,
          first_forward_ms=first_ms, plain_forward_ms=ref_ms,
          forward_ms=fresh, forward_cached_plans_ms=cached,

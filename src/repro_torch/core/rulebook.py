@@ -12,13 +12,13 @@
   forward and the gradient of the un-elided maps in the backward.
 * :func:`apply_maps_scatter`: input-stationary SpConv over scatter-form
   maps (the Gconv3 dataflow of the paper's §IV-D3): per-tap partial sums
-  scatter-added into the outputs.
+  added into the outputs in tap order.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core import sparsity
+from repro_torch.core import segment, sparsity
 
 
 def tap_counts(kmap: torch.Tensor) -> torch.Tensor:
@@ -125,9 +125,12 @@ def apply_maps_scatter(feats: torch.Tensor, weights: torch.Tensor, maps,
     ``feats[in_idx] @ W[tap]`` into ``out[out_idx]``.
 
     The valid maps are ordered by tap (one host read of the per-tap
-    counts), each tap's slice is one matmul, and the partial sums go
-    through one ``index_add`` into an ``(n_out + 1)`` buffer whose last
-    row, the target of maps with ``out_idx >= n_out``, is sliced off.
+    counts) and each tap's slice is one matmul. Each output row adds its
+    partial sums in ascending tap order, as the reference's scan of
+    per-tap scatters does, and the backward adds each input row's
+    gradients in the same order (:mod:`segment`; one more host read, for
+    both indexes, and none in the backward), so two runs give the same
+    bits. Maps with ``out_idx`` outside ``[0, n_out)`` are dropped.
     Returns the (n_out, Cout) output (+ bias), zero on rows that
     ``maps.out_valid`` marks invalid. Differentiable by autograd.
     """
@@ -135,19 +138,18 @@ def apply_maps_scatter(feats: torch.Tensor, weights: torch.Tensor, maps,
     order = torch.sort(key, stable=True).indices
     counts = torch.bincount(key, minlength=n_taps + 1)[:n_taps].tolist()
     live = order[:sum(counts)]
-    rows = feats[maps.in_idx[live].long()].to(weights.dtype)
+    src = maps.in_idx[live].long()
+    by_out, by_in = segment.segments((maps.out_idx[live], n_out),
+                                     (src, feats.shape[0]))
+    rows = segment.ordered_gather(feats, src, by_in).to(weights.dtype)
     parts, start = [], 0
     for t, c in enumerate(counts):
         if c:
             parts.append(rows[start:start + c] @ weights[t])
         start += c
-    dst = maps.out_idx[live].long()
-    dst = torch.where((dst >= 0) & (dst < n_out), dst, n_out)
-    acc = torch.zeros((n_out + 1, weights.shape[-1]), dtype=weights.dtype,
-                      device=weights.device)
-    if parts:
-        acc = acc.index_add(0, dst, torch.cat(parts))
-    acc = acc[:n_out]
+    acc = segment.ordered_sum(
+        torch.cat(parts) if parts else rows.new_zeros((0, weights.shape[-1])),
+        by_out)
     if bias is not None:
         acc = acc + bias
     return torch.where(maps.out_valid[:n_out, None], acc, 0.0)

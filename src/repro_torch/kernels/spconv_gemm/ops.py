@@ -20,7 +20,7 @@ Execution comes in two forms:
   the geometry liveness, so SPAC skips stay forward-only.
 * :func:`apply_kmap` — the materialized baseline: an (M_pad, Cin) gathered
   copy of the features, the tiled GEMM kernel into (M_pad, Cout_pad)
-  partial products, then a scatter-add of the valid slots.
+  partial products, then a fixed-order sum of the valid slots' rows.
 
 :func:`apply_epilogue` applies the BN/ReLU epilogue outside a kernel, for
 the tap-scan path.
@@ -35,6 +35,7 @@ import torch.nn.functional as F
 from torch.utils.weak import WeakTensorKeyDictionary
 
 from repro_torch.core import rulebook as _rulebook
+from repro_torch.core import segment as _segment
 from repro_torch.core import sparsity as _sparsity
 from repro_torch.kernels.spconv_gemm.kernel import (BN, KC, spconv_gemm,
                                                     spconv_gemm_fused)
@@ -440,14 +441,14 @@ def apply_kmap_fused(feats: torch.Tensor, weights: torch.Tensor,
 
 def scatter_valid(ps: torch.Tensor, tiles: TapTiles,
                   n_out: int) -> torch.Tensor:
-    """Scatter-add the rows of the valid slots of ``ps`` (M_pad, C) into an
-    (n_out, C) output. The rows of pad slots and dead tiles are zero and are
-    not read, as the reference's ``mode="drop"`` scatter throws the pad
-    slots away: folding them onto one drop row would send every row of the
-    array, mostly zeros, through atomics on that row."""
-    keep = torch.nonzero(tiles.slot_valid).squeeze(1)
-    out = torch.zeros((n_out, ps.shape[1]), dtype=ps.dtype, device=ps.device)
-    return out.index_add_(0, tiles.scatter_idx[keep].long(), ps[keep])
+    """Add the rows of the valid slots of ``ps`` (M_pad, C) into an
+    (n_out, C) output, each output row its slots in ascending slot order
+    (:func:`segment.ordered_sum`, the reference's scatter order), so two
+    runs give the same bits. The rows of pad slots and dead tiles are not
+    read, as the reference's ``mode="drop"`` scatter throws the pad slots
+    away. One host read, of the index's column sizes."""
+    dst = torch.where(tiles.slot_valid, tiles.scatter_idx.long(), n_out)
+    return _segment.ordered_sum(ps, _segment.segments((dst, n_out))[0])
 
 
 def apply_kmap(feats: torch.Tensor, weights: torch.Tensor, kmap: torch.Tensor,
@@ -462,8 +463,8 @@ def apply_kmap(feats: torch.Tensor, weights: torch.Tensor, kmap: torch.Tensor,
     3. the tiled GEMM kernel (:func:`spconv_gemm`: the CUDA kernel on a
        card, its plain version on the CPU) into (M_pad, Cout_pad) partial
        products;
-    4. a scatter-add of the valid slots' rows (:func:`scatter_valid`) into
-       the (n_out, Cout) output.
+    4. a fixed-order sum of the valid slots' rows (:func:`scatter_valid`)
+       into the (n_out, Cout) output.
 
     Cin is not padded: the kernel masks its ragged edge.
     """

@@ -26,6 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.core import plan as planlib
+from repro_torch.core import segment
 from repro_torch.core import spconv
 from repro_torch.core.spconv import SparseTensor
 from repro_torch.device import resolve_device
@@ -168,20 +169,21 @@ def to_bev(st: SparseTensor, cfg: SECONDConfig) -> torch.Tensor:
 
     Coordinates are clipped into the (bev_hw, bev_hw, bev_z) grid; invalid
     rows and rows whose batch index is ``n_batch`` or more are dropped.
-    Voxels that land in one cell add up.
+    Voxels that land in one cell add up in ascending row order, the
+    reference's scatter order (:func:`segment.ordered_sum`: only occupied
+    cells are added into, and two runs give the same bits). Two host
+    reads when a cell takes more than ``segment.GUESS`` voxels, as the
+    grid's clipped edge does.
     """
-    c = st.feats.shape[-1]
     hw, z = cfg.bev_hw, cfg.bev_z
     size = cfg.n_batch * hw * hw * z
     x = st.coords[:, 0].clamp(0, hw - 1).long()
     y = st.coords[:, 1].clamp(0, hw - 1).long()
     zz = st.coords[:, 2].clamp(0, z - 1).long()
     flat = ((st.batch.long() * hw + x) * hw + y) * z + zz
-    keep = torch.nonzero(st.valid & (flat < size)).squeeze(1)
-    bev = torch.zeros((size, c), dtype=st.feats.dtype,
-                      device=st.feats.device)
-    bev = bev.index_add(0, flat[keep], st.feats[keep])
-    return bev.reshape(cfg.n_batch, hw, hw, z * c)
+    flat = torch.where(st.valid, flat, size)
+    bev = segment.ordered_sum(st.feats, segment.segments((flat, size))[0])
+    return bev.reshape(cfg.n_batch, hw, hw, z * st.feats.shape[-1])
 
 
 def rpn_relu(x: torch.Tensor) -> torch.Tensor:
@@ -190,18 +192,46 @@ def rpn_relu(x: torch.Tensor) -> torch.Tensor:
     return torch.relu(x)
 
 
+class _Conv(torch.autograd.Function):
+    """``F.conv2d`` at stride 1 whose backward runs with cuDNN held to its
+    deterministic algorithms. cuDNN's default weight and input gradients
+    at the RPN's shapes add partial sums in an order that changes from run
+    to run (two ``detection_loss`` steps of SECOND-large on an H100 gave
+    different gradients); XLA's convolutions in the reference do not."""
+
+    @staticmethod
+    def forward(ctx, x, w, padding):
+        ctx.save_for_backward(x, w)
+        ctx.padding = padding
+        return F.conv2d(x, w, padding=padding)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        prev = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            gx, gw, _ = torch.ops.aten.convolution_backward(
+                g, x, w, None, [1, 1], [ctx.padding] * 2, [1, 1], False,
+                [0, 0], 1, [*ctx.needs_input_grad[:2], False])
+        finally:
+            torch.backends.cudnn.deterministic = prev
+        return gx, gw, None
+
+
 def rpn_head(rpn: Mapping[str, torch.Tensor], bev: torch.Tensor):
     """Two 3x3 convolutions with ReLU, then 1x1 objectness and box heads.
 
     ``bev`` is NHWC as :func:`to_bev` lays it out; the reference's "SAME"
-    stride-1 convolutions are ``F.conv2d(padding=1)`` on its NCHW view.
+    stride-1 convolutions are ``F.conv2d(padding=1)`` on its NCHW view,
+    with a backward that gives the same bits from run to run (``_Conv``).
     Returns ``cls`` (B, H, W) and ``box`` (B, H, W, box_dim).
     """
     x = bev.permute(0, 3, 1, 2)
-    h = rpn_relu(F.conv2d(x, rpn["conv1"].to(x.dtype), padding=1))
-    h = rpn_relu(F.conv2d(h, rpn["conv2"].to(x.dtype), padding=1))
-    cls = F.conv2d(h, rpn["cls"].to(x.dtype))[:, 0]
-    box = F.conv2d(h, rpn["box"].to(x.dtype)).permute(0, 2, 3, 1)
+    h = rpn_relu(_Conv.apply(x, rpn["conv1"].to(x.dtype), 1))
+    h = rpn_relu(_Conv.apply(h, rpn["conv2"].to(x.dtype), 1))
+    cls = _Conv.apply(h, rpn["cls"].to(x.dtype), 0)[:, 0]
+    box = _Conv.apply(h, rpn["box"].to(x.dtype), 0).permute(0, 2, 3, 1)
     return cls, box
 
 

@@ -55,7 +55,12 @@ to a row count that is not a multiple of 128) and with fewer, its plan
 bit-equal to the CPU's and its output and gradients to the plain
 version's; a small SECOND's forward (1e-3 of the plain max) and its
 ``detection_loss`` gradients (the plain run's ReLU masks pinned to the
-kernel run's) are held to the plain versions. Kernel 1's row-list mode is
+kernel run's) are held to the plain versions. The fixed-order sums
+(``segment.ordered_sum`` and its backward, ``scatter_valid``,
+``to_bev``) give their CPU bits on the card, with no host read over a
+prebuilt index; ``apply_kmap``, ``apply_maps_scatter`` with its
+gradients, and the small SECOND's forward and ``detection_loss`` with
+every gradient are bit-equal across two runs. Kernel 1's row-list mode is
 held to its plain version on a spliced streaming table (an empty list,
 one row, 200 rows, evicted slots, -1 pads), and a TINY stream's delta and
 scratch sessions agree bit for bit on the card. The serving engine retries
@@ -1273,6 +1278,121 @@ def test_detection_loss_grads_kernel_vs_plain_on_card(cuda, monkeypatch):
             scale = float(gr[k].abs().max())
             assert scale > 0 and float((gk[k] - gr[k]).abs().max()) \
                 <= 1e-3 * scale, k
+
+
+def _sum_case(rng, counts, c=24, dropped=50):
+    dst = np.concatenate([np.repeat(np.arange(len(counts)), counts),
+                          rng.choice([-1, len(counts)], dropped)])
+    rng.shuffle(dst)
+    vals = (rng.standard_normal((dst.size, c))
+            * 10.0 ** rng.integers(-4, 5, (dst.size, 1))).astype(np.float32)
+    return vals, dst
+
+
+def test_fixed_order_sums_on_card_equal_cpu(cuda):
+    """``segment.ordered_sum`` and its backward, ``scatter_valid`` and
+    ``to_bev`` on the card give their CPU results bit for bit: the same
+    float32 adds in the same order. Over an index built beforehand the sum
+    and its backward read nothing back to the host."""
+    from repro_torch.core import segment
+    from repro_torch.core.spconv import SparseTensor
+    from repro_torch.models import second
+    rng = np.random.default_rng(21)
+    counts = rng.integers(0, 28, 3000)
+    counts[[5, 900]] = (0, 300)
+    vals, dst = _sum_case(rng, counts)
+    outs = []
+    for dev in ("cpu", cuda):
+        v, d = _dev(dev, vals, dst)
+        v.requires_grad_()
+        seg = segment.segments((d, len(counts)))[0]
+        g = torch.ones((len(counts), vals.shape[1]), device=dev)
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = segment.ordered_sum(v, seg)
+            (gv,) = torch.autograd.grad(out, v, g)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        outs.append((out.detach().cpu(), gv.cpu()))
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+
+    kmap = _subm_kmap(3000, 16, 2800)
+    f = rng.standard_normal((3000, 8)).astype(np.float32)
+    f[rng.random(3000) < 0.3] = 0.0
+    tiles = sg_ops.build_tap_tiles(torch.as_tensor(kmap),
+                                   sparsity.row_nonzero(torch.as_tensor(f)),
+                                   bm=128)
+    ps = rng.standard_normal((tiles.gather_idx.shape[0], 64)).astype(
+        np.float32)
+    want = sg_ops.scatter_valid(torch.as_tensor(ps), tiles, 3000)
+    tc = sg_ops.TapTiles(*(t.to(cuda) if isinstance(t, torch.Tensor) else t
+                           for t in tiles))
+    got = sg_ops.scatter_valid(torch.as_tensor(ps, device=cuda), tc, 3000)
+    assert torch.equal(got.cpu(), want)
+
+    cfg = second.SECONDConfig(**_SECOND_SMALL)
+    b = _second_batch("cpu", cfg, 8192)
+    st = SparseTensor(b["coords"] // 8, b["batch"], b["valid"],
+                      torch.randn((8192, 32)))
+    want = second.to_bev(st, cfg)
+    got = second.to_bev(SparseTensor(*_dev(cuda, *st)), cfg)
+    assert torch.equal(got.cpu(), want)
+
+
+def test_fixed_order_sums_bit_equal_across_runs_on_card(cuda):
+    """Two runs on the card give the same bits: ``apply_kmap`` (kernel 3,
+    then the fixed-order scatter), ``apply_maps_scatter`` with its
+    gradients (whose backward reads nothing back to the host), and a
+    small SECOND's forward (through the kernels and the plain versions)
+    and ``detection_loss`` with every gradient."""
+    from repro_torch.core import plan as planlib, rulebook, spconv
+    from repro_torch.core.spconv import SparseTensor
+    from repro_torch.models import second
+    rng = np.random.default_rng(22)
+    kmap = _subm_kmap(4000, 18, 3800, seed=3)
+    f = rng.standard_normal((4000, 64)).astype(np.float32)
+    w = rng.standard_normal((27, 64, 96)).astype(np.float32)
+    f, w, km = _dev(cuda, f, w, kmap)
+    before = sg_kernel.materialized_launches
+    a, b = (sg_ops.apply_kmap(f, w, km) for _ in range(2))
+    assert sg_kernel.materialized_launches == before + 2
+    assert torch.equal(a, b)
+
+    cfg = second.SECONDConfig(**_SECOND_SMALL)
+    batch = _second_batch(cuda, cfg, 8192)
+    st = SparseTensor(batch["coords"], batch["batch"], batch["valid"],
+                      batch["feats"])
+    plan = planlib.gconv3_plan(st.coords, st.batch, st.valid,
+                               out_budget=65536, with_tiles=False)
+    wg = torch.randn((27, 4, 32), device=cuda)
+    runs = []
+    for _ in range(2):
+        ft = st.feats.float().clone().requires_grad_()
+        wt = wg.clone().requires_grad_()
+        out = rulebook.apply_maps_scatter(ft, wt, plan.maps, n_out=plan.n_out,
+                                          n_taps=27)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            grads = torch.autograd.grad(out, (ft, wt), torch.ones_like(out))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        runs.append((out.detach(), *grads))
+    for x, y in zip(*runs):
+        assert torch.equal(x, y)
+
+    model = second.SECOND(cfg, device=cuda)
+    for impl in ("kernel", "ref"):
+        (c0, b0), (c1, b1) = (model(st, impl=impl) for _ in range(2))
+        assert torch.equal(c0, c1) and torch.equal(b0, b1), impl
+        (l0, _, g0), (l1, _, g1) = (second.loss_and_grads(model, batch,
+                                                          impl=impl)
+                                    for _ in range(2))
+        assert torch.equal(l0, l1), impl
+        assert [k for k in g0 if not torch.equal(g0[k], g1[k])] == [], impl
 
 
 def _spliced_level(dev, n=4096):

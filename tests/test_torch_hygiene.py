@@ -14,6 +14,12 @@
   Sq > Skv and Hq % Hkv != 0).
 * Every CUDA source under ``csrc/`` is built by ``kernels/build.py`` and
   opens with a note naming the TPU kernel it replaces, which exists.
+* Every scatter-add left in ``src/repro_torch`` (``index_add``,
+  ``scatter_add``, ``index_put`` / ``put`` with ``accumulate``,
+  ``scatter_reduce``, a weighted ``bincount``) is on a list, each float
+  sum with the audited reason its order cannot change its bits and each
+  integer one marked so: on a card these add a row's terms in no fixed
+  order, and the port's float sums go through ``core/segment.py``.
 """
 from __future__ import annotations
 
@@ -353,3 +359,89 @@ def test_serving_cli_and_persistence_raise_without_a_card(monkeypatch,
                        env=env, capture_output=True, text=True, timeout=300)
     assert r.returncode != 0 and not (tmp_path / "w.json").exists()
     assert "no CUDA device" in r.stderr
+
+
+#: the port's float scatter-adds, each with the reason its order is safe
+ORDER_SAFE_FLOAT_SUMS = {
+    ("models/moe.py", "_combine", "index_add"):
+        "at most top_k = 2 copies add into a token's row (the empty slots "
+        "go to the sliced-off row), and two terms added from zero give "
+        "the same bits in either order",
+    ("core/rulebook.py", "_GatherSpac.backward", "index_add_"):
+        "one tap a call: on a kmap that a plan build makes a source row takes "
+        "at most one real term a call (the misses add exact zeros to row "
+        "0), so the calls' order fixes the sum",
+    ("data/pointcloud.py", "voxelize", "bincount"):
+        "numpy's bincount on the host adds a bin's weights in ascending "
+        "point order",
+}
+#: integer scatter-adds: exact in any order
+INTEGER_SUMS = {
+    ("core/mapsearch.py", "build_block_table", "scatter_reduce_"),
+    ("core/stream.py", "_splice", "index_add_"),
+    ("models/moe.py", "_dispatch_one", "scatter_add_"),
+}
+_ALWAYS = {"index_add", "index_add_", "scatter_add", "scatter_add_",
+           "scatter_reduce", "scatter_reduce_", "index_reduce",
+           "index_reduce_", "segment_reduce"}
+
+
+def _is_scatter_add(call: ast.Call) -> bool:
+    name = call.func.attr
+    kw = {k.arg: k.value for k in call.keywords}
+    if name in _ALWAYS:
+        return True
+    if name in ("index_put", "index_put_", "put", "put_"):
+        acc = kw.get("accumulate")
+        if acc is None and name != "put" and len(call.args) >= 3:
+            acc = call.args[2]
+        return acc is not None and not (isinstance(acc, ast.Constant)
+                                        and acc.value is False)
+    if name in ("scatter", "scatter_"):
+        return "reduce" in kw
+    if name == "bincount":
+        return "weights" in kw or len(call.args) >= 2
+    return False
+
+
+def _scatter_add_sites():
+    sites = []
+    for path in sorted(PKG.rglob("*.py")):
+        rel = str(path.relative_to(PKG))
+
+        def walk(node, scope):
+            for ch in ast.iter_child_nodes(node):
+                if isinstance(ch, (ast.FunctionDef, ast.AsyncFunctionDef,
+                                   ast.ClassDef)):
+                    walk(ch, scope + [ch.name])
+                    continue
+                if (isinstance(ch, ast.Call)
+                        and isinstance(ch.func, ast.Attribute)
+                        and _is_scatter_add(ch)):
+                    sites.append((rel, ".".join(scope), ch.func.attr))
+                walk(ch, scope)
+
+        walk(ast.parse(path.read_text(), str(path)), [])
+    return sites
+
+
+def test_every_scatter_add_is_audited_order_safe_or_integer():
+    """A new floating-point scatter-add cannot come in unseen: each one
+    left is listed, and the three that summed in no fixed order
+    (``scatter_valid``, ``to_bev``, ``apply_maps_scatter``) go through
+    ``segment.ordered_sum`` instead."""
+    sites = _scatter_add_sites()
+    known = set(ORDER_SAFE_FLOAT_SUMS) | INTEGER_SUMS
+    assert sorted(set(sites) - known) == []
+    assert sorted(known - set(sites)) == []
+    assert all(ORDER_SAFE_FLOAT_SUMS.values())
+    fixed = {("kernels/spconv_gemm/ops.py", "scatter_valid"),
+             ("models/second.py", "to_bev"),
+             ("core/rulebook.py", "apply_maps_scatter")}
+    assert not [s for s in sites if s[:2] in fixed]
+    for rel, fn in fixed:
+        src = (PKG / rel).read_text()
+        body = src[src.index(f"def {fn}("):]
+        end = body.find("\ndef ")
+        assert "segment.ordered_sum(" in body[:end if end > 0 else None], \
+            (rel, fn)

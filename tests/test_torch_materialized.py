@@ -12,6 +12,12 @@ the reference's plain version, and ``apply_kmap`` against the reference's
 ``apply_kmap`` (interpret mode and ``ref``), at Cin in {4, 32, 96} with
 dead tiles present. ``apply_kmap_fused`` and ``apply_epilogue`` against
 their reference counterparts; the epilogue's backward raises.
+
+Bit-equal to explicit numpy float32 loops that add each destination row's
+sources in ascending order from zero: ``segment.ordered_sum`` (rows of 0,
+1, 2, 27 and more than ``segment.GUESS`` sources, dropped sources, a row
+of negative zeros) and its backward (``g[dst]``), ``ordered_gather``'s
+backward, and ``scatter_valid`` in ascending slot order.
 """
 from __future__ import annotations
 
@@ -27,7 +33,7 @@ from repro.core import sparsity as jsparsity
 from repro.kernels.spconv_gemm import ops as jsg_ops
 from repro.kernels.spconv_gemm.kernel import spconv_gemm as jspconv_gemm
 from repro.kernels.spconv_gemm.ref import spconv_gemm_ref as jspconv_gemm_ref
-from repro_torch.core import morton, rulebook, sparsity
+from repro_torch.core import morton, rulebook, segment, sparsity
 from repro_torch.kernels.spconv_gemm import kernel as sg_kernel
 from repro_torch.kernels.spconv_gemm import ops as sg_ops
 from repro_torch.kernels.spconv_gemm.ref import spconv_gemm_ref
@@ -311,3 +317,99 @@ def test_apply_epilogue_backward_raises():
             o, jsg_ops.FusedEpilogue(jnp.ones(16), jnp.zeros(16),
                                      jnp.ones(8, bool)))[0].sum())(
             jnp.ones((8, 16)))
+
+
+def _loop_sum(vals, dst, n_rows):
+    """The sequential float32 loop: each row adds its sources in ascending
+    source order, from zero; sources outside [0, n_rows) are dropped."""
+    out = np.zeros((n_rows, *vals.shape[1:]), np.float32)
+    for i, r in enumerate(dst):
+        if 0 <= r < n_rows:
+            out[r] += vals[i]
+    return out
+
+
+def _segment_case(counts, seed, c=5, dropped=7):
+    """Values and shuffled destinations giving row r ``counts[r]`` sources,
+    plus ``dropped`` sources outside the rows; values spread over orders
+    of magnitude so that the order of a sum shows in its bits."""
+    rng = np.random.default_rng(seed)
+    dst = np.concatenate([np.repeat(np.arange(len(counts)), counts),
+                          rng.choice([-1, len(counts), len(counts) + 3],
+                                     dropped)])
+    rng.shuffle(dst)
+    vals = (rng.standard_normal((dst.size, c))
+            * 10.0 ** rng.integers(-4, 5, (dst.size, 1))).astype(np.float32)
+    return vals, dst
+
+
+SEGMENT_COUNTS = {
+    "mixed": [0, 1, 2, 27, 0, 3, 1, 27, 2, 0],
+    "wide": [0, 40, 1, 2, 0, 27, 33],        # a second host read
+    "empty": [0, 0, 0],
+}
+
+
+@pytest.mark.parametrize("case", sorted(SEGMENT_COUNTS))
+def test_ordered_sum_bit_equal_to_the_ascending_loop(case):
+    counts = SEGMENT_COUNTS[case]
+    vals, dst = _segment_case(counts, len(case))
+    if case == "mixed":
+        vals[dst == 4] = -0.0                # a row of negative zeros
+        dst[dst == 4] = 5
+    seg = segment.segments((_t(dst), len(counts)))[0]
+    keep = (dst >= 0) & (dst < len(counts))
+    per_row = np.bincount(dst[keep], minlength=len(counts))
+    # column j: the rows with more than j sources
+    assert seg.cols == tuple(int((per_row > j).sum())
+                             for j in range(per_row.max(initial=0)))
+    v = _t(vals).requires_grad_()
+    got = segment.ordered_sum(v, seg)
+    want = _loop_sum(vals, dst, len(counts))
+    assert got.dtype == torch.float32
+    assert np.array_equal(got.detach().numpy().view(np.int32),
+                          want.view(np.int32))
+    # the backward is the gather g[dst], zero for a dropped source
+    g = np.random.default_rng(3).standard_normal(want.shape).astype(
+        np.float32)
+    got.backward(_t(g))
+    gw = np.where(keep[:, None], g[np.where(keep, dst, 0)], 0.0)
+    assert np.array_equal(v.grad.numpy(), gw.astype(np.float32))
+
+
+def test_ordered_gather_backward_bit_equal_to_the_ascending_loop():
+    rng = np.random.default_rng(4)
+    idx = np.concatenate([np.repeat(np.arange(6), [3, 0, 27, 1, 2, 40]),
+                          rng.integers(0, 6, 11)])
+    rng.shuffle(idx)
+    f = _t(rng.standard_normal((6, 3)).astype(np.float32)).requires_grad_()
+    seg = segment.segments((_t(idx), 6))[0]
+    rows = segment.ordered_gather(f, _t(idx), seg)
+    assert torch.equal(rows, f[_t(idx)])
+    g = (rng.standard_normal(rows.shape)
+         * 10.0 ** rng.integers(-4, 5, (rows.shape[0], 1))).astype(
+             np.float32)
+    rows.backward(_t(g))
+    assert np.array_equal(f.grad.numpy().view(np.int32),
+                          _loop_sum(g, idx, 6).view(np.int32))
+
+
+def test_scatter_valid_bit_equal_to_the_slot_order_loop():
+    """Every output row adds its valid slots in ascending slot order."""
+    rng = np.random.default_rng(17)
+    c, b, v = random_cloud(rng, 200, 6, n_valid=180)   # pad rows: no slot
+    kmap = jmapsearch.build_kmap_hash(c, b, v, morton.subm3_offsets())
+    f = _t(_dead_rows_feats(rng, kmap.shape[0], 8, dead=0.2))
+    tiles = sg_ops.build_tap_tiles(_t(kmap), sparsity.row_nonzero(f), bm=16,
+                                   bo=32)
+    m = tiles.gather_idx.shape[0]
+    ps = (rng.standard_normal((m, 24))
+          * 10.0 ** rng.integers(-4, 5, (m, 1))).astype(np.float32)
+    valid = tiles.slot_valid.numpy()
+    dst = np.where(valid, tiles.scatter_idx.numpy(), -1)
+    n_out = kmap.shape[0]
+    per_row = np.bincount(dst[valid], minlength=n_out)
+    assert per_row.max() >= 20 and (per_row == 0).any()
+    got = sg_ops.scatter_valid(_t(ps), tiles, n_out)
+    assert np.array_equal(got.numpy().view(np.int32),
+                          _loop_sum(ps, dst, n_out).view(np.int32))

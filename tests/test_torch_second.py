@@ -11,14 +11,18 @@ CPU branch) and the reference's weights carried across by
   tap tiles of a Gconv3 kmap against the reference's under both of its
   binning modes, the budgets ``with_replan`` tries, and the map-search
   counts.
-* ``apply_maps_scatter`` and its gradients: within 1e-5 of ``jax.vjp``.
+* ``apply_maps_scatter`` and its gradients: within 1e-5 of ``jax.vjp``,
+  and bit-equal to numpy float32 loops that add each output row's per-tap
+  products (and each input row's gradients) in ascending tap order.
 * ``gconv3``, both dataflows: within the reference's 1e-4 of the
   reference and of each other.
 * SECOND at a reduced config (channels (8, 8, 16), two blocks a stage,
   ``bev_hw`` 32, the reference test's widths): ``middle_extractor``,
   ``to_bev`` and ``rpn_head`` within 1e-4 of max |out|, the BEV holding
   the features' mass; ``detection_loss`` within 1e-5 relative and each
-  gradient within 1e-4 of its own max |g|. Conv biases that feed a
+  gradient within 1e-4 of its own max |g|; ``to_bev`` bit-equal to a
+  numpy loop in ascending row order on a cloud that piles voxels into
+  edge cells. Conv biases that feed a
   training BatchNorm have a gradient that is zero in exact arithmetic:
   both sides below 1e-6 of the model's largest |g|; the BatchNorm
   statistics get exactly zero.
@@ -282,6 +286,73 @@ def test_apply_maps_scatter_and_vjp_match_reference():
                                    atol=1e-5 * float(np.abs(wv).max()))
 
 
+def _loop_sum(vals, dst, n_rows):
+    """The sequential float32 loop: each row adds its sources in ascending
+    source order, from zero; sources outside [0, n_rows) are dropped."""
+    out = np.zeros((n_rows, vals.shape[1]), np.float32)
+    for i, r in enumerate(dst):
+        if 0 <= r < n_rows:
+            out[r] += vals[i]
+    return out
+
+
+def _bits(a):
+    return _np(a).view(np.int32)
+
+
+def test_apply_maps_scatter_bit_equal_to_the_tap_order_loop():
+    """Forward and gradients against loops in ascending tap order over the
+    same per-tap products (each tap's slice of the tap-sorted live maps
+    times its weights, as torch computes them): every output row adds its
+    taps' partial sums, every input row its taps' gradients, in ascending
+    tap order from zero."""
+    c, b, v = _cloud(14, 160, 5, n_valid=150)
+    rng = np.random.default_rng(14)
+    n_out = 40                  # under the 56 outputs: maps are dropped
+    f = (rng.standard_normal((160, 6))
+         * 10.0 ** rng.integers(-3, 4, (160, 1))).astype(np.float32)
+    w = rng.standard_normal((27, 6, 7)).astype(np.float32)
+    bias = rng.standard_normal(7).astype(np.float32)
+    g = rng.standard_normal((n_out, 7)).astype(np.float32)
+    m = mapsearch.build_maps_gconv3(_t(c), _t(b), _t(v), out_budget=96)
+    ts = [_t(a).requires_grad_() for a in (f, w, bias)]
+    got = rulebook.apply_maps_scatter(*ts[:2], m, ts[2], n_out=n_out,
+                                      n_taps=27)
+    got.backward(_t(g))
+
+    key = torch.where(m.mvalid, m.tap, 27).long()
+    live = torch.sort(key, stable=True).indices[:int(m.mvalid.sum())]
+    tap, src = m.tap[live].long(), m.in_idx[live].long()
+    dst = m.out_idx[live].long().numpy()
+    per_out = np.bincount(dst[dst < n_out], minlength=n_out)
+    assert per_out.max() >= 8 and (dst >= n_out).any()
+    assert np.bincount(src.numpy()).max() >= 3
+    ft, wt = _t(f), _t(w)
+    gm = np.where(m.out_valid[:n_out, None].numpy(), g, 0.0).astype(
+        np.float32)
+    prods, g_rows, dw = [], [], torch.zeros_like(wt)
+    for t in range(27):
+        sel = tap == t
+        if not bool(sel.any()):
+            continue
+        rows = ft[src[sel]]
+        prods.append(rows @ wt[t])
+        d = dst[sel.numpy()]
+        gp = _t(np.where((d < n_out)[:, None], gm[np.minimum(d, n_out - 1)],
+                         0.0).astype(np.float32))
+        g_rows.append(gp @ wt[t].t())
+        dw[t] = rows.t() @ gp
+    want = _loop_sum(torch.cat(prods).numpy(), dst, n_out) + bias
+    want = np.where(m.out_valid[:n_out, None].numpy(), want, 0.0)
+    assert np.array_equal(_bits(got.detach()), want.astype(np.float32).view(
+        np.int32))
+    assert np.array_equal(
+        _bits(ts[0].grad),
+        _loop_sum(torch.cat(g_rows).numpy(), src.numpy(), 160).view(np.int32))
+    assert np.array_equal(_bits(ts[1].grad), _bits(dw))
+    assert torch.equal(ts[2].grad, _t(gm).sum(0))
+
+
 @pytest.mark.parametrize("seed", [0, 1])
 @pytest.mark.parametrize("impl", ["ref", None])
 def test_gconv3_dataflows_match_reference_and_each_other(seed, impl):
@@ -428,6 +499,76 @@ def test_second_forward_matches_reference(impl):
                                float(bev.sum()), rtol=1e-5)
     got_cls, got_box = second.forward(model, st, impl=impl)
     assert torch.equal(got_cls, cls) and torch.equal(got_box, box)
+
+
+def test_to_bev_bit_equal_to_the_row_order_loop():
+    """Voxels beyond the grid clip onto its edge and into the top z plane,
+    so several cells take three or more rows (one corner cell 40 or more,
+    past ``segment.GUESS``); invalid
+    rows and batch indices past ``n_batch`` are dropped. Each cell adds its
+    rows in ascending row order from zero, as a sequential loop does."""
+    cfg = second.SECONDConfig(**CFG_KW)
+    rng = np.random.default_rng(5)
+    n, hw, z = 300, cfg.bev_hw, cfg.bev_z
+    coords = rng.integers(0, hw + 6, (n, 3)).astype(np.int32)
+    coords[:, 2] = rng.integers(0, z + 3, n)
+    coords[:40] = (hw + rng.integers(0, 9, (40, 3))).astype(np.int32)
+    # beyond the x edge at five y: five edge cells of about 12 rows each
+    coords[40:100, 0] = hw + rng.integers(0, 9, 60)
+    coords[40:100, 1] = rng.integers(0, 5, 60)
+    coords[40:100, 2] = z + rng.integers(0, 3, 60)
+    batch = rng.integers(0, cfg.n_batch + 1, n).astype(np.int32)
+    batch[:100] = np.repeat([1, 0], [40, 60])
+    valid = rng.random(n) < 0.9
+    valid[:40] = True           # one corner cell: a second host read
+    feats = (rng.standard_normal((n, 3))
+             * 10.0 ** rng.integers(-4, 5, (n, 1))).astype(np.float32)
+    st = spconv.SparseTensor(*(_t(a) for a in (coords, batch, valid,
+                                               feats)))
+    size = cfg.n_batch * hw * hw * z
+    x = np.clip(coords[:, 0], 0, hw - 1)
+    y = np.clip(coords[:, 1], 0, hw - 1)
+    zz = np.clip(coords[:, 2], 0, z - 1)
+    flat = ((batch.astype(np.int64) * hw + x) * hw + y) * z + zz
+    flat = np.where(valid, flat, -1)
+    per_cell = np.bincount(flat[(flat >= 0) & (flat < size)],
+                           minlength=size)
+    assert per_cell.max() >= 40 and (per_cell >= 3).sum() >= 5
+    want = _loop_sum(feats, flat, size).reshape(cfg.n_batch, hw, hw,
+                                                z * 3)
+    ft = _t(feats).requires_grad_()
+    got = second.to_bev(st._replace(feats=ft), cfg)
+    assert np.array_equal(_bits(got.detach()), want.view(np.int32))
+    gb = rng.standard_normal(got.shape).astype(np.float32)
+    got.backward(_t(gb))
+    keep = (flat >= 0) & (flat < size)
+    assert np.array_equal(_np(ft.grad), np.where(
+        keep[:, None], gb.reshape(size, 3)[np.where(keep, flat, 0)], 0.0))
+
+
+@pytest.mark.parametrize("padding", [0, 1])
+def test_rpn_conv_equals_conv2d_and_its_autograd(padding):
+    """The RPN's convolution (its backward pinned to cuDNN's deterministic
+    algorithms on a card) gives ``F.conv2d``'s output and autograd
+    gradients bit for bit."""
+    rng = np.random.default_rng(padding)
+    x = rng.standard_normal((2, 6, 9, 9)).astype(np.float32)
+    w = rng.standard_normal((5, 6, 3 - 2 * (padding == 0),
+                             3 - 2 * (padding == 0))).astype(np.float32)
+    g = None
+    outs = []
+    for conv in (lambda a, b: second._Conv.apply(a, b, padding),
+                 lambda a, b: torch.nn.functional.conv2d(a, b,
+                                                         padding=padding)):
+        xt, wt = _t(x).requires_grad_(), _t(w).requires_grad_()
+        y = conv(xt, wt)
+        if g is None:
+            g = torch.from_numpy(rng.standard_normal(y.shape).astype(
+                np.float32))
+        y.backward(g)
+        outs.append((y.detach(), xt.grad, wt.grad))
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
 
 
 def test_detection_loss_and_grads_match_reference():
