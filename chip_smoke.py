@@ -5,7 +5,7 @@ Run from the root of a checkout, on a host with one CUDA card:
 
     python3 chip_smoke.py
 
-It builds the five hand-written kernels from the checkout's sources (one
+It builds the six hand-written kernels from the checkout's sources (one
 ``nvcc`` per source, in parallel; phase ``device`` reports each
 instantiation's registers, shared memory and spills) and drives each
 execution path of the port at MinkUNet-large's full published widths and
@@ -31,8 +31,10 @@ Qwen3-1.7B, Yi-9B, DeepSeek-67B and Mixtral-8x22B served and trained:
 * ``spconv_gemm``: the materialized backend at the 20 distinct layer
   shapes, the kernel against its plain version, then ``apply_kmap``
   against the fused ``apply_tiles`` and run twice, bit-equal (its scatter
-  adds each row in slot order), with peak device memory per shape and
-  the scatter timed against the one-``index_add`` form it replaced;
+  adds each row in slot order: one segment-sum launch a shape), with
+  peak device memory per shape, and the segment-sum kernel held
+  bit-equal to its plain version and timed at each shape's scatter
+  beside the one-``index_add`` form it replaced;
 * ``masked_matmul``: one dense GEMM per layer shape through
   ``sparse_dense_matmul``, the kernel against its plain version and
   ``torch.matmul`` (a shape where the kernel is slower is reported, not
@@ -63,9 +65,11 @@ Qwen3-1.7B, Yi-9B, DeepSeek-67B and Mixtral-8x22B served and trained:
   control that must fail it; then the fixed-order sums: the forward's
   ``cls`` / ``box`` digests equal across three kernel and two plain
   forwards, two loss steps each way bit-equal in the loss and every
-  gradient, and ``to_bev`` and the stage-0 ``apply_maps_scatter``
-  (forward and backward) timed against the one-``index_add`` forms they
-  replaced;
+  gradient, the segment-sum kernel (2 launches a forward) held bit-equal
+  to its plain version at ``to_bev`` and the stage-0 Gconv3's two
+  indexes and timed, and ``to_bev`` and the stage-0
+  ``apply_maps_scatter`` (forward and backward) timed against the
+  one-``index_add`` forms they replaced;
 * ``stream``: a moving-sensor sequence (12 frames of a 512-voxel window
   stepping 32, then the last frame again) through MinkUNet-large by a
   delta session (dirty rows searched by kernel 1 in row-list mode) and a
@@ -274,9 +278,10 @@ after (phase ``restart`` reads its workers' counts). The bound of kernels
 2-4 and of kernel 5's float32 route is float32-accurate work at the
 3xTF32 tensor-core rate (495 / 3 TFLOP/s) or bytes at HBM's rate,
 whichever is longer; ``bound_ms_f32_cores`` beside it is the bound at the
-CUDA cores' 67 TFLOP/s. Output is one JSON object per line; the last line
-is ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
-exits non-zero and prints no last line. It also exits non-zero when no
+CUDA cores' 67 TFLOP/s; the segment sum's is its adds at those 67
+TFLOP/s or its bytes at HBM's rate. Output is one JSON object per line;
+the last line is ``{"ok": true, "device": {...}}``. Any failed check
+raises, so the script exits non-zero and prints no last line. It also exits non-zero when no
 CUDA device is visible or when ``src/repro_torch`` is not beside it.
 """
 from __future__ import annotations
@@ -301,6 +306,9 @@ SECOND_BUCKET = 131072         # two LiDAR scans of phase second
 # stage 1 (kernel 2) replans from 98,304 output rows to 196,608; at 89,812
 # stage 0 replans to 179,624, which is not a multiple of 128
 SECOND_REPLAN_BUCKETS = (98304, 89812)
+# segment-sum launches a SECOND forward: to_bev and the stage-0 Gconv3's
+# input-stationary scatter
+SECOND_SUMS = 2
 LIDAR_VOXEL = 0.0125           # make_batch lidar voxel: 4 x this = 5 cm
 TOL_KERNEL = 1e-4              # f32, another summation order than plain
 TOL_LOGITS = 1e-3              # 25 layers of it, relative to max |logit|
@@ -318,6 +326,7 @@ MAT_SRC = "src/repro_torch/csrc/spconv_gemm.cu"
 K3_AB_SCRIPT = "scripts/spconv_gemm_ab.py"
 MM_SRC = "src/repro_torch/csrc/masked_matmul.cu"
 FLASH_SRC = "src/repro_torch/csrc/flash_attention.cu"
+SEG_SRC = "src/repro_torch/csrc/segment_sum.cu"
 PEAK_BF16_FLOPS = 989e12       # bf16 on the tensor cores, float32 sum
 # (rel, abs) of |kernel - plain| <= rel * |plain| + abs. Both sides sum in
 # float32 from the same inputs: bf16 allows one ulp of the bf16 output
@@ -576,7 +585,8 @@ def phase_device():
     instantiation's registers, shared memory and spills, no spill in
     either flash-attention route (bf16 ``wgmma``, float32 3xTF32) at any
     head dim, and no spill and at most 128 registers a thread in the
-    3xTF32 tile loops of kernels 2, 3 and 4."""
+    3xTF32 tile loops of kernels 2, 3 and 4, and none in the segment
+    sum."""
     import ctypes
     import torch
     from repro_torch.kernels import build
@@ -636,6 +646,13 @@ def phase_device():
             check(rep["spill_stores"] == rep["spill_loads"] == 0
                   and rep["registers"] <= 128,
                   f"{rep['kernel']} spills or exceeds 128 registers: {rep}")
+    # the segment sum (float4 and float) keeps its batch of upcoming
+    # values in registers
+    check([r["kernel"] for r in ptxas["segment_sum"]]
+          == ["segment_sum_kernel"] * 2 and all(
+              r["spill_stores"] == r["spill_loads"] == 0
+              for r in ptxas["segment_sum"]),
+          f"segment_sum.cu built {ptxas['segment_sum']}")
     emit(phase="device", nvidia_smi=smi, torch=torch.__version__,
          cuda=torch.version.cuda, name=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), build_s=build_s, ptxas=ptxas)
@@ -1032,16 +1049,35 @@ def _scatter_valid_unordered(ps, tiles, n_out):
 
 
 def _sum_times(vals, dst, n_rows, iters):
-    """Wall ms (host reads included) of one fixed-order sum of ``vals`` by
-    ``dst``: index build and sum, the sum alone over an index built
-    beforehand, and its backward; against one ``index_add`` of the same
-    kept values (the library call). With the index's shape: its widest
-    row (the sum's columns) and the sources kept."""
+    """One fixed-order sum of ``vals`` by ``dst`` into ``n_rows`` rows: the
+    segment-sum kernel held bit-equal to its plain version on the card
+    over the same index, then device ms (CUDA events) of the kernel, of
+    the plain version (its column layout built beforehand) and of one
+    ``index_add_`` of the same kept values (the library call), beside the
+    bound: the kept rows read, the output written and the index read at
+    HBM's rate, against the adds at the CUDA cores' float32 rate. Then
+    wall ms (host clock, device synced) of index build and sum, the sum
+    alone over an index built beforehand, its backward and the bare call.
+    With the index's shape: its widest row (from ``starts``), the sources
+    kept and the channels."""
     import torch
     from repro_torch.core import segment
+    from repro_torch.kernels.segment_sum import kernel as ss_kernel
+    from repro_torch.kernels.segment_sum.ref import (segment_sum_ref,
+                                                     with_layout)
     seg = segment.segments((dst, n_rows))[0]
+    laid = with_layout(seg)
+    got = ss_kernel.segment_sum(vals, seg)
+    want = segment_sum_ref(vals, laid)
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+          f"segment_sum differs from its plain version over {n_rows} rows: "
+          f"max |k - p| {err}")
+    del got, want
+    widest = int((seg.starts[1:] - seg.starts[:-1]).max()) if n_rows else 0
     keep = torch.nonzero(seg.key < n_rows).squeeze(1)
     kd, kv = seg.key[keep], vals[keep]
+    kept, c = int(keep.numel()), int(np.prod(vals.shape[1:]))
     v = vals.detach().requires_grad_()
     y = segment.ordered_sum(v, seg)
     g = torch.ones_like(y)
@@ -1049,10 +1085,23 @@ def _sum_times(vals, dst, n_rows, iters):
     def lib():
         return torch.zeros_like(y).index_add_(0, kd, kv)
 
-    err = float((y.detach() - lib()).abs().max()) if y.numel() else 0.0
-    return {"rows": n_rows, "sources": int(dst.shape[0]),
-            "kept": int(keep.numel()), "widest_row": len(seg.cols),
-            "ordered_vs_index_add_max_abs_err": err,
+    lib_err = float((y.detach() - lib()).abs().max()) if y.numel() else 0.0
+    nbytes = 4.0 * (kept + n_rows) * c + 8.0 * (kept + n_rows + 1)
+    t_ops, t_bytes = kept * c / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_S
+    return {"rows": n_rows, "sources": int(dst.shape[0]), "kept": kept,
+            "channels": c, "widest_row": widest,
+            "kernel_vs_plain": "bit-equal", "max_abs_err": err,
+            "adds": kept * c, "bytes": nbytes,
+            "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "ops_ms": t_ops * 1e3, "bytes_ms": t_bytes * 1e3,
+            "kernel_ms": time_ms(lambda: ss_kernel.segment_sum(vals, seg),
+                                 max(iters, 10)),
+            # a wide row's column loop is host-paced: one call is enough
+            "plain_ms": time_ms(lambda: segment_sum_ref(vals, laid),
+                                iters if widest < 1000 else 1),
+            "library_ms": time_ms(lib, max(iters, 10)),
+            "ordered_vs_index_add_max_abs_err": lib_err,
             "ordered_ms": wall_ms(lambda: segment.ordered_sum(
                 vals, segment.segments((dst, n_rows))[0]), iters),
             "ordered_sum_only_ms": wall_ms(
@@ -1060,6 +1109,22 @@ def _sum_times(vals, dst, n_rows, iters):
             "ordered_backward_ms": wall_ms(lambda: torch.autograd.grad(
                 y, v, g, retain_graph=True), iters),
             "index_add_ms": wall_ms(lib, iters)}
+
+
+#: the keys of a ``_sum_times`` record that the ``kernels`` line sums
+SUM_KEYS = ("kernel_ms", "plain_ms", "bound_ms", "library_ms", "ops_ms",
+            "bytes_ms")
+
+
+def _sum_totals(recs) -> dict:
+    """``SUM_KEYS`` summed over ``_sum_times`` records, with the bound's
+    side and the largest kernel-vs-plain difference."""
+    tot = {k: sum(r[k] for r in recs) for k in SUM_KEYS}
+    tot["bound_by"] = ("operations" if tot["ops_ms"] >= tot["bytes_ms"]
+                       else "bytes")
+    tot["max_abs_err"] = max(r["max_abs_err"] for r in recs)
+    tot["widest_row"] = max(r["widest_row"] for r in recs)
+    return tot
 
 
 def phase_materialized(dev, scene, cfg):
@@ -1074,6 +1139,7 @@ def phase_materialized(dev, scene, cfg):
     one-``index_add`` form it replaced and the bare library call."""
     import torch
     from repro_torch.core import sparsity
+    from repro_torch.kernels.segment_sum import kernel as ss_kernel
     from repro_torch.kernels.spconv_gemm import kernel as sg_kernel
     from repro_torch.kernels.spconv_gemm import ops as sg_ops
     from repro_torch.kernels.spconv_gemm.ref import BN, spconv_gemm_ref
@@ -1129,7 +1195,7 @@ def phase_materialized(dev, scene, cfg):
         per_shape.append(rec)
 
     # the main path of this backend: apply_kmap over every shape
-    sg_kernel.materialized_launches = 0
+    sg_kernel.materialized_launches = ss_kernel.launches = 0
     outs = []
     for shp, rec in zip(shapes, per_shape):
         torch.cuda.synchronize()
@@ -1142,10 +1208,11 @@ def phase_materialized(dev, scene, cfg):
         rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
         rec["peak_above_inputs_gb"] = (torch.cuda.max_memory_allocated()
                                        - held) / 1e9
-    launches = sg_kernel.materialized_launches
-    check(launches == len(shapes),
-          f"apply_kmap launched spconv_gemm {launches} times over "
-          f"{len(shapes)} shapes")
+    launches, ss_launches = sg_kernel.materialized_launches, \
+        ss_kernel.launches
+    check(launches == len(shapes) and ss_launches == len(shapes),
+          f"apply_kmap launched spconv_gemm {launches} and segment_sum "
+          f"{ss_launches} times over {len(shapes)} shapes")
 
     for shp, rec, out in zip(shapes, per_shape, outs):
         plan, f, w = shp["plan"], shp["f"], shp["w"]
@@ -1188,8 +1255,9 @@ def phase_materialized(dev, scene, cfg):
             "gather": time_ms(gather, 3), "kernel": rec["ms"],
             "scatter_add": time_ms(lambda: sg_ops.scatter_valid(
                 ps, tiles, plan.n_out), 3)}
-        # the scatter apart, wall ms: fixed-order now, the one-index_add
-        # form it replaced, and the bare library call
+        # the scatter apart: the segment-sum kernel against its plain
+        # version and the bare library call; wall ms of scatter_valid and
+        # of the one-index_add form it replaced
         dst = torch.where(tiles.slot_valid, tiles.scatter_idx.long(),
                           plan.n_out)
         rec["scatter_sum"] = {
@@ -1217,7 +1285,10 @@ def phase_materialized(dev, scene, cfg):
         apply_kmap_ms=tot["apply_kmap_ms"],
         apply_tiles_ms=tot["apply_tiles_ms"], apply_kmap_path=path)
     entry["share_of_bound"] = entry["bound_ms"] / entry["ms"]
-    return entry
+    scatter = {"launches": ss_launches,
+               **_sum_totals([r["scatter_sum"] for r in per_shape])}
+    emit(phase="spconv_gemm.scatter_sum", shapes=len(per_shape), **scatter)
+    return entry, scatter
 
 
 def phase_masked(dev, scene, cfg):
@@ -2890,8 +2961,10 @@ def _counts():
 def _reset_counts():
     from repro_torch.core import plan as planlib
     from repro_torch.kernels.octent import kernel as oct_kernel
+    from repro_torch.kernels.segment_sum import kernel as ss_kernel
     from repro_torch.kernels.spconv_gemm import kernel as sg_kernel
     oct_kernel.launches = oct_kernel.row_launches = 0
+    ss_kernel.launches = 0
     sg_kernel.launches = sg_kernel.epilogue_launches = 0
     sg_kernel.reduce_launches = sg_kernel.plan_launches = 0
     planlib.MAPSEARCH_CALLS[0] = 0
@@ -3544,9 +3617,11 @@ def _apply_maps_scatter_unordered(feats, weights, maps, bias, *, n_out,
 def _second_sums(dev, model, st, g0):
     """SECOND-large's two fixed-order sums of the forward, wall ms (host
     reads included), each against the one-``index_add`` form it replaced
-    (``before``) and the index's own parts (``_sum_times``): ``to_bev``
-    on the middle extractor's output, and the stage-0 Gconv3's
-    ``apply_maps_scatter`` (plan ``g0``) forward and backward; and the
+    (``before``), and the segment-sum kernel at each index, held bit-equal
+    to its plain version and timed (``_sum_times``): ``to_bev`` on the
+    middle extractor's output, and the stage-0 Gconv3's
+    ``apply_maps_scatter`` (plan ``g0``) forward and backward (its output
+    and input indexes); and the
     RPN head's forward and backward with its deterministic backward
     against cuDNN's default one, each run twice."""
     import torch
@@ -3562,8 +3637,7 @@ def _second_sums(dev, model, st, g0):
     size = cfg.n_batch * hw * hw * z
     flat = torch.where(mid.valid,
                        ((mid.batch.long() * hw + x) * hw + y) * z + zz, size)
-    # host-paced (a launch a column of the corner cell's voxels), so the
-    # two forms take turns, each call timed on its own
+    # the two forms take turns, each call timed on its own
     turns = [(wall_ms(lambda: second.to_bev(mid, cfg), 1),
               wall_ms(lambda: _to_bev_unordered(mid, cfg), 1))
              for _ in range(3)]
@@ -3658,6 +3732,7 @@ def phase_second(dev):
     from repro_torch.core import plan as planlib
     from repro_torch.core.spconv import SparseTensor
     from repro_torch.data import pointcloud
+    from repro_torch.kernels.segment_sum import kernel as ss_kernel
     from repro_torch.models import second
     from repro_torch.runtime import guard
     t_phase = time.perf_counter()
@@ -3718,6 +3793,7 @@ def phase_second(dev):
             h0 = guard.health().get("replan.overflow")
             ms, out = sync_ms(lambda: model(s, impl=impl))
             return {"ms": ms, "out": out, "counts": _counts(),
+                    "segment_sum": ss_kernel.launches,
                     "replans": guard.health().get("replan.overflow") - h0,
                     "tried": list(tried),
                     "plans": {k: unique(v) for k, v in built.items()}}
@@ -3728,6 +3804,7 @@ def phase_second(dev):
         res.update(kplans=res.pop("plans"), rplans=ref["plans"],
                    ref_ms=ref["ms"], ref_out=ref["out"],
                    ref_counts=ref["counts"], ref_replans=ref["replans"],
+                   ref_segment_sum=ref["segment_sum"],
                    ref_tried=ref["tried"],
                    again_searches=planlib.MAPSEARCH_CALLS[0] - searches)
         return res
@@ -3747,6 +3824,13 @@ def phase_second(dev):
               and counts[2] == 0,
               f"{label}: (octent, gemm, epilogue) launches = {counts[:3]}, "
               f"want ({n_stages}, {n_gemm}, 0)")
+        # the segment sums: to_bev and the stage-0 Gconv3's scatter, on
+        # the card in both forwards (it replaces an op of the reference,
+        # not a Pallas kernel, and equals its plain version bit for bit)
+        check(res["segment_sum"] == res["ref_segment_sum"] == SECOND_SUMS,
+              f"{label}: segment_sum launched {res['segment_sum']} times "
+              f"(plain forward {res['ref_segment_sum']}), want "
+              f"{SECOND_SUMS}")
         check(counts[3] == 2 * n_stages + probes
               and res["replans"] == probes
               and res["again_searches"] == 2 * n_stages,
@@ -3920,9 +4004,11 @@ def phase_second(dev):
     _reset_counts()
     step_ms, (lk, gk) = sync_ms(lambda: run("kernel",
                                             _relu_hooks(k_masks, sizes)))
-    step_counts = _counts()
-    check(step_counts[0] == n_stages and step_counts[1] == n_gemm,
-          f"second: loss step launches {step_counts[:2]}")
+    step_counts, step_sums = _counts(), ss_kernel.launches
+    check(step_counts[0] == n_stages and step_counts[1] == n_gemm
+          and step_sums >= SECOND_SUMS,
+          f"second: loss step launches {step_counts[:2]}, segment_sum "
+          f"{step_sums}")
     n_relu = n_stages * (1 + cfg.blocks) + 2
     check(len(k_masks) == n_relu,
           f"second: {len(k_masks)} ReLU calls, want {n_relu}")
@@ -3963,7 +4049,8 @@ def phase_second(dev):
                           for b in range(cfg.n_batch)],
          launches={"octent_query": counts[0], "spconv_gemm_fused": counts[1],
                    "mapsearch": counts[3], "split_plan": counts[5],
-                   "split_reduce": counts[4]},
+                   "split_reduce": counts[4],
+                   "segment_sum": main["segment_sum"]},
          probes=probes, replans=main["replans"], stages=stages,
          builds_tried=[{"rows": r, "budget": b, "overflow_needed": n}
                        for r, b, n in first_tried],
@@ -4000,12 +4087,25 @@ def phase_second(dev):
                     "control_tf32": {**control, "broken": control_broken},
                     "relu_outputs": sizes,
                     "launches": {"octent_query": step_counts[0],
-                                 "spconv_gemm_fused": step_counts[1]}},
+                                 "spconv_gemm_fused": step_counts[1],
+                                 "segment_sum": step_sums}},
          peak_mem_gb=peak_gb, seconds=time.perf_counter() - t_phase)
     del model, batch, st
     torch.cuda.empty_cache()
+    fwd_sums = (sums["to_bev"], sums["apply_maps_scatter"]["sum"])
     return {"octent_query": counts[0], "spconv_gemm_fused": counts[1],
-            "octent_ms": k1_ms, "gemm_ms": k2_tot["ms"]}
+            "octent_ms": k1_ms, "gemm_ms": k2_tot["ms"],
+            "segment_sum": {
+                "launches": main["segment_sum"],
+                "loss_step_launches": step_sums,
+                **_sum_totals(fwd_sums),
+                "shapes": {name: {k: r[k] for k in (
+                    "rows", "kept", "channels", "widest_row", *SUM_KEYS)}
+                    for name, r in (
+                        ("to_bev", fwd_sums[0]),
+                        ("gconv3_stage0_out", fwd_sums[1]),
+                        ("gconv3_stage0_in", sums["apply_maps_scatter"][
+                            "input_gather_backward"]))}}}
 
 
 def _profile_rows(prof):
@@ -6367,7 +6467,8 @@ def main() -> int:
     k2["epilogue_launches"], k2["split_reduce_launches"] = counts[2], counts[4]
     k2["plan_launches"] = counts[5]
     check(counts[4] > 0, "the split-sum kernel never ran on the served path")
-    k3 = timed_phase("materialized", phase_materialized, dev, lidar0, cfg)
+    k3, ss_apply_kmap = timed_phase("materialized", phase_materialized, dev,
+                                    lidar0, cfg)
     k4 = timed_phase("masked", phase_masked, dev, lidar0, cfg)
     timed_phase("scan", phase_scan, dev, cfg, lidar0, model)
     del model, results
@@ -6451,11 +6552,30 @@ def main() -> int:
                     f"layer; max_abs_err over all shapes, bf16 and f32; "
                     f"f32: the same prefill's {n} launches in float32 "
                     f"(3xTF32 route), bound at 495 / 3 TFLOP/s"}
-    for k in (k1, k2, k3, k4, k5):
+    ss = sec["segment_sum"]
+    k6 = {"name": "segment_sum", "route": "cuda", "source": SEG_SRC,
+          "replaces": "src/repro/models/second.py:116",
+          "launches": ss["launches"], "max_abs_err": max(
+              ss["max_abs_err"], ss_apply_kmap["max_abs_err"]),
+          "ms": ss["kernel_ms"], "plain_ms": ss["plain_ms"],
+          "bound_ms": ss["bound_ms"], "bound_by": ss["bound_by"],
+          "library_ms": ss["library_ms"],
+          "widest_row": ss["widest_row"], "shapes": ss["shapes"],
+          "loss_step_launches": ss["loss_step_launches"],
+          "apply_kmap_launches": ss_apply_kmap["launches"],
+          "apply_kmap": {k: ss_apply_kmap[k] for k in (
+              *SUM_KEYS, "bound_by", "widest_row")},
+          "timing": f"the {SECOND_SUMS} sums of one SECOND-large forward "
+                    "(to_bev and the stage-0 Gconv3's scatter), device ms; "
+                    "apply_kmap: its 20 shapes, one sum each; plain: the "
+                    "column loop on the card, its layout built beforehand; "
+                    "library: one index_add_ of the kept rows; "
+                    "max_abs_err 0 is bit-equal"}
+    for k in (k1, k2, k3, k4, k5, k6):
         check(k["launches"] > 0, f"{k['name']} never launched on the path")
     emit(phase="done", seconds=time.perf_counter() - t0,
          phases=PHASE_S)
-    print(json.dumps({"kernels": [k1, k2, k3, k4, k5]}), flush=True)
+    print(json.dumps({"kernels": [k1, k2, k3, k4, k5, k6]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

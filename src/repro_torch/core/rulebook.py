@@ -128,8 +128,8 @@ def apply_maps_scatter(feats: torch.Tensor, weights: torch.Tensor, maps,
     counts) and each tap's slice is one matmul. Each output row adds its
     partial sums in ascending tap order, as the reference's scan of
     per-tap scatters does, and the backward adds each input row's
-    gradients in the same order (:mod:`segment`; one more host read, for
-    both indexes, and none in the backward), so two runs give the same
+    gradients in the same order (:mod:`segment`; on the card no host
+    read, for both indexes and in the backward), so two runs give the same
     bits. Maps with ``out_idx`` outside ``[0, n_out)`` are dropped.
     Returns the (n_out, Cout) output (+ bias), zero on rows that
     ``maps.out_valid`` marks invalid. Differentiable by autograd.

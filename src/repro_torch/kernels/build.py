@@ -31,6 +31,7 @@ SOURCES = {
     "spconv_gemm": "spconv_gemm.cu",
     "masked_matmul": "masked_matmul.cu",
     "flash_attention": "flash_attention.cu",
+    "segment_sum": "segment_sum.cu",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -446,7 +446,7 @@ def scatter_valid(ps: torch.Tensor, tiles: TapTiles,
     (:func:`segment.ordered_sum`, the reference's scatter order), so two
     runs give the same bits. The rows of pad slots and dead tiles are not
     read, as the reference's ``mode="drop"`` scatter throws the pad slots
-    away. One host read, of the index's column sizes."""
+    away. On the card nothing is read back to the host."""
     dst = torch.where(tiles.slot_valid, tiles.scatter_idx.long(), n_out)
     return _segment.ordered_sum(ps, _segment.segments((dst, n_out))[0])
 

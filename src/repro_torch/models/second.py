@@ -170,10 +170,9 @@ def to_bev(st: SparseTensor, cfg: SECONDConfig) -> torch.Tensor:
     Coordinates are clipped into the (bev_hw, bev_hw, bev_z) grid; invalid
     rows and rows whose batch index is ``n_batch`` or more are dropped.
     Voxels that land in one cell add up in ascending row order, the
-    reference's scatter order (:func:`segment.ordered_sum`: only occupied
-    cells are added into, and two runs give the same bits). Two host
-    reads when a cell takes more than ``segment.GUESS`` voxels, as the
-    grid's clipped edge does.
+    reference's scatter order (:func:`segment.ordered_sum`: one launch
+    of the segment-sum kernel on the card, and two runs give the same
+    bits). On the card nothing is read back to the host.
     """
     hw, z = cfg.bev_hw, cfg.bev_z
     size = cfg.n_batch * hw * hw * z

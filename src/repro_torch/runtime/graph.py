@@ -65,7 +65,8 @@ from torch.utils import _pytree as pytree
 KERNEL_MODULES = ("repro_torch.kernels.octent.kernel",
                   "repro_torch.kernels.spconv_gemm.kernel",
                   "repro_torch.kernels.masked_matmul.kernel",
-                  "repro_torch.kernels.flash_attention.kernel")
+                  "repro_torch.kernels.flash_attention.kernel",
+                  "repro_torch.kernels.segment_sum.kernel")
 
 
 def launch_counts() -> dict:

@@ -60,7 +60,11 @@ kernel run's) are held to the plain versions. The fixed-order sums
 ``to_bev``) give their CPU bits on the card, with no host read over a
 prebuilt index; ``apply_kmap``, ``apply_maps_scatter`` with its
 gradients, and the small SECOND's forward and ``detection_loss`` with
-every gradient are bit-equal across two runs. Kernel 1's row-list mode is
+every gradient are bit-equal across two runs. The segment-sum kernel
+equals its plain version bit for bit (on the card and the CPU, one row of
+14,532 sources among the cases) in one launch a sum, the ordered gather's
+backward too; ``segments()`` and the sums read nothing back to the host,
+and a float64 input raises. Kernel 1's row-list mode is
 held to its plain version on a spliced streaming table (an empty list,
 one row, 200 rows, evicted slots, -1 pads), and a TINY stream's delta and
 scratch sessions agree bit for bit on the card. The serving engine retries
@@ -1394,6 +1398,105 @@ def test_fixed_order_sums_bit_equal_across_runs_on_card(cuda):
         assert torch.equal(l0, l1), impl
         assert [k for k in g0 if not torch.equal(g0[k], g1[k])] == [], impl
 
+
+
+def _int_bits(t):
+    return t.detach().cpu().contiguous().view(torch.int32)
+
+
+#: (row source counts, channels) of the segment-sum kernel's cases: rows of
+#: 0, 1, 2, 27 and more than ``segment.GUESS`` sources, a narrow and a
+#: wide channel count (more channels than a CTA has threads), and one row
+#: of 14,532 sources, SECOND-large's BEV corner cell
+SEGMENT_SUM_CASES = {
+    "mixed_c5": ([0, 1, 2, 27, 0, 3, 1, 27, 2, 0], 5),
+    "wide_c1": ([0, 40, 1, 2, 0, 27, 33], 1),
+    "wide_c300": ([0, 40, 1, 2, 0, 27, 33], 300),
+    "empty_c24": ([0, 0, 0], 24),
+    "corner_c128": ([3, 0, 14532, 1, 27, 0, 2] * 2, 128),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SEGMENT_SUM_CASES))
+def test_segment_sum_kernel_bit_equal_to_plain(cuda, case):
+    """The kernel equals its plain version bit for bit, on the card and on
+    the CPU (dropped sources, a row of negative zeros), in one launch a
+    sum, by its float4 route and its float one; the index built on the
+    card carries no column layout. The
+    ordered gather's backward, the kernel too, is bit-equal likewise."""
+    from repro_torch.core import segment
+    from repro_torch.kernels.segment_sum import kernel as ss_kernel
+    from repro_torch.kernels.segment_sum.ref import segment_sum_ref
+    counts, c = SEGMENT_SUM_CASES[case]
+    rng = np.random.default_rng(len(case))
+    vals, dst = _sum_case(rng, counts, c=c)
+    zero_row = next((r for r, k in enumerate(counts) if k == 3), None)
+    if zero_row is not None:
+        vals[dst == zero_row] = -0.0
+    n_rows = len(counts)
+    v, d = _dev(cuda, vals, dst)
+    seg = segment.segments((d, n_rows))[0]
+    assert seg.cols is None and seg.perm is None
+    before = ss_kernel.launches
+    got = ss_kernel.segment_sum(v, seg)
+    assert ss_kernel.launches == before + 1
+    plain = segment_sum_ref(v, seg)
+    cpu = segment.ordered_sum(torch.as_tensor(vals),
+                              segment.segments((torch.as_tensor(dst),
+                                                n_rows))[0])
+    assert torch.equal(_int_bits(got), _int_bits(plain))
+    assert torch.equal(_int_bits(got), _int_bits(cpu))
+    # values 4 bytes past a 16-byte boundary take the float route
+    odd = torch.empty(v.numel() + 1, device=cuda)[1:].view(v.shape)
+    odd.copy_(v)
+    assert torch.equal(_int_bits(ss_kernel.segment_sum(odd, seg)),
+                       _int_bits(got))
+
+    # ordered_gather's backward: the sum of each row's gradients by idx
+    idx = d.clamp(0, n_rows - 1)
+    gseg = segment.segments((idx, n_rows))[0]
+    f = torch.randn((n_rows, c), device=cuda).requires_grad_()
+    rows = segment.ordered_gather(f, idx, gseg)
+    before = ss_kernel.launches
+    (gf,) = torch.autograd.grad(rows, f, v)
+    assert ss_kernel.launches == before + 1
+    assert torch.equal(_int_bits(gf), _int_bits(segment_sum_ref(v, gseg)))
+
+
+def test_segment_sum_reads_nothing_back_and_refuses_float64(cuda):
+    """``segments()`` and ``ordered_sum`` with its backward, and
+    ``ordered_gather``'s backward, run with no host sync on the card; the
+    kernel takes float32 only."""
+    from repro_torch.core import segment
+    from repro_torch.kernels.segment_sum import kernel as ss_kernel
+    rng = np.random.default_rng(23)
+    counts = rng.integers(0, 28, 3000)
+    counts[[5, 900]] = (0, 300)
+    vals, dst = _sum_case(rng, counts)
+    v, d = _dev(cuda, vals, dst)
+    v.requires_grad_()
+    f = torch.randn((len(counts), vals.shape[1]), device=cuda,
+                    requires_grad=True)
+    idx = d.clamp(0, len(counts) - 1)
+    # the first launch builds and loads the library
+    ss_kernel.segment_sum(v.detach(), segment.segments((d, len(counts)))[0])
+    before = ss_kernel.launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        seg, gseg = segment.segments((d, len(counts)), (idx, len(counts)))
+        out = segment.ordered_sum(v, seg)
+        (gv,) = torch.autograd.grad(out, v, torch.ones_like(out))
+        rows = segment.ordered_gather(f, idx, gseg)
+        (gf,) = torch.autograd.grad(rows, f, v.detach())
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert ss_kernel.launches == before + 2
+    assert bool(torch.isfinite(out).all()) and bool(torch.isfinite(gf).all())
+    with pytest.raises(TypeError, match="float32"):
+        ss_kernel.segment_sum(v.detach().double(), seg)
+    with pytest.raises(TypeError, match="float32"):
+        segment.ordered_sum(v.detach().double(), seg)
 
 def _spliced_level(dev, n=4096):
     """Two frames of a small moving sensor through the delta path on the

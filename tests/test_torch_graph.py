@@ -151,6 +151,7 @@ def test_launch_counts_cover_every_kernel_counter():
                      ("spconv_gemm", "plan_launches"),
                      ("spconv_gemm", "reduce_launches"),
                      ("flash_attention", "launches"),
-                     ("masked_matmul", "launches")}
+                     ("masked_matmul", "launches"),
+                     ("segment_sum", "launches")}
     for (mod, c), n in counts.items():
         assert getattr(mod, c) == n and isinstance(n, int)

@@ -13,7 +13,9 @@
   input (the flash-attention wrapper also on an unsupported head dim,
   Sq > Skv and Hq % Hkv != 0).
 * Every CUDA source under ``csrc/`` is built by ``kernels/build.py`` and
-  opens with a note naming the TPU kernel it replaces, which exists.
+  opens with a note naming the TPU kernel it replaces, which exists, or,
+  for a kernel that replaces none, the reference's op by file and line,
+  which that line holds.
 * Every scatter-add left in ``src/repro_torch`` (``index_add``,
   ``scatter_add``, ``index_put`` / ``put`` with ``accumulate``,
   ``scatter_reduce``, a weighted ``bincount``) is on a list, each float
@@ -92,12 +94,33 @@ def test_import_needs_no_nvcc_and_no_card():
             "import torch.distributed as dist\n"
             "assert not dist.is_initialized()\n"
             "print('ok')\n")
+    r = subprocess.run([sys.executable, "-c", code], env=_no_card_env(),
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
+    assert not (REPO / "build" / "never-created").exists()
+
+
+def _no_card_env():
+    """A child's environment with no ``nvcc`` to find and no card, and a
+    build directory that a build would create."""
     env = {k: v for k, v in os.environ.items()
            if k not in ("CUDA_HOME", "CUDA_PATH")}
     env.update(PATH="", CUDA_VISIBLE_DEVICES="",
                PYTHONPATH=str(REPO / "src"),
                REPRO_TORCH_BUILD_DIR=str(REPO / "build" / "never-created"))
-    r = subprocess.run([sys.executable, "-c", code], env=env,
+    return env
+
+
+def test_segment_sum_imports_and_sums_with_no_nvcc_and_no_card():
+    code = ("import torch\n"
+            "from repro_torch.core import segment\n"
+            "from repro_torch.kernels.segment_sum import kernel\n"
+            "seg = segment.segments((torch.tensor([2, 0, 2, 5, -1]), 3))[0]\n"
+            "out = segment.ordered_sum(torch.ones(5, 2), seg)\n"
+            "assert out.tolist() == [[1, 1], [0, 0], [2, 2]]\n"
+            "assert kernel.launches == 0\n"
+            "print('ok')\n")
+    r = subprocess.run([sys.executable, "-c", code], env=_no_card_env(),
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
     assert not (REPO / "build" / "never-created").exists()
@@ -128,21 +151,35 @@ def test_sharded_serving_raises_without_a_card(monkeypatch):
 
 
 def test_every_cuda_source_is_built_and_names_its_tpu_kernel():
+    """Every ``.cu`` is built, and its header names the Pallas TPU kernel
+    it replaces or, for a kernel that replaces none, the reference's op by
+    ``src/repro/...py:line``: that line must hold the op."""
     import re
     from repro_torch.kernels import build
     sources = sorted(p.name for p in (PKG / "csrc").glob("*.cu"))
     assert sources == sorted(build.SOURCES.values())
-    assert len(sources) >= 5
+    assert len(sources) >= 6
+    pallas = 0
     for name, src in build.SOURCES.items():
         text = (PKG / "csrc" / src).read_text()
         head = text[:text.index("#include")]
         m = re.search(r"Replaces: the Pallas TPU kernel `(\w+)` in\s*//\s*"
                       r"(src/repro/\S+\.py)", head)
-        assert m, f"{src} does not say which TPU kernel it replaces"
-        tpu = (REPO / m.group(2)).read_text()
-        assert f"def {m.group(1)}(" in tpu and "pallas_call" in tpu
+        if m:
+            tpu = (REPO / m.group(2)).read_text()
+            assert f"def {m.group(1)}(" in tpu and "pallas_call" in tpu
+            pallas += 1
+        else:
+            op = re.search(r"Replaces: the reference's [^`]*`([^`]+)` at"
+                           r"\s*//\s*(src/repro/\S+\.py):(\d+)", head)
+            assert op, (f"{src} does not say which TPU kernel or reference "
+                        f"op it replaces")
+            line = (REPO / op.group(2)).read_text().splitlines()[
+                int(op.group(3)) - 1]
+            assert op.group(1) in line, (src, line)
         assert "What bounds it on the H100" in head, src
         assert f'extern "C" int {name}_launch(' in text, src
+    assert pallas >= 5
 
 
 def test_training_entry_points_raise_without_a_card(monkeypatch, tmp_path):

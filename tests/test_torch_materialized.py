@@ -17,7 +17,11 @@ Bit-equal to explicit numpy float32 loops that add each destination row's
 sources in ascending order from zero: ``segment.ordered_sum`` (rows of 0,
 1, 2, 27 and more than ``segment.GUESS`` sources, dropped sources, a row
 of negative zeros) and its backward (``g[dst]``), ``ordered_gather``'s
-backward, and ``scatter_valid`` in ascending slot order.
+backward, and ``scatter_valid`` in ascending slot order; the segment-sum
+kernel's plain version (``kernels/segment_sum/ref.py``) and its wrapper
+on CPU tensors, on an index with its column layout and on one without (as
+an index built on the card is). A CPU index's ``src`` / ``starts`` are
+numpy's stable argsort by destination and each row's first slot.
 """
 from __future__ import annotations
 
@@ -34,6 +38,9 @@ from repro.kernels.spconv_gemm import ops as jsg_ops
 from repro.kernels.spconv_gemm.kernel import spconv_gemm as jspconv_gemm
 from repro.kernels.spconv_gemm.ref import spconv_gemm_ref as jspconv_gemm_ref
 from repro_torch.core import morton, rulebook, segment, sparsity
+from repro_torch.kernels import build
+from repro_torch.kernels.segment_sum import kernel as ss_kernel
+from repro_torch.kernels.segment_sum.ref import segment_sum_ref
 from repro_torch.kernels.spconv_gemm import kernel as sg_kernel
 from repro_torch.kernels.spconv_gemm import ops as sg_ops
 from repro_torch.kernels.spconv_gemm.ref import spconv_gemm_ref
@@ -369,6 +376,13 @@ def test_ordered_sum_bit_equal_to_the_ascending_loop(case):
     assert got.dtype == torch.float32
     assert np.array_equal(got.detach().numpy().view(np.int32),
                           want.view(np.int32))
+    # the plain version and the wrapper, on this index and on one without
+    # its layout, as an index built on the card is
+    bare = seg._replace(perm=None, pos=None, cols=None)
+    for fn in (segment_sum_ref, ss_kernel.segment_sum):
+        for s in (seg, bare):
+            assert np.array_equal(fn(_t(vals), s).numpy().view(np.int32),
+                                  want.view(np.int32))
     # the backward is the gather g[dst], zero for a dropped source
     g = np.random.default_rng(3).standard_normal(want.shape).astype(
         np.float32)
@@ -392,6 +406,45 @@ def test_ordered_gather_backward_bit_equal_to_the_ascending_loop():
     rows.backward(_t(g))
     assert np.array_equal(f.grad.numpy().view(np.int32),
                           _loop_sum(g, idx, 6).view(np.int32))
+
+
+@pytest.mark.parametrize("case", sorted(SEGMENT_COUNTS))
+def test_segment_index_is_the_stable_argsort_by_destination(case):
+    counts = SEGMENT_COUNTS[case]
+    _, dst = _segment_case(counts, len(case))
+    n_rows = len(counts)
+    seg = segment.segments((_t(dst), n_rows))[0]
+    key = np.where((dst >= 0) & (dst < n_rows), dst, n_rows)
+    assert np.array_equal(seg.key.numpy(), key)
+    assert np.array_equal(seg.src.numpy(), np.argsort(key, kind="stable"))
+    assert np.array_equal(seg.starts.numpy(), np.concatenate(
+        [[0], np.cumsum(np.bincount(key, minlength=n_rows + 1)[:n_rows])]))
+
+
+def test_segment_sum_wrapper_runs_the_plain_version_on_cpu(monkeypatch):
+    """On CPU tensors the wrapper calls the plain version and launches
+    nothing; an index on another device than the values raises."""
+    calls = []
+
+    def plain(vals, seg):
+        calls.append(seg.n_rows)
+        return segment_sum_ref(vals, seg)
+
+    def launch(*args, **kw):
+        raise AssertionError("the kernel was launched on CPU tensors")
+
+    monkeypatch.setattr(ss_kernel, "segment_sum_ref", plain)
+    monkeypatch.setattr(build, "launch_fn", launch)
+    counts = SEGMENT_COUNTS["wide"]
+    vals, dst = _segment_case(counts, 9)
+    seg = segment.segments((_t(dst), len(counts)))[0]
+    before = ss_kernel.launches
+    got = segment.ordered_sum(_t(vals), seg)
+    assert calls == [len(counts)] and ss_kernel.launches == before
+    assert np.array_equal(got.numpy().view(np.int32),
+                          _loop_sum(vals, dst, len(counts)).view(np.int32))
+    with pytest.raises(ValueError, match="index"):
+        ss_kernel.segment_sum(_t(vals).to("meta"), seg)
 
 
 def test_scatter_valid_bit_equal_to_the_slot_order_loop():
